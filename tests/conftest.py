@@ -35,6 +35,11 @@ assert jax.default_backend() == "cpu", (
 assert jax.device_count() >= 8
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
