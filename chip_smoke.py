@@ -1,20 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on an NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
-Phases, each printing a line as it ends:
-  1. device  -- require CUDA; the card, its power limit, CUDA and nvcc
-  2. build   -- compile K1 (ops/csrc/sdf_fwd.cu) from this checkout
-  3. kernels -- K1 through its entries sdf_only_fused / sdf_apply_fused
-                against its plain PyTorch version at the full width of
-                confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000,
-                with CUDA-event timings of the entry, the bare launch and
-                the plain version
-  4. slice   -- fmov_pose_torch.train.runner.Runner trains that conf for 50
-                steps on an in-memory 8-frame 480x640 orbit scene; the
-                losses must be finite and the color loss must fall, and K1
-                must have launched 4 times per step
+Phases, each printing lines as it ends:
+  1. device   -- require CUDA; the card, its power limit, CUDA and nvcc
+  2. build    -- compile every kernel source of this checkout, one nvcc
+                 each, all started together (K1 sdf_fwd.cu, K4
+                 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K8/K9 color_ray.cu), and
+                 print ptxas's registers and spills
+  3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
+                 against its plain PyTorch version at the full width of
+                 confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
+  4. train-kernels -- K4, K5, K8 and K9 through their entries against their
+                 plain versions at the full width of
+                 confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
+                 3 x 128 (ragged); CUDA-event times of the entry, the kernel
+                 alone and the plain version
+  5. slice    -- Runner trains confs/ho3d_global_womask.conf for 50 steps on
+                 an in-memory 8-frame 480x640 orbit scene: finite losses, a
+                 falling color loss, K1 launched 4 times per step
+  6. slice2   -- Runner trains confs/ho3d_global_womask_tpu_fast.conf for 50
+                 steps on the same scene (occupancy grid refreshed after
+                 steps 25 and 50): finite losses, a falling color loss, K4,
+                 K5, K8 and K9 launched once per step and K1 never, a grid
+                 that is no longer all ones.  Before and after the run, one
+                 batch through the kernels, their plain versions (on CPU
+                 copies) and the f32 networks: the loss within 1e-2 of
+                 f32's, every gradient leaf within the leaf rule of the
+                 plain versions', and the leaves against f32 reported
 Then one JSON line of kernel results, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
 fallback and no switch to the plain version.  Imports nothing of JAX and
@@ -32,9 +46,14 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONF = os.path.join(ROOT, "confs", "ho3d_global_womask.conf")
+FAST_CONF = os.path.join(ROOT, "confs", "ho3d_global_womask_tpu_fast.conf")
 STEPS = 50
+OCC_UPDATE_FREQ = 25
 SEED = 0
 TIMING_REPS = 20
+SOURCES = ("sdf_fwd", "sdf_fwd_grad", "sdf_bwd", "color_ray")
+# rows: max |err| and median |err| relative to max|ref| (K1's rule)
+ROW_MEDIAN_TOL, ROW_MAX_TOL = 1e-5, 1e-2
 
 
 def _require(cond, msg):
@@ -85,20 +104,27 @@ def phase_device():
 
 
 def phase_build():
-    from fmov_pose_torch.ops import build, fused_sdf
+    from fmov_pose_torch.ops import build, fused_color, fused_sdf
     t0 = time.perf_counter()
+    build.build_all(SOURCES)
     fused_sdf._lib()
-    info = build.BUILD_INFO["sdf_fwd"]
-    regs = [l.strip() for l in info["log"].splitlines()
-            if "registers" in l or "spill" in l]
-    _line("build", kernel="sdf_fwd", seconds=f"{time.perf_counter() - t0:.2f}",
-          nvcc_seconds=f"{info['seconds']:.2f}", ptxas=repr(" | ".join(regs)))
+    fused_sdf._rays_lib()
+    fused_color._lib()
+    total = time.perf_counter() - t0
+    for name in SOURCES:
+        info = build.BUILD_INFO[name]
+        regs = [l.strip() for l in info["log"].splitlines()
+                if "registers" in l or "spill" in l]
+        _line("build", kernel=name, nvcc_seconds=f"{info['seconds']:.2f}",
+              ptxas=repr(" | ".join(regs)))
+    _line("build", all_seconds=f"{total:.2f}")
 
 
-def sdf_cfg():
+def model_cfg(conf, section):
     from fmov_pose_torch.data import hocon
-    cfg = hocon.parse_file(CONF)["model.sdf_network"].as_plain_dict()
-    cfg["skip_in"] = tuple(cfg["skip_in"])
+    cfg = hocon.parse_file(conf)[f"model.{section}"].as_plain_dict()
+    if "skip_in" in cfg:
+        cfg["skip_in"] = tuple(cfg["skip_in"])
     return cfg
 
 
@@ -113,7 +139,7 @@ def phase_kernels(dev):
     from fmov_pose_torch import convert
     from fmov_pose_torch.fields import nets
     from fmov_pose_torch.ops import fused_sdf
-    cfg = sdf_cfg()
+    cfg = model_cfg(CONF, "sdf_network")
     params = convert.to_torch(convert.to_numpy(
         nets.init_sdf(np.random.default_rng(SEED), cfg)), dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -173,84 +199,335 @@ def _flops_per_point(cfg, want_feature):
     return fl
 
 
-def phase_slice(dev, smi):
+def _rows(ref, got):
+    """Errors of rows ``got`` against ``ref`` relative to max|ref|."""
+    d = (got.double() - ref.double()).abs()
+    scale = max(float(ref.abs().max()), 1e-30)
+    res = {"max_abs": float(d.max()), "max_rel": float(d.max()) / scale,
+           "median_rel": float(d.median()) / scale}
+    res["ok"] = (res["max_rel"] <= ROW_MAX_TOL and res["median_rel"] <= ROW_MEDIAN_TOL
+                 and bool(got.isfinite().all()))
+    return res
+
+
+def _leaves(prefix_names, values):
+    """{name: tensor} of a kernel's gradient outputs (lists flattened)."""
+    out = {}
+    for name, v in zip(prefix_names, values):
+        if isinstance(v, (list, tuple)):
+            out.update({f"{name}{l}": t for l, t in enumerate(v)})
+        else:
+            out[name] = v
+    return out
+
+
+def _leaf_check(ref, got):
+    """The leaf rule (fused_sdf.leaf_rule) plus the largest |error|."""
+    from fmov_pose_torch.ops import fused_sdf
+    res = fused_sdf.leaf_rule(ref, got)
+    res["max_abs"] = max(float((got[k].double() - r.double()).abs().max())
+                         for k, r in ref.items())
+    return res
+
+
+LEAF_TOL = "rel_L2<1e-2_or_abs_L2<1e-4*global_norm"
+ROW_TOL = f"median/max|ref|<={ROW_MEDIAN_TOL}_max/max|ref|<={ROW_MAX_TOL}"
+
+
+def phase_train_kernels(dev):
+    """K4, K5, K8 and K9 through their entries (packing, launch, and for
+    K5/K9 the unpacking of the weight gradients) against their plain
+    versions on the same weights and inputs, at the shapes of the fast
+    conf's step (512 rays x 128 samples) and a ragged 3 x 128.  K8/K9 take
+    K4's outputs as their SDF features and normals.  Times the entry, the
+    kernel alone on pre-packed weights, and the plain version."""
     import numpy as np
     import torch
-    from fmov_pose_torch.data import rays as raygen
-    from fmov_pose_torch.data.scene import make_orbit_scene
-    from fmov_pose_torch.ops import fused_sdf
-    from fmov_pose_torch.train import step as step_mod
-    from fmov_pose_torch.train.runner import Runner
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.fields import nets
+    from fmov_pose_torch.ops import fused_color, fused_sdf
+    cfg_s = model_cfg(FAST_CONF, "sdf_network")
+    cfg_c = model_cfg(FAST_CONF, "rendering_network")
+    rng = np.random.default_rng(SEED)
+    ws, bs = fused_sdf.materialize(convert.to_torch(convert.to_numpy(
+        nets.init_sdf(rng, cfg_s)), dev), cfg_s)
+    cws, cbs = fused_color.materialize(convert.to_torch(convert.to_numpy(
+        nets.init_color(rng, cfg_c)), dev), cfg_c)
+    pk = fused_sdf.RaysPack(ws, bs, cfg_s)
+    cpk = fused_color.RayPack(cws, cbs, cfg_c)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    main = {}
 
-    t0 = time.perf_counter()
-    scene = make_orbit_scene(n_frames=8, H=480, W=640, seed=SEED)
-    with tempfile.TemporaryDirectory() as tmp:
-        runner = Runner(CONF, mode="train", case="orbit_smoke",
-                        exp_dir=os.path.join(tmp, "exp"), seed=SEED,
-                        device=dev, scene=scene)
-        # the only overrides: a short run, and no LR warm-up (lr ~ 0 there)
-        runner.end_iter, runner.warm_up_end = STEPS, 0.0
-        _line("slice", scene="orbit_8x480x640",
-              scene_seconds=f"{time.perf_counter() - t0:.1f}",
-              conf=os.path.relpath(CONF, ROOT),
-              overrides=f"end_iter={STEPS},warm_up_end=0")
-        r = runner.model_cfg["renderer"]
-        _require(runner.model_cfg["sdf"]["use_fused"], "the conf path runs K1")
-        _line("slice", pose_mode=runner.pose_mode, batch=runner.batch_size,
-              samples=f"{r.n_samples}+{r.n_importance}",
-              up_sample_steps=r.up_sample_steps, perturb=r.perturb,
-              n_params=runner.state.layout.size)
+    def report(name, B, N, err, tol, entry, kernel, plain, counter):
+        before = counter()
+        got = entry()
+        torch.cuda.synchronize()
+        _require(counter() == before + 1, f"{name}'s entry did not launch it once")
+        res = err(got, plain())
+        t_entry, t_kernel, t_plain = (_median_ms(f) for f in (entry, kernel, plain))
+        _line("train-kernels", name=name, B=B, N=N, M=B * N, ok=res["ok"],
+              errors=json.dumps(res, sort_keys=True), tol=tol,
+              entry_ms=f"{t_entry:.4f}", kernel_only_ms=f"{t_kernel:.4f}",
+              plain_ms=f"{t_plain:.4f}")
+        _require(res["ok"], f"{name} disagrees with its plain version at "
+                            f"{B}x{N}: {res}")
+        if B * N == 65536:
+            main[name] = {"max_abs_err": res["max_abs"], "ms": t_entry,
+                          "plain_ms": t_plain}
+        return got
 
-        # one ray batch rendered with the kernel and with the f32 network
-        # in the up-sampler: the losses agree to K1's bf16 sample placement
-        with torch.no_grad():
-            g = torch.Generator(device=dev).manual_seed(SEED)
-            st = runner.state
-            data = raygen.gen_random_rays(
-                g, runner.images_dev, runner.masks_dev, runner.intr_inv_dev,
-                torch.as_tensor(scene.crop_poses[0][:3], device=dev), 0,
-                runner.batch_size, runner.bbox_dev, runner.mask_guided_patch_size,
-                True, scene.H, scene.W)
-            scalars = step_mod.StepScalars(lr=0.0, cos_anneal=1.0)
-            cfg_k = runner.step_cfg
-            cfg_f = dataclasses.replace(cfg_k, model_cfg=dict(
-                cfg_k.model_cfg, sdf=dict(cfg_k.model_cfg["sdf"], use_fused=False)))
-            # the same seed for both: the same stratified perturbation
-            lk, _ = step_mod._render_and_losses(
-                cfg_k, torch.Generator(device=dev).manual_seed(SEED + 1),
-                st.params, st.pose_static, data, scalars)
-            lf, _ = step_mod._render_and_losses(
-                cfg_f, torch.Generator(device=dev).manual_seed(SEED + 1),
-                st.params, st.pose_static, data, scalars)
-            rel = abs(float(lk) - float(lf)) / abs(float(lf))
-        _line("slice", check="loss_kernel_vs_f32_upsampler", loss_kernel=f"{float(lk):.6f}",
-              loss_f32=f"{float(lf):.6f}", rel=f"{rel:.2e}", tol="1e-2")
-        _require(rel < 1e-2, f"K1 up-sampling changes the loss by {rel:.2e}")
+    with torch.no_grad():
+        for B, N in ((512, 128), (3, 128)):
+            M = B * N
+            rand = lambda *s: torch.rand(s, generator=gen, device=dev)  # noqa: E731
+            randn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+            x = (rand(M, 3) * 2 - 1) * 0.9
 
-        torch.cuda.reset_peak_memory_stats(dev)
-        fused_sdf.LAUNCHES = 0
-        runner.train()
-        launches = fused_sdf.LAUNCHES
-        peak = torch.cuda.max_memory_allocated(dev)
+            def k4_err(got, ref):
+                (out, sdf, grad), (ro, rg) = got, ref
+                e = fused_sdf.tolerance_check(ro, out)
+                g = _rows(rg, grad)
+                return {"out": e, "grad": g, "sdf_is_out0": bool(torch.equal(sdf, out[:, 0])),
+                        "max_abs": max(float((out - ro).abs().max()), g["max_abs"]),
+                        "ok": e["ok"] and g["ok"] and bool(torch.equal(sdf, out[:, 0]))}
 
+            out, _, grad = report(
+                "sdf_fwd_grad", B, N, k4_err,
+                f"out:K1_rule;grad:{ROW_TOL};sdf==out[:,0]",
+                lambda: fused_sdf.sdf_fwd_grad(ws, bs, x, cfg_s),
+                lambda: fused_sdf.launch_fwd_grad(pk, x),
+                lambda: fused_sdf.sdf_fwd_grad_plain(ws, bs, x, cfg_s),
+                lambda: fused_sdf.LAUNCHES_K4)
+
+            ct_out, ct_sdf, ct_grad = randn(M, ws[-1].shape[1]), randn(M), randn(M, 3)
+            names5 = ("x", "w", "b")
+            report("sdf_bwd", B, N,
+                   lambda got, ref: _leaf_check(_leaves(names5, ref), _leaves(names5, got)),
+                   LEAF_TOL,
+                   lambda: fused_sdf.sdf_bwd(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg_s),
+                   lambda: fused_sdf.launch_bwd(pk, x, ct_out, ct_sdf, ct_grad),
+                   lambda: fused_sdf.sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad,
+                                                   cfg_s),
+                   lambda: fused_sdf.LAUNCHES_K5)
+
+            d = randn(M, 3)
+            dirs = d / d.norm(dim=-1, keepdim=True)
+            weights = rand(B, N) / N
+            geo = (out, x, dirs, grad, weights)
+            report("color_ray_fwd", B, N, lambda got, ref: _rows(ref, got), ROW_TOL,
+                   lambda: fused_color.color_ray_fwd(cws, cbs, *geo, cfg_c),
+                   lambda: fused_color.launch_fwd(cpk, *geo),
+                   lambda: fused_color.color_ray_fwd_plain(cws, cbs, *geo, cfg_c),
+                   lambda: fused_color.LAUNCHES_K8)
+
+            ct = randn(B, 3)
+            names9 = ("sdf_out", "pts", "dirs", "normals", "weights", "w", "b")
+            report("color_ray_bwd", B, N,
+                   lambda got, ref: _leaf_check(_leaves(names9, ref), _leaves(names9, got)),
+                   LEAF_TOL,
+                   lambda: fused_color.color_ray_bwd(cws, cbs, *geo, ct, cfg_c),
+                   lambda: fused_color.launch_bwd(cpk, *geo, ct),
+                   lambda: fused_color.color_ray_bwd_plain(cws, cbs, *geo, ct, cfg_c),
+                   lambda: fused_color.LAUNCHES_K9)
+    return main
+
+
+def _history_lines(phase, runner, smi, **extra):
+    import numpy as np
     h = runner.history
     losses = np.asarray(h["loss"])
     color = np.asarray(h["color_loss"])
     step_ms = statistics.median(runner.step_ms)
-    _line("slice", steps=len(losses), loss_first=f"{losses[0]:.5f}",
+    _line(phase, steps=len(losses), loss_first=f"{losses[0]:.5f}",
           loss_last=f"{losses[-1]:.5f}",
           color_first10=f"{color[:10].mean():.5f}", color_last10=f"{color[-10:].mean():.5f}",
-          psnr_last=f"{h['psnr'][-1]:.2f}", k1_launches=launches)
-    _line("slice", median_step_ms=f"{step_ms:.2f}",
-          rays_per_s=f"{runner.batch_size / (step_ms / 1e3):.0f}",
-          wall_s=f"{runner.train_seconds:.2f}", peak_mem_gib=f"{peak / 2**30:.3f}",
-          card=repr(smi))
+          psnr_last=f"{h['psnr'][-1]:.2f}", **extra)
     _require(len(losses) == STEPS and np.all(np.isfinite(losses)),
              f"non-finite or missing losses: {losses}")
     _require(color[-10:].mean() < color[:10].mean(),
              f"color loss did not fall: {color[:10]} -> {color[-10:]}")
+    return step_ms
+
+
+def _perf_line(phase, runner, step_ms, peak, smi):
+    _line(phase, median_step_ms=f"{step_ms:.2f}",
+          rays_per_s=f"{runner.batch_size / (step_ms / 1e3):.0f}",
+          wall_s=f"{runner.train_seconds:.2f}", peak_mem_gib=f"{peak / 2**30:.3f}",
+          card=repr(smi))
+
+
+def _ray_batch(runner, scene, dev):
+    import torch
+    from fmov_pose_torch.data import rays as raygen
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    return raygen.gen_random_rays(
+        g, runner.images_dev, runner.masks_dev, runner.intr_inv_dev,
+        torch.as_tensor(scene.crop_poses[0][:3], device=dev), 0,
+        runner.batch_size, runner.bbox_dev, runner.mask_guided_patch_size,
+        True, scene.H, scene.W)
+
+
+def phase_slice(dev, smi, scene, tmp):
+    import torch
+    from fmov_pose_torch.ops import fused_sdf
+    from fmov_pose_torch.train import step as step_mod
+    from fmov_pose_torch.train.runner import Runner
+
+    runner = Runner(CONF, mode="train", case="orbit_smoke",
+                    exp_dir=os.path.join(tmp, "exp1"), seed=SEED,
+                    device=dev, scene=scene)
+    # the only overrides: a short run, and no LR warm-up (lr ~ 0 there)
+    runner.end_iter, runner.warm_up_end = STEPS, 0.0
+    r = runner.model_cfg["renderer"]
+    _require(runner.model_cfg["sdf"]["use_fused"], "the conf path runs K1")
+    _line("slice", conf=os.path.relpath(CONF, ROOT),
+          overrides=f"end_iter={STEPS},warm_up_end=0", pose_mode=runner.pose_mode,
+          batch=runner.batch_size, samples=f"{r.n_samples}+{r.n_importance}",
+          up_sample_steps=r.up_sample_steps, perturb=r.perturb,
+          n_params=runner.state.layout.size)
+
+    # one ray batch rendered with the kernel and with the f32 network
+    # in the up-sampler: the losses agree to K1's bf16 sample placement
+    with torch.no_grad():
+        st = runner.state
+        data = _ray_batch(runner, scene, dev)
+        scalars = step_mod.StepScalars(lr=0.0, cos_anneal=1.0)
+        cfg_k = runner.step_cfg
+        cfg_f = dataclasses.replace(cfg_k, model_cfg=dict(
+            cfg_k.model_cfg, sdf=dict(cfg_k.model_cfg["sdf"], use_fused=False)))
+        # the same seed for both: the same stratified perturbation
+        lk, _ = step_mod._render_and_losses(
+            cfg_k, torch.Generator(device=dev).manual_seed(SEED + 1),
+            st.params, st.pose_static, data, scalars)
+        lf, _ = step_mod._render_and_losses(
+            cfg_f, torch.Generator(device=dev).manual_seed(SEED + 1),
+            st.params, st.pose_static, data, scalars)
+        rel = abs(float(lk) - float(lf)) / abs(float(lf))
+    _line("slice", check="loss_kernel_vs_f32_upsampler", loss_kernel=f"{float(lk):.6f}",
+          loss_f32=f"{float(lf):.6f}", rel=f"{rel:.2e}", tol="1e-2")
+    _require(rel < 1e-2, f"K1 up-sampling changes the loss by {rel:.2e}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_sdf.LAUNCHES = 0
+    runner.train()
+    launches = fused_sdf.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    step_ms = _history_lines("slice", runner, smi, k1_launches=launches)
+    _perf_line("slice", runner, step_ms, peak, smi)
     _require(launches == 4 * STEPS, f"K1 launched {launches} times in {STEPS} steps")
     return launches
+
+
+def _counters():
+    from fmov_pose_torch.ops import fused_color, fused_sdf
+    return {"K1": fused_sdf.LAUNCHES, "K4": fused_sdf.LAUNCHES_K4,
+            "K5": fused_sdf.LAUNCHES_K5, "K8": fused_color.LAUNCHES_K8,
+            "K9": fused_color.LAUNCHES_K9}
+
+
+def _zero_counters():
+    from fmov_pose_torch.ops import fused_color, fused_sdf
+    fused_sdf.LAUNCHES = fused_sdf.LAUNCHES_K4 = fused_sdf.LAUNCHES_K5 = 0
+    fused_color.LAUNCHES_K8 = fused_color.LAUNCHES_K9 = 0
+
+
+def _check_batch(runner, scene, dev, when):
+    """One ray batch of the fast conf's step, on the same weights, grid
+    and z-values (perturbation 0, so that both devices place the samples
+    alike), three ways: through the kernels; through their plain versions
+    (the same step on CPU copies, where each wrapper takes its plain
+    version); through the f32 networks (``use_fused_train`` off).  Gated:
+    the loss against f32 within 1e-2, and every gradient leaf of the
+    kernels against the plain versions by the leaf rule.  Reported: the
+    leaves against f32, where the bf16 contract itself moves the
+    gradient (PERF.md, section 6)."""
+    import torch
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.ops import fused_sdf
+    from fmov_pose_torch.train import step as step_mod
+    st = runner.state
+    data = _ray_batch(runner, scene, dev)
+    cfg_k = runner.step_cfg
+    cfg_k = dataclasses.replace(cfg_k, model_cfg=dict(
+        cfg_k.model_cfg, renderer=cfg_k.model_cfg["renderer"]._replace(perturb=0.0)))
+    cfg_f = dataclasses.replace(cfg_k, model_cfg=dict(
+        cfg_k.model_cfg, sdf=dict(cfg_k.model_cfg["sdf"], use_fused_train=False)))
+    cpu = torch.device("cpu")
+    res = {}
+    for name, cfg, d in (("kernels", cfg_k, dev), ("f32", cfg_f, dev),
+                         ("plain", cfg_k, cpu)):
+        flat = st.flat.detach().to(d).requires_grad_(True)
+        loss, _ = step_mod._render_and_losses(
+            cfg, None, st.layout.views(flat),
+            {k: v.to(d) for k, v in st.pose_static.items()}, data.to(d),
+            step_mod.StepScalars(lr=0.0, cos_anneal=1.0))
+        g = torch.autograd.grad(loss, flat)[0].cpu()
+        res[name] = (float(loss.detach()), dict(convert.flatten(st.layout.views(g))))
+    rel = abs(res["kernels"][0] - res["f32"][0]) / abs(res["f32"][0])
+    vs_plain = fused_sdf.leaf_rule(res["plain"][1], res["kernels"][1])
+    vs_f32 = fused_sdf.leaf_rule(res["f32"][1], res["kernels"][1])
+    plain_vs_f32 = fused_sdf.leaf_rule(res["f32"][1], res["plain"][1])
+    brief = lambda r: json.dumps({k: r[k] for k in (  # noqa: E731
+        "ok", "worst", "worst_rel", "worst_abs_over_gnorm", "failed")}).replace(" ", "")
+    _line("slice2", check=f"batch_{when}", loss_kernels=f"{res['kernels'][0]:.6f}",
+          loss_plain=f"{res['plain'][0]:.6f}", loss_f32=f"{res['f32'][0]:.6f}",
+          rel_vs_f32=f"{rel:.2e}", loss_tol="1e-2", leaf_tol=LEAF_TOL,
+          leaves_vs_plain=brief(vs_plain), leaves_vs_f32=brief(vs_f32),
+          plain_vs_f32=brief(plain_vs_f32))
+    _require(rel < 1e-2, f"the kernels change the loss by {rel:.2e} ({when})")
+    _require(vs_plain["ok"], f"gradient leaves disagree with the plain "
+                             f"versions ({when}): {vs_plain}")
+
+
+def phase_slice2(dev, smi, scene, tmp):
+    import torch
+    from fmov_pose_torch.train.runner import Runner
+
+    runner = Runner(FAST_CONF, mode="train", case="orbit_smoke",
+                    exp_dir=os.path.join(tmp, "exp2"), seed=SEED,
+                    device=dev, scene=scene)
+    # a short run, no LR warm-up, and a grid refresh twice in the run
+    runner.end_iter, runner.warm_up_end = STEPS, 0.0
+    runner.occ_update_freq = OCC_UPDATE_FREQ
+    r = runner.model_cfg["renderer"]
+    _require(runner.model_cfg["sdf"]["use_fused_train"] and runner.occupancy_sampling,
+             "the fast conf runs the fused training kernels and the grid")
+    _line("slice2", conf=os.path.relpath(FAST_CONF, ROOT),
+          overrides=f"end_iter={STEPS},warm_up_end=0,occ_update_freq={OCC_UPDATE_FREQ}",
+          pose_mode=runner.pose_mode, batch=runner.batch_size,
+          samples=f"{r.n_samples}+{r.n_importance}", perturb=r.perturb,
+          occ_grid_res=runner.occ_grid_res, n_params=runner.state.layout.size)
+    grid0 = runner.state.pose_static["occ_grid"]
+    _require(bool((grid0 == 1).all()), "the grid starts all ones")
+
+    # one batch through the kernels, their plain versions and the f32
+    # networks, at the initial weights (where slice 1 checks K1)
+    _check_batch(runner, scene, dev, "initial")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    runner.train()
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    grid = runner.state.pose_static["occ_grid"]
+    occ_mean = float(grid.mean())
+
+    step_ms = _history_lines(
+        "slice2", runner, smi, launches=json.dumps(counts).replace(" ", ""),
+        occ_refreshes=runner.occ_refreshes, occ_update_freq=runner.occ_update_freq,
+        occ_grid_res=runner.occ_grid_res, occ_mean=f"{occ_mean:.4f}")
+    _perf_line("slice2", runner, step_ms, peak, smi)
+    for k in ("K4", "K5", "K8", "K9"):
+        _require(counts[k] == STEPS, f"{k} launched {counts[k]} times in {STEPS} steps")
+    _require(counts["K1"] == 0, f"K1 launched {counts['K1']} times on the grid path")
+    _require(runner.occ_refreshes == STEPS // OCC_UPDATE_FREQ,
+             f"{runner.occ_refreshes} grid refreshes")
+    _require(0.0 < occ_mean < 1.0, f"grid mean {occ_mean} after the refreshes")
+    # the same after 50 steps, on the refreshed grid
+    _check_batch(runner, scene, dev, "after_training")
+
+    return counts
 
 
 def main():
@@ -260,18 +537,32 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from fmov_pose_torch.data.scene import make_orbit_scene
     dev, smi = phase_device()
     phase_build()
     k1 = phase_kernels(dev)
-    launches = phase_slice(dev, smi)
+    train_k = phase_train_kernels(dev)
+    t0 = time.perf_counter()
+    scene = make_orbit_scene(n_frames=8, H=480, W=640, seed=SEED)
+    _line("scene", scene="orbit_8x480x640", seconds=f"{time.perf_counter() - t0:.1f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_launches = phase_slice(dev, smi, scene, tmp)
+        counts = phase_slice2(dev, smi, scene, tmp)
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
-    print(json.dumps({"kernels": [{
-        "name": "sdf_fwd", "route": "cuda",
-        "source": "fmov_pose_torch/ops/csrc/sdf_fwd.cu",
-        "replaces": "fmov_pose_tpu/ops/fused_sdf.py:326",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]}))
+    csrc = "fmov_pose_torch/ops/csrc/"
+    kernels = [{"name": "sdf_fwd", "route": "cuda", "source": csrc + "sdf_fwd.cu",
+                "replaces": "fmov_pose_tpu/ops/fused_sdf.py:326",
+                "launches": k1_launches, **k1}]
+    for key, name, src, replaces in (
+            ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699"),
+            ("K5", "sdf_bwd", "sdf_bwd.cu", "fused_sdf.py:761"),
+            ("K8", "color_ray_fwd", "color_ray.cu", "fused_color.py:375"),
+            ("K9", "color_ray_bwd", "color_ray.cu", "fused_color.py:407")):
+        kernels.append({"name": name, "route": "cuda", "source": csrc + src,
+                        "replaces": "fmov_pose_tpu/ops/" + replaces,
+                        "launches": counts[key], **train_k[name]})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fmov_pose_torch.core.embedder import embed_dim, positional_encode
 
@@ -61,9 +62,12 @@ def _torch_default_linear(rng: np.random.Generator, d_in: int, d_out: int,
 
 
 def softplus100(z: torch.Tensor) -> torch.Tensor:
-    """softplus(100 z) / 100 in the single-exp form that stays exact for
-    large 100z (``F.softplus`` turns linear above 100z > 20)."""
-    return torch.relu(z) + torch.log1p(torch.exp(-100.0 * torch.abs(z))) * 0.01
+    """softplus(100 z) / 100.  ``F.softplus`` turns linear above 100z > 20,
+    where the dropped log1p(exp(-100z)) is below half an f32 ulp of z.  Its
+    derivative at z = 0 is sigmoid(0) = 1/2, as ``jax.nn.softplus``'s
+    (autograd of relu(z) + log1p(exp(-100|z|)) / 100 gives 0 there), and
+    its double backward stays finite."""
+    return F.softplus(z, beta=100.0)
 
 
 def _check_f32(cfg):

@@ -50,26 +50,43 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _so(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build_all(names) -> None:
+    """Compile the sources of ``names`` that are not built yet, one nvcc
+    process each, all started together; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        so = _so(name)
+        if name in _LIBS or name in procs or so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (so, tmp, cmd, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (so, tmp, cmd, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}:\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, so)
+        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log.strip()}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
     if name in _LIBS:
         return _LIBS[name]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"{name}-{_digest(name)}.so"
-    if so.exists():
-        BUILD_INFO[name] = {"seconds": 0.0, "log": "(cached)"}
-    else:
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {name}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-        BUILD_INFO[name] = {"seconds": seconds,
-                            "log": (proc.stdout + proc.stderr).strip()}
+    so = _so(name)
+    if not so.exists():
+        build_all([name])
+    BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
     _LIBS[name] = ctypes.CDLL(str(so))
     return _LIBS[name]

@@ -1,6 +1,10 @@
-"""Fused gradient-free SDF forward: CUDA kernel, plain version, entry points.
+"""Fused SDF kernels: K1 (gradient-free forward), K4 (forward + d(sdf)/dx)
+and K5 (K4's second-order backward), with their plain versions and entries.
 
-Replaces the Pallas kernel ``fmov_pose_tpu/ops/fused_sdf.py:_make_fwd_kernel``
+K4 and K5 are described below ``sdf_forward`` (the rays path of the
+training step); this header describes K1.
+
+K1 replaces the Pallas kernel ``fmov_pose_tpu/ops/fused_sdf.py:_make_fwd_kernel``
 (launched by ``_sdf_forward_impl``; entries ``sdf_only_fused`` and
 ``sdf_apply_fused``).  The kernel is ``csrc/sdf_fwd.cu``: per point, the
 positional encoding, the 9-linear SDF MLP with softplus(beta=100) and the
@@ -38,22 +42,19 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from fmov_pose_torch import convert
 from fmov_pose_torch.core.embedder import positional_encode
 from fmov_pose_torch.fields import nets
+from fmov_pose_torch.ops import packing
+# K padding of the packed weights (csrc/sdf_fwd.cu KCHUNK), the widest
+# layer a kernel takes (8 warps x 3 column tiles), the most linears
+from fmov_pose_torch.ops.packing import KCHUNK, MAX_COLS, MAX_LIN, round_up
 
 LAUNCHES = 0
 
-KCHUNK = 32        # K padding of the packed weights (csrc/sdf_fwd.cu KCHUNK)
-MAX_COLS = 384     # widest layer the kernel takes (8 warps x 3 column tiles)
-MAX_LIN = 16
-
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
-
-
-def _round_up(n: int, m: int) -> int:
-    return (n + m - 1) // m * m
 
 
 def _skip(cfg) -> int:
@@ -93,7 +94,7 @@ def sdf_forward_plain(ws, bs, x, cfg, want_feature: bool) -> torch.Tensor:
         if l == skip:
             h = torch.cat([h, xe], dim=-1) * _INV_SQRT2
         z = _bf16(h) @ _bf16(ws[l]) + bs[l]
-        h = nets.softplus100(z) if l < n_lin - 1 else z
+        h = act_pair(z)[0] if l < n_lin - 1 else z
     out = torch.cat([h[:, :1] / scale, h[:, 1:]], dim=-1)
     return out if want_feature else out[:, :1]
 
@@ -127,6 +128,30 @@ def tolerance_check(ref: torch.Tensor, got: torch.Tensor) -> dict:
     return res
 
 
+LEAF_REL_TOL, LEAF_ABS_TOL = 1e-2, 1e-4
+
+
+def leaf_rule(ref: dict, got: dict) -> dict:
+    """Gradient agreement per leaf, the gate the JAX kernels met
+    (``scripts/validate_rays_tpu.py:57-69``): a leaf
+    passes if |got - ref| / |ref| < 1%, or |got - ref| < 1e-4 x the global
+    norm of ``ref``, all L2 norms.  Returns the worst leaf's errors and
+    ``ok``."""
+    gnorm = math.sqrt(sum(float((r.double() ** 2).sum()) for r in ref.values()))
+    res = {"ok": True, "gnorm": gnorm, "worst": None, "worst_rel": 0.0,
+           "worst_abs_over_gnorm": 0.0, "failed": []}
+    for name, r in ref.items():
+        err = float(torch.linalg.vector_norm(got[name].double() - r.double()))
+        rel = err / max(float(torch.linalg.vector_norm(r.double())), 1e-30)
+        if not (math.isfinite(err) and (rel < LEAF_REL_TOL or err < LEAF_ABS_TOL * gnorm)):
+            res["ok"] = False
+            res["failed"].append(name)
+        if rel > res["worst_rel"]:
+            res.update(worst=name, worst_rel=rel,
+                       worst_abs_over_gnorm=err / max(gnorm, 1e-30))
+    return res
+
+
 def pack(ws, bs, cfg, want_feature: bool):
     """Zero-padded bf16 W^T blocks and f32 biases in one buffer each, plus
     the kernel's int32 layer table.
@@ -139,7 +164,7 @@ def pack(ws, bs, cfg, want_feature: bool):
     skip = _skip(cfg)
     n_lin = len(ws)
     pe_dim = ws[0].shape[0]
-    pe_pad = _round_up(pe_dim, 16)
+    pe_pad = round_up(pe_dim, 16)
     if n_lin > MAX_LIN:
         raise ValueError(f"{n_lin} linears; the kernel takes at most {MAX_LIN}")
     dev = ws[0].device
@@ -151,7 +176,7 @@ def pack(ws, bs, cfg, want_feature: bool):
         w = ws[l] if (want_feature or l < n_lin - 1) else ws[l][:, :1]
         b = bs[l] if (want_feature or l < n_lin - 1) else bs[l][:1]
         k, n = w.shape
-        n_pad = _round_up(n, 16)
+        n_pad = round_up(n, 16)
         if n_pad > MAX_COLS:
             raise ValueError(f"layer {l} is {n} wide; the kernel takes <= {MAX_COLS}")
         if l == 0:
@@ -164,7 +189,7 @@ def pack(ws, bs, cfg, want_feature: bool):
         else:
             in_w = np_prev
             rows = [(0, 0, k)]
-        k_pad = _round_up(in_w, KCHUNK)
+        k_pad = round_up(in_w, KCHUNK)
         block = torch.zeros((k_pad, n_pad), dtype=torch.bfloat16, device=dev)
         for src, dst, cnt in rows:
             block[dst:dst + cnt, :n] = w[src:src + cnt].to(torch.bfloat16)
@@ -293,3 +318,445 @@ def sdf_only_fused(params, cfg, x):
 def sdf_apply_fused(params, cfg, x):
     """[M, 3] -> [sdf, feature] [M, d_out]."""
     return _apply(params, cfg, x, True)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: the rays path of the training step
+# ---------------------------------------------------------------------------
+#
+# K4 (``csrc/sdf_fwd_grad.cu``) replaces ``_make_fwd_grad_rays_kernel``
+# (launched by ``_sdf_fwd_grad_rays_impl``): per point the PE, the SDF
+# forward, and the reverse chain of d(sdf)/dx through the MLP and the PE
+# Jacobian.  K5 (``csrc/sdf_bwd.cu``) replaces ``_make_bwd_rays_kernel``
+# (``_sdf_bwd_rays_impl``): the VJP of (out, sdf_bn, grad), recomputing the
+# forward and the gradient chain, then Phase A (reverse of the gradient
+# chain, with the Hessian term s'' = 100 s'(1 - s')) and Phase B (reverse
+# of the forward), and the PE second-derivative term.  The derivation is
+# the JAX package's (``ops/fused_sdf.py:407-434``).  Both take the JAX
+# entry's outputs in row layout: x [M, 3], grad [M, 3]; the [3, M] channel
+# planes are TPU layout.  sdf_bn [B, N] is column 0 of ``out`` reshaped.
+#
+# Arithmetic: every product rounds both operands to bf16 and accumulates
+# in f32, including K5's weight-gradient products (the JAX kernel's bf16
+# dot_generals); the PE, the activations and every elementwise step are
+# f32, and so are the bias and column-0 sums.
+#
+# On an H100 K4 is ~2.2 MFLOP per point and K5 ~6.6 (33 products of
+# ~256x256 per point, plus the weight gradients), so both are bound by
+# the products.  Their per-point intermediates (sigmoids, gradient chain,
+# cotangents; ~40 KB per point in K5) do not fit in shared memory, so a
+# block keeps one 64-point operand tile in shared memory and stages the
+# rest in a workspace in device memory; K5 recomputes the forward instead
+# of keeping K4's.  K5's weight gradients are one product per layer over
+# all points (``[fbar; inp]^T @ [e; zbar]``, the Phase A and B terms
+# stacked), split over K and reduced in a fixed order: run to run the
+# result is the same.
+
+LAUNCHES_K4 = 0
+LAUNCHES_K5 = 0
+# profiler ranges around the launches (``profile_step.py`` reads them)
+PROFILE_K4, PROFILE_K5 = "fmov::K4_sdf_fwd_grad", "fmov::K5_sdf_bwd"
+
+# the JAX gate (``ops/fused_sdf.py:1185``); an H100 measurement may move it
+MIN_SAMPLES_RAYS = 65536
+
+
+def supported_rays(cfg, n_samples: int, n_pts: int = None) -> bool:
+    """The rays path takes the config and, given n_pts, is worth it
+    (``MIN_SAMPLES_RAYS``).  Row layout needs no tile-aligned rays.  The
+    skip layer must be a hidden one: the gradient chain starts from the
+    last layer's column 0 against the hidden width (as in the JAX kernel)."""
+    ok = supported(cfg) and n_samples > 0 and _skip(cfg) < cfg["n_layers"]
+    if n_pts is not None:
+        ok = ok and n_pts >= MIN_SAMPLES_RAYS
+    return ok
+
+
+def _pe_tables(multires: int, device):
+    """Per encoded column: the input dim, the frequency and the kind
+    (0 identity, 1 sin, 2 cos), in ``positional_encode``'s order."""
+    dims, freqs, kinds = [0, 1, 2], [1.0] * 3, [0] * 3
+    for k in range(multires):
+        for kind in (1, 2):
+            dims += [0, 1, 2]
+            freqs += [2.0 ** k] * 3
+            kinds += [kind] * 3
+    return (torch.tensor(dims, device=device),
+            torch.tensor(freqs, dtype=torch.float32, device=device),
+            torch.tensor(kinds, device=device))
+
+
+def pe_parts(xs: torch.Tensor, multires: int):
+    """(xe, jac, d2, dims) of the PE of xs [M, 3]: the encoding, its
+    derivative and second derivative per column, and each column's dim."""
+    dims, f, kind = _pe_tables(multires, xs.device)
+    R = xs[:, dims]
+    Rf = R * f
+    s, c = torch.sin(Rf), torch.cos(Rf)
+    xe = torch.where(kind == 0, R, torch.where(kind == 1, s, c))
+    jac = torch.where(kind == 0, torch.ones_like(R),
+                      torch.where(kind == 1, f * c, -f * s))
+    d2 = torch.where(kind == 0, torch.zeros_like(R),
+                     torch.where(kind == 1, -(f * f) * s, -(f * f) * c))
+    return xe, jac, d2, dims
+
+
+def dim_sum(t: torch.Tensor) -> torch.Tensor:
+    """[M, 3(1 + 2L)] per-column values -> [M, 3] sums per input dim."""
+    return t.reshape(t.shape[0], -1, 3).sum(1)
+
+
+def act_pair(z: torch.Tensor):
+    """softplus(100 z)/100 and sigmoid(100 z) from one exp (``_act_pair``)."""
+    E = torch.exp(-100.0 * torch.abs(z))
+    sp = torch.relu(z) + torch.log1p(E) * 0.01
+    sig = torch.where(z >= 0, 1.0 / (1.0 + E), E / (1.0 + E))
+    return sp, sig
+
+
+def _bdot(a, b):
+    return _bf16(a) @ _bf16(b)
+
+
+def _forward_chain(ws, bs, xe, skip):
+    """Layer inputs, activations and sigmoids of the hidden layers."""
+    inps, sigs = [], []
+    h = xe
+    for l in range(len(ws) - 1):
+        inp = torch.cat([h, xe], -1) * _INV_SQRT2 if l == skip else h
+        inps.append(inp)
+        h, sig = act_pair(_bdot(inp, ws[l]) + bs[l])
+        sigs.append(sig)
+    last = len(ws) - 1
+    inps.append(torch.cat([h, xe], -1) * _INV_SQRT2 if last == skip else h)
+    return inps, sigs
+
+
+def _grad_chain(ws, xe, sigs, skip):
+    """ds[l] (cotangent of layer l's hidden input, l >= 1) and d_inputs."""
+    n_lin = len(ws)
+    ds = [None] * n_lin
+    ds[n_lin - 1] = ws[-1][:, 0][None, :].expand(xe.shape[0], -1)
+    d_inputs = torch.zeros_like(xe)
+    for l in range(n_lin - 2, -1, -1):
+        fm = _bdot(ds[l + 1] * sigs[l], ws[l].T)
+        if l == skip:
+            h_dim = ws[l].shape[0] - xe.shape[1]
+            d_inputs = d_inputs + fm[:, h_dim:] * _INV_SQRT2
+            ds[l] = fm[:, :h_dim] * _INV_SQRT2
+        else:
+            ds[l] = fm
+    return ds, d_inputs + ds[0]
+
+
+def sdf_fwd_grad_plain(ws, bs, x, cfg):
+    """K4's arithmetic: x [M, 3] -> (out [M, d_out], grad [M, 3])."""
+    scale = cfg.get("scale", 1.0)
+    skip = _skip(cfg)
+    xe, jac, _, _ = pe_parts(x * scale, cfg["multires"])
+    inps, sigs = _forward_chain(ws, bs, xe, skip)
+    z = _bdot(inps[-1], ws[-1]) + bs[-1]
+    out = torch.cat([z[:, :1] / scale, z[:, 1:]], -1)
+    _, d_inputs = _grad_chain(ws, xe, sigs, skip)
+    # scale * (1/scale) on the sdf column cancels: grad is wrt raw x
+    return out, dim_sum(d_inputs * jac)
+
+
+def sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg):
+    """K5's arithmetic, the hand derivation transcribed: the cotangents
+    ct_out [M, d_out], ct_sdf [M] (sdf_bn's, flattened) and ct_grad [M, 3]
+    -> (xbar [M, 3], dws, dbs)."""
+    scale = cfg.get("scale", 1.0)
+    skip = _skip(cfg)
+    n_lin = len(ws)
+    xe, jac, d2, dims = pe_parts(x * scale, cfg["multires"])
+    ybar = torch.cat([(ct_out[:, :1] + ct_sdf[:, None]) / scale, ct_out[:, 1:]], -1)
+    ct_grad_G = ct_grad[:, dims]
+    gbar = ct_grad_G * jac
+    inps, sigs = _forward_chain(ws, bs, xe, skip)
+    ds, d_inputs = _grad_chain(ws, xe, sigs, skip)
+    dws = [None] * n_lin
+    dbs = [None] * n_lin
+
+    # Phase A: reverse the gradient chain (ascending l)
+    zbar_chain = [None] * n_lin
+    dbar = gbar
+    for l in range(n_lin - 1):
+        fbar = (torch.cat([dbar * _INV_SQRT2, gbar * _INV_SQRT2], -1)
+                if l == skip else dbar)
+        sp = sigs[l]
+        dws[l] = _bdot(fbar.T, ds[l + 1] * sp)
+        ebar = _bdot(fbar, ws[l])
+        dbar = ebar * sp
+        zbar_chain[l] = ebar * ds[l + 1] * (100.0 * sp * (1.0 - sp))
+    col_bar = dbar.sum(0)
+    dws[n_lin - 1] = torch.zeros_like(ws[-1])
+    dws[n_lin - 1][:, 0] = col_bar
+
+    # Phase B: reverse the forward chain (descending l)
+    xebar = torch.zeros_like(xe)
+    zbar = ybar
+    for l in range(n_lin - 1, -1, -1):
+        dws[l] = dws[l] + _bdot(inps[l].T, zbar)
+        dbs[l] = zbar.sum(0)
+        inpbar = _bdot(zbar, ws[l].T)
+        if l == skip:
+            h_dim = ws[l].shape[0] - xe.shape[1]
+            xebar = xebar + inpbar[:, h_dim:] * _INV_SQRT2
+            ibar = inpbar[:, :h_dim] * _INV_SQRT2
+        else:
+            ibar = inpbar
+        if l == 0:
+            xebar = xebar + ibar
+        else:
+            zbar = ibar * sigs[l - 1] + zbar_chain[l - 1]
+    xsbar = dim_sum(xebar * jac + ct_grad_G * d_inputs * d2)
+    return xsbar * scale, dws, dbs
+
+
+def _rays_layout(ws, cfg):
+    """Padded input widths and row maps of the SDF layers (the skip
+    layer reads [h (np of the layer before) | pe (pe_pad)])."""
+    skip = _skip(cfg)
+    pe_pad = round_up(ws[0].shape[0], 16)
+    in_ws, row_maps = [], []
+    for l in range(len(ws)):
+        if l == 0:
+            in_ws.append(pe_pad)
+            row_maps.append(None)
+        else:
+            np_prev = round_up(ws[l - 1].shape[1], 16)
+            if l == skip:
+                n_h = ws[l - 1].shape[1]
+                in_ws.append(np_prev + pe_pad)
+                row_maps.append([(0, 0, n_h), (n_h, np_prev, ws[l].shape[0] - n_h)])
+            else:
+                in_ws.append(np_prev)
+                row_maps.append(None)
+    return in_ws, row_maps
+
+
+class RaysPack:
+    """K4/K5's packed weights (``packing.pack_train``) for one set of
+    dense weights, plus the f32 column 0 of the last layer's W^T."""
+
+    def __init__(self, ws, bs, cfg):
+        if not supported_rays(cfg, 1):
+            raise ValueError(f"SDF config not supported by the kernels: {cfg}")
+        self.in_ws, self.row_maps = _rays_layout(ws, cfg)
+        self.w_buf, self.b_buf, self.meta = packing.pack_train(
+            ws, bs, self.in_ws, self.row_maps)
+        self.table = packing.layer_table(self.meta)
+        np_last_in = int(self.table[-2, 1])
+        self.wlast = torch.zeros(np_last_in, dtype=torch.float32,
+                                 device=ws[0].device)
+        self.wlast[:ws[-1].shape[0]] = ws[-1][:, 0]
+        self.n_lin = len(ws)
+        self.skip = _skip(cfg)
+        self.multires = cfg["multires"]
+        self.scale = float(cfg.get("scale", 1.0))
+        self.n_out = ws[-1].shape[1]
+        self.shapes = [tuple(w.shape) for w in ws]
+
+
+def _rays_lib():
+    from fmov_pose_torch.ops import build
+    lib_f = build.library("sdf_fwd_grad")
+    lib_b = build.library("sdf_bwd")
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if not getattr(lib_f, "_fmov_typed", False):
+        lib_f.fmov_sdf_fwd_grad.argtypes = [
+            vp, ci, ci, cf, vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, ci, vp, vp, vp]
+        lib_f.fmov_sdf_fwd_grad.restype = ci
+        lib_f.fmov_train_error_string.argtypes = [ci]
+        lib_f.fmov_train_error_string.restype = ctypes.c_char_p
+        lib_f._fmov_typed = True
+    if not getattr(lib_b, "_fmov_typed", False):
+        lib_b.fmov_sdf_bwd.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, cf, vp, vp, vp, vp, ci, ci, ci, vp,
+            ci, ci, vp, vp, vp, vp]
+        lib_b.fmov_sdf_bwd.restype = ci
+        lib_b.fmov_train_error_string.argtypes = [ci]
+        lib_b.fmov_train_error_string.restype = ctypes.c_char_p
+        lib_b._fmov_typed = True
+    return lib_f, lib_b
+
+
+def _check_cuda_rows(name, t, width, M, device):
+    if not (t.is_cuda and t.device == device and t.dtype == torch.float32
+            and t.dim() == 2 and t.shape == (M, width) and t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous CUDA float32 [{M}, {width}] "
+                         f"tensor on {device}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
+
+
+def _grid(device, n_tiles: int) -> int:
+    """Blocks of a per-point pass: at most one per SM, each looping over
+    tiles (the per-block partial sums stay few and are reduced in order)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(n_tiles, sms))
+
+
+def _raise_on(lib, err, what, M):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.fmov_train_error_string(err).decode()} "
+                           f"(cudaError {err}, M={M})")
+
+
+def launch_fwd_grad(pk: RaysPack, x: torch.Tensor):
+    """K4 on pre-packed weights: x CUDA float32 [M, 3] -> (out, sdf [M],
+    grad); the only place that counts LAUNCHES_K4."""
+    global LAUNCHES_K4
+    M = x.shape[0]
+    _check_cuda_rows("x", x, 3, M, x.device)
+    if pk.w_buf.device != x.device:
+        raise ValueError("packed weights and points on different devices")
+    M_pad = packing.round_up(max(M, 1), packing.TILE_M)
+    ws_ = packing.Workspace()
+    t = pk.table
+    for l in range(pk.n_lin):
+        ws_.add(f"X{l}", M_pad, t[l, 0], torch.bfloat16)
+    for l in range(pk.n_lin - 1):
+        ws_.add(f"D{l}", M_pad, t[l, 1], torch.bfloat16)
+    for l in range(pk.n_lin - 1):
+        ws_.add(f"SIG{l}", M_pad, t[l, 1], torch.float32)
+    ws_.allocate(x.device)
+    out = torch.empty((M, pk.n_out), dtype=torch.float32, device=x.device)
+    sdf = torch.empty(M, dtype=torch.float32, device=x.device)
+    grad = torch.empty((M, 3), dtype=torch.float32, device=x.device)
+    lib, _ = _rays_lib()
+    with torch.cuda.device(x.device), torch.profiler.record_function(PROFILE_K4):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fmov_sdf_fwd_grad(
+            x.data_ptr(), M, M_pad, pk.scale, pk.w_buf.data_ptr(),
+            pk.b_buf.data_ptr(), pk.wlast.data_ptr(),
+            pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin, pk.skip,
+            pk.multires, ws_.table.ctypes.data_as(ctypes.c_void_p),
+            _grid(x.device, M_pad // packing.TILE_M), out.data_ptr(), pk.n_out,
+            sdf.data_ptr(), grad.data_ptr(), stream)
+    _raise_on(lib, err, "sdf_fwd_grad", M)
+    LAUNCHES_K4 += 1
+    return out, sdf, grad
+
+
+def _split_k(device, meta, rows: int) -> int:
+    """Row splits of the weight-gradient product: about 4 blocks per SM
+    over all layers' 64x64 output tiles, at least 512 rows a split."""
+    t = packing.layer_table(meta)
+    tiles = int(sum(-(-in_w // 64) * -(-np_ // 64) for np_, in_w in zip(t[:, 1], t[:, 7])))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-4 * sms // tiles), rows // 512))
+
+
+def launch_bwd(pk: RaysPack, x, ct_out, ct_sdf, ct_grad):
+    """K5 on pre-packed weights: the cotangents of (out, sdf [M], grad)
+    -> (xbar [M, 3], dw_pad, db_pad) in the packed layout; the only place
+    that counts LAUNCHES_K5."""
+    global LAUNCHES_K5
+    M = x.shape[0]
+    dev = x.device
+    _check_cuda_rows("x", x, 3, M, dev)
+    _check_cuda_rows("ct_out", ct_out, pk.n_out, M, dev)
+    _check_cuda_rows("ct_sdf", ct_sdf.reshape(M, 1), 1, M, dev)
+    _check_cuda_rows("ct_grad", ct_grad, 3, M, dev)
+    M_pad = packing.round_up(max(M, 1), packing.TILE_M)
+    n_tiles = M_pad // packing.TILE_M
+    G = _grid(dev, n_tiles)
+    KS = _split_k(dev, pk.meta, 2 * M_pad)
+    t = pk.table
+    n_lin = pk.n_lin
+    ws_ = packing.Workspace()
+    for l in range(n_lin):
+        ws_.add(f"AB{l}", 2 * M_pad, t[l, 0], torch.bfloat16)
+    for l in range(n_lin):
+        ws_.add(f"BB{l}", 2 * M_pad, t[l, 1], torch.bfloat16)
+    for l in range(n_lin - 1):
+        ws_.add(f"SIG{l}", M_pad, t[l, 1], torch.float32)
+    for l in range(1, n_lin - 1):
+        ws_.add(f"DS{l}", M_pad, t[l - 1, 1], torch.float32)
+    for l in range(n_lin - 1):
+        ws_.add(f"ZC{l}", M_pad, t[l, 1], torch.float32)
+    n_bias = int(t[:, 1].sum())
+    ws_.add("DBPART", G, n_bias, torch.float32)
+    ws_.add("CBPART", G, t[-2, 1], torch.float32)
+    ws_.add("DWPART", KS, packing.dw_elems(pk.meta), torch.float32)
+    ws_.allocate(dev)
+    xbar = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    dw_pad = torch.empty(packing.dw_elems(pk.meta), dtype=torch.float32, device=dev)
+    db_pad = torch.empty(n_bias, dtype=torch.float32, device=dev)
+    _, lib = _rays_lib()
+    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K5):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fmov_sdf_bwd(
+            x.data_ptr(), ct_out.data_ptr(), ct_sdf.data_ptr(), ct_grad.data_ptr(),
+            M, M_pad, pk.n_out, pk.scale, pk.w_buf.data_ptr(), pk.b_buf.data_ptr(),
+            pk.wlast.data_ptr(), pk.meta.ctypes.data_as(ctypes.c_void_p), n_lin,
+            pk.skip, pk.multires, ws_.table.ctypes.data_as(ctypes.c_void_p),
+            G, KS, xbar.data_ptr(), dw_pad.data_ptr(), db_pad.data_ptr(), stream)
+    _raise_on(lib, err, "sdf_bwd", M)
+    LAUNCHES_K5 += 1
+    return xbar, dw_pad, db_pad
+
+
+def sdf_fwd_grad(ws, bs, x, cfg, pk: RaysPack = None):
+    """K4 for a CUDA tensor (packing ``ws`` unless ``pk`` is given), the
+    plain version for a CPU tensor: (out, sdf [M], grad)."""
+    if x.is_cuda:
+        return launch_fwd_grad(pk or RaysPack(ws, bs, cfg), x.contiguous())
+    out, grad = sdf_fwd_grad_plain(ws, bs, x, cfg)
+    return out, out[:, 0].clone(), grad
+
+
+def sdf_bwd(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg, pk: RaysPack = None):
+    """K5 for a CUDA tensor, the plain version for a CPU tensor:
+    (xbar [M, 3], dws, dbs) in the layout of ``ws``/``bs``."""
+    if x.is_cuda:
+        pk = pk or RaysPack(ws, bs, cfg)
+        xbar, dw_pad, db_pad = launch_bwd(
+            pk, x.contiguous(), ct_out.contiguous(), ct_sdf.contiguous(),
+            ct_grad.contiguous())
+        dws, dbs = packing.unpack_grads(dw_pad, db_pad, pk.meta, ws, pk.row_maps)
+        return xbar, dws, dbs
+    return sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg)
+
+
+class _SdfRays(torch.autograd.Function):
+    """K4 forward, K5 backward, on the dense weights and biases, so that
+    autograd carries the weight-norm (v, g) VJP (``mat_vjp`` in JAX)."""
+
+    @staticmethod
+    def forward(ctx, cfg_key, n_samples, x, *wb):
+        cfg = dict(cfg_key)
+        n_lin = len(wb) // 2
+        ws, bs = list(wb[:n_lin]), list(wb[n_lin:])
+        pk = RaysPack(ws, bs, cfg) if x.is_cuda else None
+        out, sdf, grad = sdf_fwd_grad(ws, bs, x, cfg, pk)
+        ctx.cfg, ctx.pk, ctx.n_lin = cfg, pk, n_lin
+        ctx.save_for_backward(x, *wb)
+        return out, sdf.reshape(-1, n_samples), grad
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_out, ct_sdf, ct_grad):
+        x, *wb = ctx.saved_tensors
+        ws, bs = wb[:ctx.n_lin], wb[ctx.n_lin:]
+        M = x.shape[0]
+        zeros = lambda *s: torch.zeros(s, dtype=x.dtype, device=x.device)  # noqa: E731
+        ct_out = zeros(M, ws[-1].shape[1]) if ct_out is None else ct_out
+        ct_sdf = zeros(M) if ct_sdf is None else ct_sdf.reshape(M)
+        ct_grad = zeros(M, 3) if ct_grad is None else ct_grad
+        xbar, dws, dbs = sdf_bwd(ws, bs, x, ct_out, ct_sdf, ct_grad, ctx.cfg,
+                                 ctx.pk)
+        return (None, None, xbar, *dws, *dbs)
+
+
+def sdf_apply_grad_fused_rays(params, cfg, pts, n_samples: int):
+    """(out [M, d_out], sdf_bn [M // n_samples, n_samples], grad [M, 3])
+    for points [M, 3] laid out ray by ray; K4 forward, K5 backward (the
+    plain versions for CPU tensors).  Differentiable in the parameters
+    (weight norm included) and in pts."""
+    if pts.shape[0] % n_samples:
+        raise ValueError(f"{pts.shape[0]} points are not whole rays of {n_samples}")
+    ws, bs = materialize(params, cfg)
+    return _SdfRays.apply(_cfg_key(cfg), n_samples, pts, *ws, *bs)

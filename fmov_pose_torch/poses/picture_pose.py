@@ -4,7 +4,7 @@
 Parameters are {"train": trainable leaves, "static": buffers (Fourier
 bands b, init_c2w)}.  The initializer is numpy with the JAX module's draw
 order, so both packages build identical pose nets from one seed.  The
-segment bank (``seg_*``) is slice 2 of the port.
+segment bank (``seg_*``) is slice 3 of the port.
 """
 
 from __future__ import annotations

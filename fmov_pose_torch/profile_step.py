@@ -1,24 +1,31 @@
 """Where the phase-2 training step's time goes on an NVIDIA GPU.
 
-    python -m fmov_pose_torch.profile_step [--steps 15] [--trace PATH]
+    python -m fmov_pose_torch.profile_step [CONF] [--steps 15] [--trace PATH]
 
-Trains ``confs/ho3d_global_womask.conf`` as written (its widths, batch,
-samples and gf pose; ``warm_up_end`` = 0 so the learning rate is not ~0)
-on the in-memory 8-frame 480x640 orbit scene of ``data/scene.py``, and
-prints one JSON line per phase:
+Trains a phase-2 conf as written (its widths, batch, samples and gf pose;
+``warm_up_end`` = 0 so the learning rate is not ~0) on the in-memory
+8-frame 480x640 orbit scene of ``data/scene.py``, and prints one JSON line
+per phase.  ``CONF`` defaults to ``confs/ho3d_global_womask.conf``, whose
+kernel is K1 in the up-sampler; with ``confs/ho3d_global_womask_tpu_fast.conf``
+the kernels are K4/K5 and K8/K9 (``use_fused_train``) on the occupancy grid.
 
-* ``ab``: K1 in the up-sampler against the f32 network there, alternating
-  K1, f32, f32, K1 in this one process, ``--steps`` steps each.  Per round,
-  the median step time on the device timeline (CUDA events between steps)
-  and the median host time to enqueue a step (no sync inside a step).
-* ``profile``: 5 steps with K1 under ``torch.profiler``.  From that one run,
-  the step time (CUDA events), the device busy time (the union of the
-  kernel, memcpy and memset intervals of the trace), the device's idle
-  share of the step, and the device kernels launched per step.  The
-  profiler's own host cost lengthens the step, so this idle share
-  describes the profiled run; the ``ab`` step times are the unprofiled
-  ones.
+* ``ab``: the conf's kernels against the f32 networks in their place,
+  alternating kernels, f32, f32, kernels in this one process, ``--steps``
+  steps each.  Per round, the median step time on the device timeline
+  (CUDA events between steps) and the median host time to enqueue a step
+  (no sync inside a step).
+* ``profile``: 5 steps with the kernels under ``torch.profiler``.  From
+  that one run, the step time (CUDA events), the device busy time (the
+  union of the kernel, memcpy and memset intervals of the trace), the
+  device's idle share of the step, and the device kernels launched per
+  step.  The profiler's own host cost lengthens the step, so this idle
+  share describes the profiled run; the ``ab`` step times are the
+  unprofiled ones.
 * ``top``: the ops with the most device self time per step.
+* ``kernels``: the ``fmov::K4..K9`` profiler ranges around the launches of
+  the fused training kernels (their helper launches included), each
+  with its device time per step, its share of the busy time and its rank
+  among the ops of ``top``.
 
 Needs CUDA; raises without it.  ``--trace`` also writes the Chrome trace.
 """
@@ -52,10 +59,11 @@ def busy_us(trace_events) -> tuple[float, int]:
     return total, n_kernels
 
 
-def _steps(runner, perm, n, fused):
-    """n steps; (per-step device-timeline ms, per-step host enqueue ms)."""
+def _steps(runner, perm, n, switch, fused):
+    """n steps with the SDF config's ``switch`` set to ``fused``;
+    (per-step device-timeline ms, per-step host enqueue ms)."""
     import torch
-    runner.model_cfg["sdf"]["use_fused"] = fused
+    runner.model_cfg["sdf"][switch] = fused
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     host = []
     events[0].record()
@@ -72,6 +80,7 @@ def _steps(runner, perm, n, fused):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("conf", nargs="?", default=CONF)
     parser.add_argument("--steps", type=int, default=15)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trace", type=str, default=None)
@@ -91,24 +100,27 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     scene = make_orbit_scene(n_frames=8, H=480, W=640, seed=args.seed)
     with tempfile.TemporaryDirectory() as tmp:
-        runner = Runner(CONF, case="profile", exp_dir=os.path.join(tmp, "exp"),
+        runner = Runner(args.conf, case="profile", exp_dir=os.path.join(tmp, "exp"),
                         seed=args.seed, device=dev, scene=scene)
         runner.end_iter, runner.warm_up_end = 10 ** 6, 0.0
+        switch = ("use_fused_train" if runner.model_cfg["sdf"].get("use_fused_train")
+                  else "use_fused")
+        conf = os.path.relpath(args.conf, ROOT)
         perm = runner.get_image_perm()
-        _steps(runner, perm, 5, True)  # warm-up
+        _steps(runner, perm, 5, switch, True)  # warm-up
 
         ab = []
         for fused in (True, False, False, True):
-            dev_ms, host_ms = _steps(runner, perm, args.steps, fused)
-            ab.append({"k1": fused, "step_ms": statistics.median(dev_ms),
+            dev_ms, host_ms = _steps(runner, perm, args.steps, switch, fused)
+            ab.append({"kernels": fused, "step_ms": statistics.median(dev_ms),
                        "host_enqueue_ms": statistics.median(host_ms)})
-        print(json.dumps({"phase": "ab", "card": card, "steps": args.steps,
-                          "rounds": ab}), flush=True)
+        print(json.dumps({"phase": "ab", "card": card, "conf": conf, "switch": switch,
+                          "steps": args.steps, "rounds": ab}), flush=True)
 
         n_prof = 5
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            dev_ms, host_ms = _steps(runner, perm, n_prof, True)
+            dev_ms, host_ms = _steps(runner, perm, n_prof, switch, True)
         trace = args.trace or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
         with open(trace) as f:
@@ -116,17 +128,33 @@ def main(argv=None):
         step_ms = sum(dev_ms) / n_prof
         busy_ms = busy / 1e3 / n_prof
         print(json.dumps({
-            "phase": "profile", "card": card, "steps": n_prof,
+            "phase": "profile", "card": card, "conf": conf, "steps": n_prof,
             "step_ms": step_ms, "host_enqueue_ms": sum(host_ms) / n_prof,
             "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
             "kernels_per_step": n_kernels / n_prof,
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}),
             flush=True)
-        top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-        print(json.dumps({"phase": "top", "card": card, "ops": [
+        # the fmov:: ranges appear twice (host range, device annotation)
+        # and would count their kernels' time again: kept out of ``top``
+        averages = prof.key_averages()
+        top = sorted((e for e in averages if not e.key.startswith("fmov::")),
+                     key=lambda e: -e.self_device_time_total)
+        print(json.dumps({"phase": "top", "card": card, "conf": conf, "ops": [
             {"name": e.key, "device_ms_per_step": e.self_device_time_total / 1e3 / n_prof,
              "calls_per_step": e.count / n_prof}
             for e in top[:15]]}), flush=True)
+        # each port kernel's range (all its launches), placed among the ops
+        # of ``top``: its rank is 1 + the ops with more device self time
+        ranges = {}
+        for e in averages:
+            if e.key.startswith("fmov::"):
+                ranges[e.key] = max(ranges.get(e.key, 0.0), e.device_time_total)
+        selfs = [e.self_device_time_total for e in top]
+        print(json.dumps({"phase": "kernels", "card": card, "conf": conf, "ranges": [
+            {"name": k, "device_ms_per_step": t / 1e3 / n_prof,
+             "share_of_busy": t / 1e3 / n_prof / busy_ms,
+             "rank": 1 + sum(s > t for s in selfs)}
+            for k, t in sorted(ranges.items())]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -6,13 +6,21 @@ annealing, the 1e-7 cumprod epsilon and the ``inv_s = 64 * 2**i``
 up-sampling schedule.  The SDF-guided up-sampler runs under
 ``torch.no_grad()`` and queries the SDF through the fused kernel
 (``ops/fused_sdf.py``) when the config asks for it, exactly where the JAX
-``_sdf_only_fn`` does.  ``render_core`` is the row form only (``[M, 3]``
+``_sdf_only_fn`` does; with an occupancy grid (``render/occupancy.py``) one
+grid gather replaces it.  ``render_core`` is the row form only (``[M, 3]``
 geometry); the JAX package's channel-plane layouts exist for the TPU's
 lane padding and are not ported.
 
-Memory: the JAX step wraps the SDF and color blocks in ``jax.checkpoint``;
-here autograd keeps the activations (a few GB at 512 rays x 128 samples,
-well inside an 80 GB card), so nothing is recomputed.
+``use_fused_train`` takes the JAX module's gates: at or above
+``fused_sdf.MIN_SAMPLES_RAYS`` samples the SDF runs through K4/K5
+(``sdf_apply_grad_fused_rays``), and with ``fused_color.MIN_SAMPLES`` the
+color MLP and the composite through K8/K9 (``color_fused_ray``).  The JAX
+paths below those gates that reach other kernels (the flat K2/K3 SDF
+path, and K6/K7 for the color) are not ported yet and raise.
+
+Memory: the JAX step wraps the unfused SDF and color blocks in
+``jax.checkpoint``; here autograd keeps the activations (a few GB at 512
+rays x 128 samples, well inside an 80 GB card), so nothing is recomputed.
 """
 
 from __future__ import annotations
@@ -109,6 +117,31 @@ def cat_z_vals(params, model_cfg, rays_o, rays_d, z_vals, new_z_vals, sdf, last:
     return merge_sorted(z_vals, new_z_vals, sdf, new_sdf)
 
 
+def _fused_train_paths(model_cfg, n_samples: int, m_total: int):
+    """(rays SDF path, ray-composited color path) as the JAX render_core
+    picks them; raises where JAX would reach a kernel the port lacks."""
+    sdf_cfg, color_cfg = model_cfg["sdf"], model_cfg["color"]
+    if not sdf_cfg.get("use_fused_train", False):
+        return False, False
+    from fmov_pose_torch.ops import fused_color, fused_sdf
+    if not fused_sdf.supported(sdf_cfg):
+        return False, False
+    if not fused_sdf.supported_rays(sdf_cfg, n_samples, m_total):
+        raise NotImplementedError(
+            f"use_fused_train below the rays gate ({m_total} < "
+            f"{fused_sdf.MIN_SAMPLES_RAYS} samples) takes the flat K2/K3 SDF "
+            "kernels, which are not in the port yet (ROADMAP queue 2)")
+    if not color_cfg.get("use_fused_train", True):
+        return True, False
+    if fused_color.supported(color_cfg) and m_total >= fused_color.MIN_SAMPLES:
+        if not fused_color.supported_ray(color_cfg, n_samples):
+            raise NotImplementedError(
+                "the per-sample color kernels K6/K7 are not in the port yet "
+                "(ROADMAP queue 2)")
+        return True, True
+    return True, False
+
+
 def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
                 background_rgb=None, cos_anneal_ratio=1.0, eval_mode=False):
     """SDF -> alpha -> composite."""
@@ -120,22 +153,30 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
     mid_z_vals = z_vals + dists * 0.5
 
     sdf_cfg = model_cfg["sdf"]
+    use_rays, use_color_ray = _fused_train_paths(
+        model_cfg, n_samples, batch_size * n_samples)
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z_vals[..., :, None]
            ).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(batch_size, n_samples, 3).reshape(-1, 3)
-    sdf_nn, gradients = nets.sdf_apply_with_gradient(params["sdf"], sdf_cfg, pts)
-    sdf = sdf_nn[:, :1]
+    if use_rays:
+        from fmov_pose_torch.ops import fused_sdf
+        sdf_nn, sdf_bn, gradients = fused_sdf.sdf_apply_grad_fused_rays(
+            params["sdf"], sdf_cfg, pts, n_samples)
+    else:
+        sdf_nn, gradients = nets.sdf_apply_with_gradient(params["sdf"], sdf_cfg, pts)
+        sdf_bn = sdf_nn[:, 0].reshape(batch_size, n_samples)
+    sdf = sdf_bn.reshape(-1, 1)
     feature = sdf_nn[:, 1:]
     if eval_mode:
         gradients = gradients.detach()
 
-    sampled_color = nets.color_apply(
-        params["color"], model_cfg["color"], pts, gradients, dirs, feature
-    ).reshape(batch_size, n_samples, 3)
+    sampled_color = None  # composited in the kernel on the color-ray path
+    if not use_color_ray:
+        sampled_color = nets.color_apply(
+            params["color"], model_cfg["color"], pts, gradients, dirs, feature
+        ).reshape(batch_size, n_samples, 3)
 
     inv_s = nets.variance_inv_s(params["variance"])
-
-    sdf_bn = sdf.reshape(batch_size, n_samples)
     true_cos = (dirs * gradients).sum(-1).reshape(batch_size, n_samples)
     # anneal keeps cos "alive" early in training
     iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
@@ -155,7 +196,13 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
 
     weights = _transmittance_weights(alpha)
     weights_sum = weights.sum(dim=-1, keepdim=True)
-    color = (sampled_color * weights[..., None]).sum(dim=1)
+    if use_color_ray:
+        from fmov_pose_torch.ops import fused_color
+        color = fused_color.color_fused_ray(
+            params["color"], model_cfg["color"], sdf_nn, pts, dirs, gradients,
+            weights)
+    else:
+        color = (sampled_color * weights[..., None]).sum(dim=1)
     if background_rgb is not None:
         color = color + background_rgb * (1.0 - weights_sum)
 
@@ -183,11 +230,14 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
 
 def render(generator, params, model_cfg, rays_o, rays_d, near, far,
            perturb_overwrite: float = -1.0, background_rgb=None,
-           cos_anneal_ratio: float = 1.0, eval_mode: bool = False):
+           cos_anneal_ratio: float = 1.0, eval_mode: bool = False,
+           occ_grid=None):
     """Full hierarchical render; returns the JAX module's output dict.
 
     ``generator``: the ``torch.Generator`` for the stratified perturbation
-    (unused when the perturbation is 0)."""
+    (unused when the perturbation is 0).  ``occ_grid``: an occupancy grid
+    [R, R, R] that places the importance samples instead of the SDF-guided
+    up-sampler."""
     cfg: RenderCfg = model_cfg["renderer"]
     if cfg.n_outside > 0:
         raise NotImplementedError(
@@ -205,7 +255,14 @@ def render(generator, params, model_cfg, rays_o, rays_d, near, far,
         z_vals = z_vals + t_rand * 2.0 / cfg.n_samples
 
     n_samples_total = cfg.n_samples
-    if cfg.n_importance > 0:
+    if cfg.n_importance > 0 and occ_grid is not None:
+        # one grid gather instead of the up-sampler's SDF passes
+        from fmov_pose_torch.render import occupancy
+        z_vals = occupancy.occupancy_importance(
+            occ_grid, rays_o.detach(), rays_d.detach(), z_vals.detach(),
+            cfg.n_importance)
+        n_samples_total = cfg.n_samples + cfg.n_importance
+    elif cfg.n_importance > 0:
         # SDF-guided up-sampling is gradient-free
         with torch.no_grad():
             z_vals = z_vals.detach()

@@ -6,7 +6,7 @@ Moments live in one raveled [P] buffer in ``convert.ParamLayout`` order
 decay and the parameters move by momentum, which is torch's
 ``zero_grad(); step()`` drift that the ``detach_mesh_at_warm_up`` gate
 relies on.  The update is in place, on the flat parameter buffer the
-training state owns.  The segment-bank Adam is slice 2 of the port.
+training state owns.  The segment-bank Adam is slice 3 of the port.
 """
 
 from __future__ import annotations

@@ -8,9 +8,12 @@ configuration with a plain Python loop: a report line every
 passes (``data/scene.py``, or anything with the same fields) or the JAX
 package's host ``Dataset`` read from the conf's ``data_dir``.
 
-What this subset leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: the progressive curriculum, segment banks and flow steps
-(slice 2), checkpoints, the eval and export modes, and data parallelism.
+The fused training kernels (``train.use_fused_train_kernels``) and the
+occupancy grid (``train.occupancy_sampling``, refreshed after every
+``occ_update_freq``-th step) are taken as in the JAX Runner.  What this
+subset leaves out raises ``NotImplementedError`` naming its ROADMAP item:
+the progressive curriculum, segment banks and flow steps, checkpoints, the
+eval and export modes, and data parallelism.
 """
 
 from __future__ import annotations
@@ -80,10 +83,7 @@ class Runner:
             if conf.get_float(key, 0.0) > 0:
                 _unsupported(key, item)
         for key, item in (("train.maintain_shape", "item 8"),
-                          ("train.occupancy_sampling", "item 4 (occupancy grid)"),
-                          ("model.pixel_level", "item 8"),
-                          ("train.use_fused_train_kernels",
-                           "queue 2 (fused training kernels)")):
+                          ("model.pixel_level", "item 8")):
             if conf.get_bool(key, False):
                 _unsupported(key, item)
 
@@ -133,6 +133,17 @@ class Runner:
         # the fused SDF forward of the gradient-free paths (ops/fused_sdf.py)
         self.model_cfg["sdf"]["use_fused"] = conf.get_bool(
             "train.use_fused_kernels", True)
+        # the fused training kernels (K4/K5 SDF, K8/K9 color; render_core)
+        self.model_cfg["sdf"]["use_fused_train"] = conf.get_bool(
+            "train.use_fused_train_kernels", False)
+        # occupancy-grid guided importance sampling instead of the
+        # SDF-guided up-sampler (render/occupancy.py)
+        self.occupancy_sampling = (
+            conf.get_bool("train.occupancy_sampling", False)
+            and self.model_cfg["renderer"].n_importance > 0)
+        self.occ_grid_res = conf.get_int("train.occ_grid_res", 64)
+        self.occ_update_freq = conf.get_int("train.occ_update_freq", 250)
+        self.occ_refreshes = 0
         self.variance_cfg = conf["model.variance_network"].as_plain_dict()
 
         noise_poses = None
@@ -204,6 +215,11 @@ class Runner:
             pose_static = {"pose_all": torch.as_tensor(
                 np.asarray(self.dataset.pose_all, np.float32), device=dev)}
 
+        if self.occupancy_sampling:
+            # fully occupied (uniform importance) until the first refresh
+            pose_static["occ_grid"] = torch.ones(
+                (self.occ_grid_res,) * 3, dtype=torch.float32, device=dev)
+
         layout = convert.ParamLayout(params)
         flat = layout.ravel(params, dev).requires_grad_(True)
         generator = torch.Generator(device=dev)
@@ -227,6 +243,7 @@ class Runner:
             mask_guided_sampling=self.mask_guided_sampling,
             mask_guided_patch_size=self.mask_guided_patch_size,
             only_rotation=self.only_rotation,
+            occupancy_sampling=self.occupancy_sampling,
         )
         self.photo_step = step_mod.make_photo_step(
             self.step_cfg, self.images_dev, self.masks_dev,
@@ -272,6 +289,20 @@ class Runner:
             trans_head_on=1.0)
         return img_id, scalars
 
+    @torch.no_grad()
+    def update_occ_grid(self):
+        """Refresh the occupancy grid from the current SDF, through the
+        f32 network (``nets.sdf_only``) as the JAX Runner does."""
+        from fmov_pose_torch.render import occupancy
+        if not hasattr(self, "_occ_pts"):
+            self._occ_pts = torch.as_tensor(
+                occupancy.make_grid_points(self.occ_grid_res), device=self.device)
+        sdf = nets.sdf_only(self.state.params["sdf"], self.model_cfg["sdf"],
+                            self._occ_pts)
+        self.state.pose_static["occ_grid"] = occupancy.update_occ_grid(
+            sdf, self.occ_grid_res)
+        self.occ_refreshes += 1
+
     def train(self):
         """Train to ``end_iter``.  Fills ``self.history`` (every metric of
         every step, read back once at the end) and, on CUDA,
@@ -292,6 +323,9 @@ class Runner:
             self.iter_step += 1
             rays_done += self.batch_size
             log.append(metrics)
+            if (self.occupancy_sampling
+                    and self.iter_step % self.occ_update_freq == 0):
+                self.update_occ_grid()
             if on_cuda:
                 events.append(torch.cuda.Event(enable_timing=True))
                 events[-1].record()

@@ -7,8 +7,10 @@ parameter buffer and the Adam moments are rewritten, never copied.
 Randomness comes from the ``torch.Generator`` the state carries.  Per-step
 scalars are host floats, so gating costs no device sync.
 
-Slice 1 covers the pose modes ``gf`` (one global Gaussian-Fourier pose
-net), ``se3`` (BARF refinement) and ``fixed`` (GT poses).  The flow step,
+The port covers the pose modes ``gf`` (one global Gaussian-Fourier pose
+net), ``se3`` (BARF refinement) and ``fixed`` (GT poses), with the
+SDF-guided up-sampler or the occupancy grid (``occ_grid`` in
+``pose_static``, as in the JAX step).  The flow step,
 the segment banks and the scanned and planned multi-step forms are later
 slices (ROADMAP queue 1, items 8-9).
 """
@@ -61,6 +63,7 @@ class StepConfig:
     mask_guided_sampling: bool = False
     mask_guided_patch_size: int = 30
     only_rotation: bool = False
+    occupancy_sampling: bool = False  # importance samples from pose_static["occ_grid"]
     model_cfg: Dict[str, Any] = field(default=None)
 
 
@@ -112,9 +115,10 @@ def _render_and_losses(cfg: StepConfig, generator, params, pose_static, data,
 
     render_params = {k: v for k, v in params.items()
                      if k in ("sdf", "color", "nerf", "variance")}
+    occ_grid = pose_static.get("occ_grid") if cfg.occupancy_sampling else None
     out = neus.render(generator, render_params, cfg.model_cfg, rays_o, rays_d,
                       near, far, background_rgb=background_rgb,
-                      cos_anneal_ratio=scalars.cos_anneal)
+                      cos_anneal_ratio=scalars.cos_anneal, occ_grid=occ_grid)
 
     color_fine = out["color_fine"]
     color_error = (color_fine - true_rgb) * mask
@@ -207,7 +211,7 @@ def make_photo_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
 
     def run_one(state: TrainState, scalars: StepScalars, img_id, add_img_id=0,
                 pixels=None):
-        del add_img_id  # maintain_shape rays are slice 2
+        del add_img_id  # maintain_shape rays are slice 3
         if "m" not in gate_masks:
             gate_masks["m"] = _flat_gate_masks(state.layout, state.flat.device)
         with torch.enable_grad():

@@ -36,7 +36,6 @@ import torch
 from fmov_pose_tpu.fields import nets as jn
 from fmov_pose_torch import convert
 from fmov_pose_torch.core.embedder import positional_encode
-from fmov_pose_torch.fields import nets as tn
 from fmov_pose_torch.ops import fused_sdf
 
 SMALL = {"d_out": 33, "d_in": 3, "d_hidden": 32, "n_layers": 4,
@@ -110,7 +109,7 @@ def _emulate_kernel(w_buf, b_buf, meta, x, scale):
         W = w_buf[w_off:w_off + kp * np_].view(kp, np_).float()
         z = inp[:, :kp] @ W + b_buf[b_off:b_off + np_]
         if l < n_lin - 1:
-            h = tn.softplus100(z)
+            h = fused_sdf.act_pair(z)[0]
             if l + 1 == skip:
                 h = h * inv_sqrt2
             act[(l + 1) & 1][:, :np_] = bf(h)
