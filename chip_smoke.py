@@ -6,9 +6,9 @@
 Phases, each printing lines as it ends:
   1. device   -- require CUDA; the card, its power limit, CUDA and nvcc
   2. build    -- compile every kernel source of this checkout, one nvcc
-                 each, all started together (K1 sdf_fwd.cu, K4
-                 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K8/K9 color_ray.cu), and
-                 print ptxas's registers and spills
+                 each, all started together (K1 sdf_fwd.cu, K2/K3
+                 sdf_flat.cu, K4 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K8/K9
+                 color_ray.cu), and print ptxas's registers and spills
   3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
                  against its plain PyTorch version at the full width of
                  confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
@@ -17,10 +17,16 @@ Phases, each printing lines as it ends:
                  confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
                  3 x 128 (ragged); CUDA-event times of the entry, the kernel
                  alone and the plain version
-  5. slice    -- Runner trains confs/ho3d_global_womask.conf for 50 steps on
+  5. flat-kernels -- K2 and K3 through their entry sdf_apply_grad_fused
+                 (forward and every gradient leaf, x included) against the
+                 same entry on CPU copies (the plain versions) at the full
+                 width of confs/ho3d_virtual_tpu_fast.conf, M = 1,024 x 32
+                 and a ragged 1,000; CUDA-event times of the wrapper, the
+                 kernel alone and the plain version
+  6. slice    -- Runner trains confs/ho3d_global_womask.conf for 50 steps on
                  an in-memory 8-frame 480x640 orbit scene: finite losses, a
                  falling color loss, K1 launched 4 times per step
-  6. slice2   -- Runner trains confs/ho3d_global_womask_tpu_fast.conf for 50
+  7. slice2   -- Runner trains confs/ho3d_global_womask_tpu_fast.conf for 50
                  steps on the same scene (occupancy grid refreshed after
                  steps 25 and 50): finite losses, a falling color loss, K4,
                  K5, K8 and K9 launched once per step and K1 never, a grid
@@ -29,8 +35,17 @@ Phases, each printing lines as it ends:
                  copies) and the f32 networks: the loss within 1e-2 of
                  f32's, every gradient leaf within the leaf rule of the
                  plain versions', and the leaves against f32 reported
-Then one JSON line of kernel results, the nvidia-smi line, and the last
-line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
+  8. slice3   -- Runner trains the progressive phase 1 of
+                 confs/ho3d_virtual_tpu_fast.conf (segment poses, flow steps,
+                 512 + 512 rays x 32 samples) for 50 steps on the same scene,
+                 with the schedule's depth cut (mesh warm-up 10 steps, a
+                 frame admitted every 8): finite losses, a falling color
+                 loss, K2 and K3 launched once per step and no other kernel,
+                 flow steps taken, at least 4 frames admitted and their
+                 segments initialised; the same batch check before and after
+Then one JSON line of kernel results (each with its launches in its
+path's run, its time, its plain version's, and its bound on the card),
+the nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
 fallback and no switch to the plain version.  Imports nothing of JAX and
 nothing of the JAX package, and checks that at the end.
 """
@@ -47,11 +62,16 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONF = os.path.join(ROOT, "confs", "ho3d_global_womask.conf")
 FAST_CONF = os.path.join(ROOT, "confs", "ho3d_global_womask_tpu_fast.conf")
+VIRTUAL_CONF = os.path.join(ROOT, "confs", "ho3d_virtual_tpu_fast.conf")
 STEPS = 50
+# slice 3's schedule, cut in depth only
+SLICE3_SCHEDULE = {"mesh_warmup_step": 10, "max_pro_iteration": 8, "pro_warm_up_end": 4}
 OCC_UPDATE_FREQ = 25
 SEED = 0
 TIMING_REPS = 20
-SOURCES = ("sdf_fwd", "sdf_fwd_grad", "sdf_bwd", "color_ray")
+SOURCES = ("sdf_fwd", "sdf_flat", "sdf_fwd_grad", "sdf_bwd", "color_ray")
+# the card's peaks for the bounds (NVIDIA's H100 SXM data sheet)
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # rows: max |err| and median |err| relative to max|ref| (K1's rule)
 ROW_MEDIAN_TOL, ROW_MAX_TOL = 1e-5, 1e-2
 
@@ -108,6 +128,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build_all(SOURCES)
     fused_sdf._lib()
+    fused_sdf._flat_lib()
     fused_sdf._rays_lib()
     fused_color._lib()
     total = time.perf_counter() - t0
@@ -181,7 +202,7 @@ def phase_kernels(dev):
                                     f"version at M={M}: {err}")
                 if M == 32768 and not want_feature:
                     main = {"max_abs_err": err["sdf_max"], "ms": entry_ms,
-                            "plain_ms": plain_ms}
+                            "plain_ms": plain_ms, **_bound(*_sdf_work(cfg, M, "K1"))}
     return main
 
 
@@ -197,6 +218,58 @@ def _flops_per_point(cfg, want_feature):
             out = 1
         fl += 2 * dims[l] * out
     return fl
+
+
+def _bound(flops, nbytes):
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}  # no one PyTorch call computes a fused MLP
+
+
+def _sdf_work(cfg, M, kind):
+    """(FLOPs, bytes) of one SDF kernel call on M points, from the shapes:
+    2 in x out a point per linear product (forward, gradient chain, Phase
+    A with its weight product, Phase B with its weight product); bytes
+    count each input once (the points, the bf16 weights, the cotangents)
+    and each output once (out, d_inputs or grad, xbar or xebar, the f32
+    weight gradients).  kind: K1 (sdf only), K2, K3, K4 or K5."""
+    from fmov_pose_torch.fields import nets
+    dims = nets.sdf_dims(cfg)
+    skip = cfg["skip_in"][0]
+    n_lin = len(dims) - 1
+    outs = [dims[l + 1] - dims[0] if l + 1 == skip else dims[l + 1]
+            for l in range(n_lin)]
+    prods = [dims[l] * outs[l] for l in range(n_lin)]
+    hidden, full = sum(prods[:-1]), sum(prods)
+    pe, d_out = dims[0], cfg["d_out"]
+    w_bytes = 2 * full + 4 * sum(outs)
+    g_bytes = 4 * full + 4 * sum(outs)
+    if kind == "K1":
+        return 2 * (hidden + dims[-2]) * M, M * (12 + 4) + w_bytes
+    if kind in ("K2", "K4"):
+        io = 4 * (pe + d_out + pe) if kind == "K2" else 12 + 4 * d_out + 4 + 12
+        return 2 * (full + hidden) * M, M * io + w_bytes
+    io = 4 * (3 * pe + d_out) if kind == "K3" else 12 + 4 * d_out + 4 + 12 + 12
+    return 2 * (4 * hidden + 2 * full) * M, M * io + w_bytes + g_bytes
+
+
+def _color_work(cfg, M, B, backward):
+    """(FLOPs, bytes) of K8 (backward False) or K9 on M samples of B rays:
+    the color MLP's products (K9: recomputed forward, input and weight
+    gradients) and its inputs (SDF output, points, directions, normals,
+    weights) and outputs (colors, or their cotangents' images)."""
+    from fmov_pose_torch.fields import nets
+    dims = nets.color_dims(cfg)
+    prods = sum(dims[l] * dims[l + 1] for l in range(len(dims) - 1))
+    per_sample = 4 * (cfg["d_feature"] + 1) + 12 * 3 + 4
+    w_bytes = 2 * prods + 4 * sum(dims[1:])
+    if not backward:
+        return 2 * prods * M, M * per_sample + B * 12 + w_bytes
+    return (3 * 2 * prods * M, 2 * M * per_sample + B * 12 + w_bytes
+            + 4 * prods + 4 * sum(dims[1:]))
 
 
 def _rows(ref, got):
@@ -258,6 +331,11 @@ def phase_train_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     main = {}
 
+    work = {"sdf_fwd_grad": lambda B, N: _sdf_work(cfg_s, B * N, "K4"),
+            "sdf_bwd": lambda B, N: _sdf_work(cfg_s, B * N, "K5"),
+            "color_ray_fwd": lambda B, N: _color_work(cfg_c, B * N, B, False),
+            "color_ray_bwd": lambda B, N: _color_work(cfg_c, B * N, B, True)}
+
     def report(name, B, N, err, tol, entry, kernel, plain, counter):
         before = counter()
         got = entry()
@@ -273,7 +351,7 @@ def phase_train_kernels(dev):
                             f"{B}x{N}: {res}")
         if B * N == 65536:
             main[name] = {"max_abs_err": res["max_abs"], "ms": t_entry,
-                          "plain_ms": t_plain}
+                          "plain_ms": t_plain, **_bound(*work[name](B, N))}
         return got
 
     with torch.no_grad():
@@ -332,7 +410,93 @@ def phase_train_kernels(dev):
     return main
 
 
-def _history_lines(phase, runner, smi, **extra):
+def phase_flat_kernels(dev):
+    """K2 and K3 through their entry ``sdf_apply_grad_fused`` (weight
+    materialisation, the encoding and its derivatives, packing, launch,
+    unpacking), forward and backward, against the same entry on CPU copies
+    of the same weights, points and cotangents, where it takes the plain
+    versions: the rows of out and grad by the row rule, every gradient
+    leaf (the weight-norm leaves and x) by the leaf rule.  At the phase-1
+    step's M = 1,024 rays x 32 samples and a ragged 1,000.  Times the
+    wrappers (K2: ``sdf_fwd_grad_flat``, K3: ``sdf_bwd_flat``, packing
+    included), the kernels alone on pre-packed weights, and the plain
+    versions on the card."""
+    import numpy as np
+    import torch
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.fields import nets
+    from fmov_pose_torch.ops import fused_sdf
+    cfg = model_cfg(VIRTUAL_CONF, "sdf_network")
+    params_np = convert.to_numpy(nets.init_sdf(np.random.default_rng(SEED), cfg))
+    names = [n for n, _ in convert.flatten(params_np)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    main = {}
+    for M in (32768, 1000):
+        x = (torch.rand((M, 3), generator=gen, device=dev) * 2 - 1) * 0.9
+        ct_out = torch.randn((M, cfg["d_out"]), generator=gen, device=dev)
+        ct_grad = torch.randn((M, 3), generator=gen, device=dev)
+        res = {}
+        for where, d in (("kernels", dev), ("plain", torch.device("cpu"))):
+            leaves = [torch.as_tensor(v, device=d).requires_grad_(True)
+                      for _, v in convert.flatten(params_np)]
+            xr = x.to(d).requires_grad_(True)
+            before = (fused_sdf.LAUNCHES_K2, fused_sdf.LAUNCHES_K3)
+            out, grad = fused_sdf.sdf_apply_grad_fused(
+                convert.unflatten(zip(names, leaves)), cfg, xr)
+            gs = torch.autograd.grad((out, grad), [xr] + leaves,
+                                     (ct_out.to(d), ct_grad.to(d)))
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            launched = (fused_sdf.LAUNCHES_K2 - before[0], fused_sdf.LAUNCHES_K3 - before[1])
+            _require(launched == ((1, 1) if d.type == "cuda" else (0, 0)),
+                     f"sdf_apply_grad_fused on {d} launched (K2, K3) {launched}")
+            res[where] = (out.detach().cpu(), grad.detach().cpu(),
+                          dict(zip(["x"] + names, (g.cpu() for g in gs))))
+        rows = fused_sdf.tolerance_check(res["plain"][0], res["kernels"][0])
+        grad_rows = _rows(res["plain"][1], res["kernels"][1])
+        leaves_res = _leaf_check(res["plain"][2], res["kernels"][2])
+
+        ws, bs = fused_sdf.materialize(convert.to_torch(params_np, dev), cfg)
+        pk = fused_sdf.RaysPack(ws, bs, cfg)
+        xe, jac, _, dims = fused_sdf.pe_parts(x * cfg["scale"], cfg["multires"])
+        ybar = torch.cat([ct_out[:, :1] / cfg["scale"], ct_out[:, 1:]], -1)
+        gbar = ct_grad[:, dims] * jac
+        times = {
+            "K2": [_median_ms(f) for f in (
+                lambda: fused_sdf.sdf_fwd_grad_flat(ws, bs, xe, cfg),
+                lambda: fused_sdf.launch_fwd_grad_flat(pk, xe),
+                lambda: fused_sdf.sdf_fwd_grad_flat_plain(ws, bs, xe, cfg))],
+            "K3": [_median_ms(f) for f in (
+                lambda: fused_sdf.sdf_bwd_flat(ws, bs, xe, ybar, gbar, cfg),
+                lambda: fused_sdf.launch_bwd_flat(pk, xe, ybar, gbar),
+                lambda: fused_sdf.sdf_bwd_flat_plain(ws, bs, xe, ybar, gbar, cfg))]}
+        for key, name, err in (("K2", "sdf_fwd_grad_flat", {"out": rows, "grad": grad_rows}),
+                               ("K3", "sdf_bwd_flat", leaves_res)):
+            t_entry, t_kernel, t_plain = times[key]
+            ok = (rows["ok"] and grad_rows["ok"]) if key == "K2" else leaves_res["ok"]
+            _line("flat-kernels", name=name, M=M, ok=ok,
+                  errors=json.dumps(err, sort_keys=True).replace(" ", ""),
+                  tol=(f"out:K1_rule;grad:{ROW_TOL}" if key == "K2" else
+                       f"x_and_every_leaf:{LEAF_TOL}"),
+                  entry_ms=f"{t_entry:.4f}", kernel_only_ms=f"{t_kernel:.4f}",
+                  plain_ms=f"{t_plain:.4f}")
+            _require(ok, f"{name} through sdf_apply_grad_fused disagrees with "
+                         f"the plain versions at M={M}: {err}")
+            if M == 32768:
+                max_abs = (max(float((res["kernels"][0] - res["plain"][0]).abs().max()),
+                               grad_rows["max_abs"]) if key == "K2"
+                           else leaves_res["max_abs"])
+                main[name] = {"max_abs_err": max_abs, "ms": t_entry, "plain_ms": t_plain,
+                              **_bound(*_sdf_work(cfg, M, key))}
+    return main
+
+
+def _history_lines(phase, runner, smi, fallback=None, **extra):
+    """The run's loss lines; requires finite losses and a color loss whose
+    last 10 steps average below its first 10.  ``fallback``: the color
+    losses of a subset of the steps held to the same rule where the whole
+    run's are not (slice 3: frame 0's photo steps, since every admission
+    adds a new, unfitted frame)."""
     import numpy as np
     h = runner.history
     losses = np.asarray(h["loss"])
@@ -344,26 +508,32 @@ def _history_lines(phase, runner, smi, **extra):
           psnr_last=f"{h['psnr'][-1]:.2f}", **extra)
     _require(len(losses) == STEPS and np.all(np.isfinite(losses)),
              f"non-finite or missing losses: {losses}")
-    _require(color[-10:].mean() < color[:10].mean(),
-             f"color loss did not fall: {color[:10]} -> {color[-10:]}")
+    falls = color[-10:].mean() < color[:10].mean()
+    if not falls and fallback is not None:
+        _line(phase, color_gate="fallback", first10=f"{fallback[:10].mean():.5f}",
+              last10=f"{fallback[-10:].mean():.5f}", steps=len(fallback))
+        color = fallback
+        falls = len(fallback) >= 20 and fallback[-10:].mean() < fallback[:10].mean()
+    _require(falls, f"color loss did not fall: {color[:10]} -> {color[-10:]}")
     return step_ms
 
 
-def _perf_line(phase, runner, step_ms, peak, smi):
-    _line(phase, median_step_ms=f"{step_ms:.2f}",
-          rays_per_s=f"{runner.batch_size / (step_ms / 1e3):.0f}",
+def _perf_line(phase, runner, step_ms, peak, smi, rays_per_step=None):
+    rays = rays_per_step or runner.batch_size
+    _line(phase, median_step_ms=f"{step_ms:.2f}", rays_per_step=rays,
+          rays_per_s=f"{rays / (step_ms / 1e3):.0f}",
           wall_s=f"{runner.train_seconds:.2f}", peak_mem_gib=f"{peak / 2**30:.3f}",
           card=repr(smi))
 
 
-def _ray_batch(runner, scene, dev):
+def _ray_batch(runner, scene, dev, n_rays=None):
     import torch
     from fmov_pose_torch.data import rays as raygen
     g = torch.Generator(device=dev).manual_seed(SEED)
     return raygen.gen_random_rays(
         g, runner.images_dev, runner.masks_dev, runner.intr_inv_dev,
         torch.as_tensor(scene.crop_poses[0][:3], device=dev), 0,
-        runner.batch_size, runner.bbox_dev, runner.mask_guided_patch_size,
+        n_rays or runner.batch_size, runner.bbox_dev, runner.mask_guided_patch_size,
         True, scene.H, scene.W)
 
 
@@ -408,31 +578,37 @@ def phase_slice(dev, smi, scene, tmp):
     _require(rel < 1e-2, f"K1 up-sampling changes the loss by {rel:.2e}")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    fused_sdf.LAUNCHES = 0
+    _zero_counters()
     runner.train()
-    launches = fused_sdf.LAUNCHES
+    counts = _counters()
     peak = torch.cuda.max_memory_allocated(dev)
 
-    step_ms = _history_lines("slice", runner, smi, k1_launches=launches)
+    step_ms = _history_lines("slice", runner, smi,
+                             launches=json.dumps(counts).replace(" ", ""))
     _perf_line("slice", runner, step_ms, peak, smi)
-    _require(launches == 4 * STEPS, f"K1 launched {launches} times in {STEPS} steps")
-    return launches
+    _require(counts["K1"] == 4 * STEPS,
+             f"K1 launched {counts['K1']} times in {STEPS} steps")
+    _require(all(v == 0 for k, v in counts.items() if k != "K1"),
+             f"kernels other than K1 launched on the slice-1 path: {counts}")
+    return counts["K1"]
 
 
 def _counters():
     from fmov_pose_torch.ops import fused_color, fused_sdf
-    return {"K1": fused_sdf.LAUNCHES, "K4": fused_sdf.LAUNCHES_K4,
+    return {"K1": fused_sdf.LAUNCHES, "K2": fused_sdf.LAUNCHES_K2,
+            "K3": fused_sdf.LAUNCHES_K3, "K4": fused_sdf.LAUNCHES_K4,
             "K5": fused_sdf.LAUNCHES_K5, "K8": fused_color.LAUNCHES_K8,
             "K9": fused_color.LAUNCHES_K9}
 
 
 def _zero_counters():
     from fmov_pose_torch.ops import fused_color, fused_sdf
-    fused_sdf.LAUNCHES = fused_sdf.LAUNCHES_K4 = fused_sdf.LAUNCHES_K5 = 0
+    fused_sdf.LAUNCHES = fused_sdf.LAUNCHES_K2 = fused_sdf.LAUNCHES_K3 = 0
+    fused_sdf.LAUNCHES_K4 = fused_sdf.LAUNCHES_K5 = 0
     fused_color.LAUNCHES_K8 = fused_color.LAUNCHES_K9 = 0
 
 
-def _check_batch(runner, scene, dev, when):
+def _check_batch(runner, scene, dev, when, phase="slice2", n_rays=None):
     """One ray batch of the fast conf's step, on the same weights, grid
     and z-values (perturbation 0, so that both devices place the samples
     alike), three ways: through the kernels; through their plain versions
@@ -447,7 +623,7 @@ def _check_batch(runner, scene, dev, when):
     from fmov_pose_torch.ops import fused_sdf
     from fmov_pose_torch.train import step as step_mod
     st = runner.state
-    data = _ray_batch(runner, scene, dev)
+    data = _ray_batch(runner, scene, dev, n_rays)
     cfg_k = runner.step_cfg
     cfg_k = dataclasses.replace(cfg_k, model_cfg=dict(
         cfg_k.model_cfg, renderer=cfg_k.model_cfg["renderer"]._replace(perturb=0.0)))
@@ -470,7 +646,8 @@ def _check_batch(runner, scene, dev, when):
     plain_vs_f32 = fused_sdf.leaf_rule(res["f32"][1], res["plain"][1])
     brief = lambda r: json.dumps({k: r[k] for k in (  # noqa: E731
         "ok", "worst", "worst_rel", "worst_abs_over_gnorm", "failed")}).replace(" ", "")
-    _line("slice2", check=f"batch_{when}", loss_kernels=f"{res['kernels'][0]:.6f}",
+    _line(phase, check=f"batch_{when}", rays=data.shape[0],
+          loss_kernels=f"{res['kernels'][0]:.6f}",
           loss_plain=f"{res['plain'][0]:.6f}", loss_f32=f"{res['f32'][0]:.6f}",
           rel_vs_f32=f"{rel:.2e}", loss_tol="1e-2", leaf_tol=LEAF_TOL,
           leaves_vs_plain=brief(vs_plain), leaves_vs_f32=brief(vs_f32),
@@ -520,13 +697,92 @@ def phase_slice2(dev, smi, scene, tmp):
     _perf_line("slice2", runner, step_ms, peak, smi)
     for k in ("K4", "K5", "K8", "K9"):
         _require(counts[k] == STEPS, f"{k} launched {counts[k]} times in {STEPS} steps")
-    _require(counts["K1"] == 0, f"K1 launched {counts['K1']} times on the grid path")
+    for k in ("K1", "K2", "K3"):
+        _require(counts[k] == 0, f"{k} launched {counts[k]} times on the slice-2 path")
     _require(runner.occ_refreshes == STEPS // OCC_UPDATE_FREQ,
              f"{runner.occ_refreshes} grid refreshes")
     _require(0.0 < occ_mean < 1.0, f"grid mean {occ_mean} after the refreshes")
     # the same after 50 steps, on the refreshed grid
     _check_batch(runner, scene, dev, "after_training")
 
+    return counts
+
+
+def phase_slice3(dev, smi, scene, tmp):
+    """The progressive phase 1 of the fast virtual conf, as written but for
+    the depth of its schedule (``SLICE3_SCHEDULE`` and 50 steps)."""
+    import numpy as np
+    import torch
+    from fmov_pose_torch.train.runner import Runner
+
+    runner = Runner(VIRTUAL_CONF, mode="train", case="orbit_smoke",
+                    exp_dir=os.path.join(tmp, "exp3"), seed=SEED,
+                    device=dev, scene=scene)
+    runner.end_iter, runner.warm_up_end = STEPS, 0.0
+    for key, value in SLICE3_SCHEDULE.items():
+        setattr(runner, key, value)
+        runner.conf.put(f"train.{key}", value)  # what reset_neus re-reads
+    r = runner.model_cfg["renderer"]
+    _require(runner.model_cfg["sdf"]["use_fused_train"] and runner.pose_mode == "seg"
+             and runner.progressive and runner.maintain_shape and runner.flow_weight > 0
+             and r.n_importance == 0,
+             "the phase-1 fast conf runs the fused kernels, seg poses, flow and "
+             "maintain_shape")
+    rays = 2 * runner.batch_size  # the frame's batch and the maintain_shape batch
+    overrides = ",".join([f"end_iter={STEPS}", "warm_up_end=0"]
+                         + [f"{k}={v}" for k, v in SLICE3_SCHEDULE.items()])
+    _line("slice3", conf=os.path.relpath(VIRTUAL_CONF, ROOT), overrides=overrides,
+          pose_mode=runner.pose_mode, n_segments=runner.n_segments,
+          batch=f"{runner.batch_size}+{runner.batch_size}",
+          samples=f"{r.n_samples}+{r.n_importance}", perturb=r.perturb,
+          M=rays * r.n_samples, n_params=runner.state.layout.size,
+          n_bank=runner.state.bank_layout.size, frames=scene.n_images,
+          flow_pairs=len(scene.loftr_flows))
+
+    _check_batch(runner, scene, dev, "initial", phase="slice3", n_rays=rays)
+
+    plans = []
+    plan_step = runner._plan_step
+
+    def recorded():
+        out = plan_step()
+        plans.append((out[3], out[1]))  # (img_id, use_flow)
+        return out
+
+    runner._plan_step = recorded
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    runner.train()
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    runner._plan_step = plan_step
+
+    color = np.asarray(runner.history["color_loss"])
+    frame0 = np.asarray([c for c, (img, flow) in zip(color, plans)
+                         if img == 0 and not flow])
+    initialized = runner.state.bank_static["initialized"]
+    step_ms = _history_lines(
+        "slice3", runner, smi, fallback=frame0,
+        launches=json.dumps(counts).replace(" ", ""),
+        flow_steps=runner.flow_steps, current_image=runner.current_image,
+        segment=runner.current_pose_mlp_index,
+        initialized="".join("1" if v else "0" for v in initialized),
+        resets=runner.reset_count,
+        frame0_photo_steps=len(frame0),
+        frame0_color_first10=f"{frame0[:10].mean():.5f}",
+        frame0_color_last10=f"{frame0[-10:].mean():.5f}")
+    _perf_line("slice3", runner, step_ms, peak, smi, rays_per_step=rays)
+    for k in ("K2", "K3"):
+        _require(counts[k] == STEPS, f"{k} launched {counts[k]} times in {STEPS} steps")
+    for k in ("K1", "K4", "K5", "K8", "K9"):
+        _require(counts[k] == 0, f"{k} launched {counts[k]} times on the slice-3 path")
+    _require(runner.flow_steps >= 1, "no flow step in the slice-3 run")
+    _require(runner.current_image >= 4, f"{runner.current_image} frames admitted")
+    _require(runner.current_pose_mlp_index >= 3
+             and bool(initialized[:runner.current_pose_mlp_index + 1].all()),
+             f"lazy segment inits: {initialized} at segment "
+             f"{runner.current_pose_mlp_index}")
+    _check_batch(runner, scene, dev, "after_training", phase="slice3", n_rays=rays)
     return counts
 
 
@@ -542,26 +798,31 @@ def main():
     phase_build()
     k1 = phase_kernels(dev)
     train_k = phase_train_kernels(dev)
+    flat_k = phase_flat_kernels(dev)
     t0 = time.perf_counter()
     scene = make_orbit_scene(n_frames=8, H=480, W=640, seed=SEED)
-    _line("scene", scene="orbit_8x480x640", seconds=f"{time.perf_counter() - t0:.1f}")
+    _line("scene", scene="orbit_8x480x640", seconds=f"{time.perf_counter() - t0:.1f}",
+          match_pairs=len(scene.loftr_flows) // 2)
     with tempfile.TemporaryDirectory() as tmp:
         k1_launches = phase_slice(dev, smi, scene, tmp)
         counts = phase_slice2(dev, smi, scene, tmp)
+        counts3 = phase_slice3(dev, smi, scene, tmp)
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
     csrc = "fmov_pose_torch/ops/csrc/"
     kernels = [{"name": "sdf_fwd", "route": "cuda", "source": csrc + "sdf_fwd.cu",
                 "replaces": "fmov_pose_tpu/ops/fused_sdf.py:326",
                 "launches": k1_launches, **k1}]
-    for key, name, src, replaces in (
-            ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699"),
-            ("K5", "sdf_bwd", "sdf_bwd.cu", "fused_sdf.py:761"),
-            ("K8", "color_ray_fwd", "color_ray.cu", "fused_color.py:375"),
-            ("K9", "color_ray_bwd", "color_ray.cu", "fused_color.py:407")):
+    for key, name, src, replaces, launches, res in (
+            ("K2", "sdf_fwd_grad_flat", "sdf_flat.cu", "fused_sdf.py:343", counts3, flat_k),
+            ("K3", "sdf_bwd_flat", "sdf_flat.cu", "fused_sdf.py:437", counts3, flat_k),
+            ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699", counts, train_k),
+            ("K5", "sdf_bwd", "sdf_bwd.cu", "fused_sdf.py:761", counts, train_k),
+            ("K8", "color_ray_fwd", "color_ray.cu", "fused_color.py:375", counts, train_k),
+            ("K9", "color_ray_bwd", "color_ray.cu", "fused_color.py:407", counts, train_k)):
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": "fmov_pose_tpu/ops/" + replaces,
-                        "launches": counts[key], **train_k[name]})
+                        "launches": launches[key], **res[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

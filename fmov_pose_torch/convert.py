@@ -101,3 +101,25 @@ class ParamLayout:
             if pred(name):
                 m[off:off + int(np.prod(shape, dtype=np.int64))] = 1.0
         return m.to(device) if device is not None else m
+
+
+def seg_bank_to_torch(bank, device=None) -> Tree:
+    """A JAX segment bank (``poses/picture_pose.py:init_seg_bank``; leaves
+    as numpy) -> the port's: the train leaves [S, ...] and the static
+    bands and init poses as tensors, the ``initialized`` flags as host
+    numpy (its unread ``progress`` buffer is dropped)."""
+    static = bank["static"]
+    return {"train": to_torch(bank["train"], device),
+            "static": {"b": to_torch(static["b"], device),
+                       "init_c2w": to_torch(static["init_c2w"], device),
+                       "initialized": np.array(static["initialized"], bool)}}
+
+
+def seg_adam_to_torch(opt, device=None):
+    """A JAX ``SegAdamState`` (flat moments over the bank's ravel order,
+    which is ``ParamLayout``'s) -> the port's."""
+    from fmov_pose_torch.train.optim import SegAdamState
+    return SegAdamState(
+        step=torch.as_tensor(np.array(opt.step, np.int32), device=device),
+        mu=torch.as_tensor(np.array(opt.mu, np.float32), device=device),
+        nu=torch.as_tensor(np.array(opt.nu, np.float32), device=device))

@@ -11,12 +11,20 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "gather_rgb",
     "pixels_to_rays",
     "sample_pixels",
     "gen_random_rays",
+    "gen_flow_rays",
     "gen_rays_grid",
     "near_far_from_sphere",
 ]
+
+
+def gather_rgb(images, img_idx, py, px):
+    """Colors [B, 3] of frame ``img_idx`` of images [N, H, W, 3] at integer
+    pixel ids py, px [B] (the JAX module's one-hot gather)."""
+    return images[img_idx, py, px]
 
 
 def pixels_to_rays(px, py, intr_inv, pose):
@@ -50,11 +58,11 @@ def sample_pixels(generator, bbox_table, img_idx, batch_size: int,
         x_lo = torch.where(use_bbox, torch.clamp(x0 - patch_size, min=0), 0)
         x_hi = torch.where(use_bbox, torch.clamp(x1 + patch_size, max=W), W)
     else:
-        y_lo, y_hi, x_lo, x_hi = (torch.tensor(v, device=dev) for v in (0, H, 0, W))
+        y_lo, y_hi, x_lo, x_hi = 0, H, 0, W  # host ints: no copy to the device
     px = x_lo + torch.floor(u[0] * (x_hi - x_lo)).long()
     py = y_lo + torch.floor(u[1] * (y_hi - y_lo)).long()
     # u * n can round up to n in f32
-    return torch.minimum(px, x_hi - 1), torch.minimum(py, y_hi - 1)
+    return torch.clamp(px, max=x_hi - 1), torch.clamp(py, max=y_hi - 1)
 
 
 def gen_random_rays(generator, images, masks, intr_inv_all, pose, img_idx,
@@ -74,11 +82,18 @@ def gen_random_rays(generator, images, masks, intr_inv_all, pose, img_idx,
                                mask_guided_active)
     else:
         px, py = pixels
-    color = images[img_idx, py, px]            # [B, 3]
+    color = gather_rgb(images, img_idx, py, px)  # [B, 3]
     mask = masks[img_idx, py, px][:, None]     # [B, 1]
     rays_o, rays_v, _ = pixels_to_rays(px.to(pose.dtype), py.to(pose.dtype),
                                        intr_inv_all[img_idx], pose)
     return torch.cat([rays_o, rays_v, color, mask], dim=-1)
+
+
+def gen_flow_rays(pixels_xy, intr_inv, pose):
+    """Rays (rays_o, rays_d) [B, 3] through match pixel coords [B, 2]
+    (fractional) of a frame with pose [3, 4]."""
+    rays_o, rays_v, _ = pixels_to_rays(pixels_xy[:, 0], pixels_xy[:, 1], intr_inv, pose)
+    return rays_o, rays_v
 
 
 def gen_rays_grid(intr_inv, pose, H: int, W: int, resolution_level: int = 1):

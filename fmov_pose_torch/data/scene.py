@@ -1,20 +1,28 @@
-"""In-memory synthetic phase-2 scene: an orbit around a textured sphere.
+"""In-memory synthetic scene: an orbit around a textured sphere.
 
-Counterpart of ``fmov_pose_tpu/data/synthetic.py:24-115`` that builds the
-arrays in memory instead of writing PNGs, so it needs neither OpenCV nor
-the disk.  It returns the fields the runner reads from a
-``fmov_pose_tpu.data.dataset.Dataset``, with the same conventions: images
-in BGR order quantized to 8 bits and divided by 256, 3-channel masks,
-black background when ``wo_mask``, and ``crop_poses`` as the phase-2
-initial poses (here the ground truth turned by a seeded small rotation,
-standing in for the phase-1 estimate).
+Counterpart of ``fmov_pose_tpu/data/synthetic.py`` that builds the arrays
+in memory instead of writing PNGs, so it needs neither OpenCV nor the
+disk.  It returns the fields the runner reads from a ``data/dataset.py``
+``Dataset``, with the same conventions: images in BGR order quantized to 8
+bits and divided by 256, 3-channel masks, black background when
+``wo_mask``, frame names ``0000``, ``0001``, ...; ``crop_poses`` as the
+phase-2 initial poses (here the ground truth turned by a seeded small
+rotation, standing in for the phase-1 estimate); and what phase 1 reads:
+exact correspondences between consecutive frames, drawn as ``synthetic.py``
+writes its match files (the analytic sphere's depth, 200 matches a pair,
+seeded) and filtered as the Dataset filters them, and the mask-init seed
+pose ``max_mask_pose``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict
 
 import numpy as np
+
+from fmov_pose_torch.data.dataset import (add_flow_pair, filter_matches, mask_bboxes,
+                                          mask_init_pose)
 
 SPHERE_RADIUS = 0.5
 
@@ -49,7 +57,7 @@ def _sphere_color(pts):
 
 def render_sphere_frame(K, c2w, H, W, radius=SPHERE_RADIUS):
     """Analytic ray-traced lambertian sphere: (rgb [H,W,3] in [0,1],
-    mask [H,W] bool)."""
+    mask [H,W] bool, depth [H,W] along the ray)."""
     xs, ys = np.meshgrid(np.arange(W), np.arange(H))
     pix = np.stack([xs, ys, np.ones_like(xs)], axis=-1).astype(np.float64)
     dirs = pix @ np.linalg.inv(K).T
@@ -70,7 +78,8 @@ def render_sphere_frame(K, c2w, H, W, radius=SPHERE_RADIUS):
     lambert = np.clip((normal * light).sum(-1), 0.0, 1.0) * 0.6 + 0.4
     rgb = _sphere_color(pts) * lambert[..., None]
     rgb = np.where(hit[..., None], rgb, 0.0)
-    return rgb.astype(np.float32), hit
+    depth = np.where(hit, t, 0.0)
+    return rgb.astype(np.float32), hit, depth.astype(np.float32)
 
 
 def orbit(n_frames, H, W, span_deg=60.0, cam_dist=2.5, elevation_deg=15.0):
@@ -103,6 +112,32 @@ def noisy_poses(poses, noise_deg=5.0, seed=0):
     return out.astype(np.float32)
 
 
+def exact_matches(K, c2w1, c2w2, mask1, depth1, mask2, rng, n_matches=200):
+    """Frame 1's pixels [n, 2] and their exact projections into frame 2
+    [n, 2] through the analytic geometry, drawn and rounded as
+    ``synthetic.py:_write_matches`` writes them (3 decimals)."""
+    ys, xs = np.where(mask1)
+    if len(ys) == 0:
+        return np.zeros((0, 2)), np.zeros((0, 2))
+    sel = rng.choice(len(ys), min(n_matches * 3, len(ys)), replace=False)
+    xs, ys = xs[sel], ys[sel]
+    pix = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64)
+    dirs = pix @ np.linalg.inv(K).T
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    pts_w = (dirs * depth1[ys, xs][:, None]) @ c2w1[:3, :3].T + c2w1[:3, 3]
+    w2c2 = np.linalg.inv(c2w2)
+    pts_c2 = pts_w @ w2c2[:3, :3].T + w2c2[:3, 3]
+    proj = pts_c2 @ K.T
+    px2, py2 = proj[:, 0] / proj[:, 2], proj[:, 1] / proj[:, 2]
+    H, W = mask2.shape
+    keep = (px2 >= 0) & (px2 < W) & (py2 >= 0) & (py2 < H) & (pts_c2[:, 2] > 0)
+    xi, yi = np.clip(px2, 0, W - 1).astype(int), np.clip(py2, 0, H - 1).astype(int)
+    keep &= mask2[yi, xi]
+    rows = np.round(np.stack([xs[keep], ys[keep], px2[keep], py2[keep]], -1)
+                    [:n_matches], 3)
+    return rows[:, :2], rows[:, 2:]
+
+
 @dataclass
 class Scene:
     """The Dataset fields the port's runner reads (see module docstring)."""
@@ -118,37 +153,49 @@ class Scene:
     W: int
     n_images: int
     max_mask_pose: np.ndarray = None
-
-
-def mask_bboxes(masks_np) -> np.ndarray:
-    n, H, W = masks_np.shape[:3]
-    boxes = np.zeros((n, 4), np.int32)
-    for i in range(n):
-        ys, xs = np.where(masks_np[i][:, :, 0] > 0.5)
-        boxes[i] = ((0, H, 0, W) if len(ys) == 0
-                    else (ys.min(), ys.max() + 1, xs.min(), xs.max() + 1))
-    return boxes
+    index_to_frame: Dict[int, str] = field(default_factory=dict)
+    frame_to_index: Dict[str, int] = field(default_factory=dict)
+    loftr_flows: Dict[str, tuple] = field(default_factory=dict)
+    flow_pairs: Dict[str, set] = field(default_factory=dict)
 
 
 def make_orbit_scene(n_frames=8, H=480, W=640, span_deg=60.0, cam_dist=2.5,
                      elevation_deg=15.0, noise_deg=5.0, seed=0,
-                     wo_mask=True) -> Scene:
+                     wo_mask=True, crop=True, match_seed=0) -> Scene:
+    """``crop``: the conf's ``dataset.crop``, which sets how the mask-init
+    pose is placed.  ``match_seed``: the match draw's seed (``synthetic.py``
+    uses 0)."""
     K, poses = orbit(n_frames, H, W, span_deg, cam_dist, elevation_deg)
-    images, masks = [], []
+    images, masks, frames = [], [], []
     for c2w in poses:
-        rgb, hit = render_sphere_frame(K, c2w, H, W)
+        rgb, hit, depth = render_sphere_frame(K, c2w, H, W)
         # the PNG round trip of synthetic.py + Dataset: 8-bit BGR, /256
         images.append((rgb[..., ::-1] * 255).astype(np.uint8))
         masks.append(np.repeat((hit * 255).astype(np.uint8)[..., None], 3, -1))
+        frames.append((hit, depth))
     images_np = np.stack(images).astype(np.float32) / 256.0
     masks_np = np.stack(masks).astype(np.float32) / 256.0
     if wo_mask:
         images_np[masks_np < 0.5] = 0.0
     intr = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
     intr[:, :3, :3] = K
+    names = [f"{i:04d}" for i in range(n_frames)]
+    flows, pairs = {}, {}
+    rng = np.random.default_rng(match_seed)
+    for i in range(n_frames - 1):
+        xys1, xys2 = exact_matches(K, poses[i], poses[i + 1], frames[i][0],
+                                   frames[i][1], frames[i + 1][0], rng)
+        if len(xys1):
+            xys1, xys2 = filter_matches(xys1, xys2, masks_np[i][..., 0],
+                                        masks_np[i + 1][..., 0], H, W)
+            add_flow_pair(flows, pairs, names[i], names[i + 1], xys1, xys2)
     return Scene(
         images_np=images_np, masks_np=masks_np,
         intrinsics_all=intr, intrinsics_all_inv=np.linalg.inv(intr),
         pose_all=poses, gt_poses=poses.copy(),
         crop_poses=noisy_poses(poses, noise_deg, seed),
-        mask_bboxes=mask_bboxes(masks_np), H=H, W=W, n_images=n_frames)
+        mask_bboxes=mask_bboxes(masks_np), H=H, W=W, n_images=n_frames,
+        max_mask_pose=mask_init_pose(masks_np[0][..., 0], intr[0][:3, :3], crop),
+        index_to_frame=dict(enumerate(names)),
+        frame_to_index={n: i for i, n in enumerate(names)},
+        loftr_flows=flows, flow_pairs=pairs)

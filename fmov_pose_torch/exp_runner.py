@@ -2,11 +2,13 @@
 
     python -m fmov_pose_torch.exp_runner --mode train --conf CONF --case CASE
 
-Only ``--mode train`` on a non-progressive conf (a single phase: the
-phase-2 global conf, a GT-pose or a BARF conf) runs today, on the CUDA
-device ``--gpu``; without CUDA it raises.  The two-phase ``--global_conf``
-reboot, the eval and export modes and their flags raise
-``NotImplementedError`` naming their ROADMAP item.
+``--mode train`` runs one phase of a conf on the CUDA device ``--gpu``
+(without CUDA it raises): the progressive phase 1 (``ho3d_virtual*.conf``,
+with its ``--flow_interval``, ``--reset_rot_degree`` and
+``--image_interval`` flags), the phase-2 global conf, or a GT-pose or BARF
+conf.  The two-phase ``--global_conf`` run, which aligns phase 1's poses
+between the phases (``pipeline/align.py``), the eval and export modes and
+their flags raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 import argparse
@@ -57,8 +59,9 @@ def main(argv=None, device=None):
             "PyTorch port yet (ROADMAP queue 1, item 10)")
     if args.global_conf != "None":
         raise NotImplementedError(
-            "--global_conf: the two-phase run needs the progressive phase 1 "
-            "(ROADMAP queue 1, items 8-9); run the phase-2 conf directly")
+            "--global_conf: the two-phase run needs the pose alignment between "
+            "the phases, pipeline/align.py (ROADMAP queue 1, item 9); run each "
+            "phase's conf on its own")
     for name, default in _EXPORT_FLAGS:
         if getattr(args, name) != default:
             raise NotImplementedError(

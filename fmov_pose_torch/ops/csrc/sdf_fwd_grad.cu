@@ -26,46 +26,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     sdf_fwd_grad_kernel(const __grid_constant__ SdfArgs s, float* out,
                         int n_out, float* sdf, float* grad) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Asm = reinterpret_cast<bf16*>(smem);
-  size_t off = align128((size_t)TILE_M * s.lda * 2);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + off);
-  off += align128((size_t)KCHUNK * s.ldb * 2);
-  float* scr = reinterpret_cast<float*>(smem + off) + (threadIdx.x >> 5) * 256;
-  off += align128((size_t)WARPS * 256 * 4);
-  float* DIN = reinterpret_cast<float*>(smem + off);
+  const SdfSmem m = sdf_smem_carve(s, smem);
+  float* DIN = reinterpret_cast<float*>(smem + m.off);
 
   const int n_tiles = s.M_pad / TILE_M;
-  const int last = s.n_lin - 1;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M;
-    __syncthreads();  // DIN free
-    sdf_pe_stage(s, row0, DIN, nullptr, nullptr, nullptr, nullptr);
-    for (int l = 0; l < last; ++l) sdf_forward_layer(s, l, row0, Asm, wbuf, scr);
-
-    // last layer: out = [z0 / scale, z1..], sdf = z0 / scale
-    {
-      const Layer& Ly = s.L[last];
-      __syncthreads();
-      load_tile(Asm, s.lda, s.X[last] + (size_t)row0 * Ly.kp, Ly.kp, Ly.in_w, Ly.kp);
-      const float* b = s.bias + Ly.b_off;
-      tile_gemm(Asm, s.lda, s.w + Ly.w_off, Ly.kp, Ly.np, wbuf, s.ldb, scr,
-                nullptr, 0, [&](int r, int n, float v) -> float {
-                  const int gr = row0 + r;
-                  if (gr < s.M && n < n_out) {
-                    const float z = v + b[n];
-                    const float o = n == 0 ? z / s.scale : z;
-                    out[(size_t)gr * n_out + n] = o;
-                    if (n == 0) sdf[gr] = o;
-                  }
-                  return 0.f;
-                });
-    }
-
-    for (int l = last - 1; l >= 0; --l)
-      sdf_reverse_layer(s, l, row0, Asm, wbuf, scr, DIN);
+    sdf_fwd_grad_tile(s, row0, m, DIN, out, n_out, sdf);
 
     // grad[d] = sum over the PE columns c of dim d of DIN[c] PE'(c)
-    __syncthreads();
     for (int i = threadIdx.x; i < TILE_M * 3; i += THREADS) {
       const int r = i / 3, d = i % 3;
       const int gr = row0 + r;
@@ -110,10 +79,6 @@ int fmov_sdf_fwd_grad(const float* x, int M, int M_pad, float scale,
   s.bias = bias;
   s.wlast = wlast;
   int p = 0;
-  for (int l = 0; l < MAX_LIN; ++l) {
-    s.X[l] = s.D[l] = nullptr;
-    s.SIG[l] = s.DS[l] = nullptr;
-  }
   for (int l = 0; l < n_lin; ++l) s.X[l] = reinterpret_cast<bf16*>(ptrs[p++]);
   for (int l = 0; l < n_lin - 1; ++l) s.D[l] = reinterpret_cast<bf16*>(ptrs[p++]);
   for (int l = 0; l < n_lin - 1; ++l) s.SIG[l] = reinterpret_cast<float*>(ptrs[p++]);

@@ -321,7 +321,7 @@ def sdf_apply_fused(params, cfg, x):
 
 
 # ---------------------------------------------------------------------------
-# K4 and K5: the rays path of the training step
+# K4 and K5: the rays path of the training step; K2 and K3: its flat path
 # ---------------------------------------------------------------------------
 #
 # K4 (``csrc/sdf_fwd_grad.cu``) replaces ``_make_fwd_grad_rays_kernel``
@@ -351,10 +351,27 @@ def sdf_apply_fused(params, cfg, x):
 # all points (``[fbar; inp]^T @ [e; zbar]``, the Phase A and B terms
 # stacked), split over K and reduced in a fixed order: run to run the
 # result is the same.
+#
+# K2 and K3 (``csrc/sdf_flat.cu``) replace ``_make_fwd_grad_kernel`` and
+# ``_make_bwd_kernel_biased`` (``_sdf_forward_grad_impl`` /
+# ``_sdf_bwd_impl``), which the JAX ``render_core`` takes below the rays
+# gate through ``sdf_apply_grad_fused``.  The same math as K4/K5, and the
+# same kernel body with other input and output stages: they take the
+# encoding xe [M, pe_dim] as given, and K2 returns d_inputs [M, pe_dim],
+# K3 takes its cotangent gbar and returns xebar [M, pe_dim].  The entry
+# computes the PE, its Jacobian-vector products and the second-derivative
+# term around them, exactly where the JAX entry does (its
+# ``_sdf_forward_grad_impl`` and ``_sdf_apply_grad_bwd``), so both kernels
+# compare with the JAX kernels one to one.  The extra [M, 39] arrays cost
+# ~5 MB a pass at the phase-1 step's M = 32,768: nothing on this card
+# (the rays kernels pull the PE in because of the TPU's lane padding).
 
+LAUNCHES_K2 = 0
+LAUNCHES_K3 = 0
 LAUNCHES_K4 = 0
 LAUNCHES_K5 = 0
 # profiler ranges around the launches (``profile_step.py`` reads them)
+PROFILE_K2, PROFILE_K3 = "fmov::K2_sdf_fwd_grad_flat", "fmov::K3_sdf_bwd_flat"
 PROFILE_K4, PROFILE_K5 = "fmov::K4_sdf_fwd_grad", "fmov::K5_sdf_bwd"
 
 # the JAX gate (``ops/fused_sdf.py:1185``); an H100 measurement may move it
@@ -449,30 +466,33 @@ def _grad_chain(ws, xe, sigs, skip):
     return ds, d_inputs + ds[0]
 
 
-def sdf_fwd_grad_plain(ws, bs, x, cfg):
-    """K4's arithmetic: x [M, 3] -> (out [M, d_out], grad [M, 3])."""
+def sdf_fwd_grad_flat_plain(ws, bs, xe, cfg):
+    """K2's arithmetic: the encoding xe [M, pe_dim] -> (out [M, d_out],
+    d_inputs [M, pe_dim]), d_inputs the cotangent of xe of the raw sdf
+    (before the /scale)."""
     scale = cfg.get("scale", 1.0)
     skip = _skip(cfg)
-    xe, jac, _, _ = pe_parts(x * scale, cfg["multires"])
     inps, sigs = _forward_chain(ws, bs, xe, skip)
     z = _bdot(inps[-1], ws[-1]) + bs[-1]
     out = torch.cat([z[:, :1] / scale, z[:, 1:]], -1)
     _, d_inputs = _grad_chain(ws, xe, sigs, skip)
+    return out, d_inputs
+
+
+def sdf_fwd_grad_plain(ws, bs, x, cfg):
+    """K4's arithmetic: x [M, 3] -> (out [M, d_out], grad [M, 3])."""
+    xe, jac, _, _ = pe_parts(x * cfg.get("scale", 1.0), cfg["multires"])
+    out, d_inputs = sdf_fwd_grad_flat_plain(ws, bs, xe, cfg)
     # scale * (1/scale) on the sdf column cancels: grad is wrt raw x
     return out, dim_sum(d_inputs * jac)
 
 
-def sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg):
-    """K5's arithmetic, the hand derivation transcribed: the cotangents
-    ct_out [M, d_out], ct_sdf [M] (sdf_bn's, flattened) and ct_grad [M, 3]
-    -> (xbar [M, 3], dws, dbs)."""
-    scale = cfg.get("scale", 1.0)
-    skip = _skip(cfg)
+def _bwd_core(ws, bs, xe, ybar, gbar, skip):
+    """The hand derivation transcribed (``ops/fused_sdf.py:407-434`` of
+    the JAX package): the VJP of (z_{L-1}, d_inputs) given their
+    cotangents ybar [M, d_out] and gbar [M, pe_dim] -> (xebar, dws, dbs,
+    d_inputs)."""
     n_lin = len(ws)
-    xe, jac, d2, dims = pe_parts(x * scale, cfg["multires"])
-    ybar = torch.cat([(ct_out[:, :1] + ct_sdf[:, None]) / scale, ct_out[:, 1:]], -1)
-    ct_grad_G = ct_grad[:, dims]
-    gbar = ct_grad_G * jac
     inps, sigs = _forward_chain(ws, bs, xe, skip)
     ds, d_inputs = _grad_chain(ws, xe, sigs, skip)
     dws = [None] * n_lin
@@ -510,6 +530,27 @@ def sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg):
             xebar = xebar + ibar
         else:
             zbar = ibar * sigs[l - 1] + zbar_chain[l - 1]
+    return xebar, dws, dbs, d_inputs
+
+
+def sdf_bwd_flat_plain(ws, bs, xe, ybar, gbar, cfg):
+    """K3's arithmetic: xe, ybar [M, d_out] (the cotangent of the raw last
+    layer, its sdf column already divided by scale) and gbar [M, pe_dim]
+    (the cotangent of d_inputs) -> (xebar [M, pe_dim], dws, dbs)."""
+    xebar, dws, dbs, _ = _bwd_core(ws, bs, xe, ybar, gbar, _skip(cfg))
+    return xebar, dws, dbs
+
+
+def sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg):
+    """K5's arithmetic: the cotangents ct_out [M, d_out], ct_sdf [M]
+    (sdf_bn's, flattened) and ct_grad [M, 3] -> (xbar [M, 3], dws, dbs):
+    K3's core with the encoding's derivatives around it."""
+    scale = cfg.get("scale", 1.0)
+    xe, jac, d2, dims = pe_parts(x * scale, cfg["multires"])
+    ybar = torch.cat([(ct_out[:, :1] + ct_sdf[:, None]) / scale, ct_out[:, 1:]], -1)
+    ct_grad_G = ct_grad[:, dims]
+    xebar, dws, dbs, d_inputs = _bwd_core(ws, bs, xe, ybar, ct_grad_G * jac,
+                                          _skip(cfg))
     xsbar = dim_sum(xebar * jac + ct_grad_G * d_inputs * d2)
     return xsbar * scale, dws, dbs
 
@@ -537,7 +578,7 @@ def _rays_layout(ws, cfg):
 
 
 class RaysPack:
-    """K4/K5's packed weights (``packing.pack_train``) for one set of
+    """K2-K5's packed weights (``packing.pack_train``) for one set of
     dense weights, plus the f32 column 0 of the last layer's W^T."""
 
     def __init__(self, ws, bs, cfg):
@@ -559,27 +600,45 @@ class RaysPack:
         self.shapes = [tuple(w.shape) for w in ws]
 
 
+def _typed(lib, signatures):
+    """Set the ctypes signatures {fn: argtypes} (and the error string's)
+    once per library."""
+    if not getattr(lib, "_fmov_typed", False):
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.fmov_train_error_string.argtypes = [ctypes.c_int]
+        lib.fmov_train_error_string.restype = ctypes.c_char_p
+        lib._fmov_typed = True
+    return lib
+
+
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (x, M, M_pad, scale, w, b, wlast, meta, n_lin, skip, multires, ptrs, G,
+#  out, n_out, sdf, grad, stream); K2 takes xe for x and d_inputs for
+#  (sdf, grad)
+_FWD_GRAD_ARGS = [_VP, _CI, _CI, _CF, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP, _CI,
+                  _VP, _CI, _VP, _VP, _VP]
+_FWD_GRAD_FLAT_ARGS = _FWD_GRAD_ARGS[:15] + [_VP, _VP]
+# (x, ct_out, ct_sdf, ct_grad, M, M_pad, n_out, scale, w, b, wlast, meta,
+#  n_lin, skip, multires, ptrs, G, KS, xbar, dw, db, stream); K3 takes
+#  (xe, ybar, gbar) for the first four and xebar for xbar
+_BWD_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CF, _VP, _VP, _VP, _VP, _CI, _CI,
+             _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP]
+_BWD_FLAT_ARGS = _BWD_ARGS[1:]
+
+
 def _rays_lib():
     from fmov_pose_torch.ops import build
-    lib_f = build.library("sdf_fwd_grad")
-    lib_b = build.library("sdf_bwd")
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if not getattr(lib_f, "_fmov_typed", False):
-        lib_f.fmov_sdf_fwd_grad.argtypes = [
-            vp, ci, ci, cf, vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, ci, vp, vp, vp]
-        lib_f.fmov_sdf_fwd_grad.restype = ci
-        lib_f.fmov_train_error_string.argtypes = [ci]
-        lib_f.fmov_train_error_string.restype = ctypes.c_char_p
-        lib_f._fmov_typed = True
-    if not getattr(lib_b, "_fmov_typed", False):
-        lib_b.fmov_sdf_bwd.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, cf, vp, vp, vp, vp, ci, ci, ci, vp,
-            ci, ci, vp, vp, vp, vp]
-        lib_b.fmov_sdf_bwd.restype = ci
-        lib_b.fmov_train_error_string.argtypes = [ci]
-        lib_b.fmov_train_error_string.restype = ctypes.c_char_p
-        lib_b._fmov_typed = True
-    return lib_f, lib_b
+    return (_typed(build.library("sdf_fwd_grad"), {"fmov_sdf_fwd_grad": _FWD_GRAD_ARGS}),
+            _typed(build.library("sdf_bwd"), {"fmov_sdf_bwd": _BWD_ARGS}))
+
+
+def _flat_lib():
+    from fmov_pose_torch.ops import build
+    return _typed(build.library("sdf_flat"),
+                  {"fmov_sdf_fwd_grad_flat": _FWD_GRAD_FLAT_ARGS,
+                   "fmov_sdf_bwd_flat": _BWD_FLAT_ARGS})
 
 
 def _check_cuda_rows(name, t, width, M, device):
@@ -604,6 +663,44 @@ def _raise_on(lib, err, what, M):
                            f"(cudaError {err}, M={M})")
 
 
+def _fwd_workspace(pk: RaysPack, M_pad: int, dev) -> packing.Workspace:
+    """K4/K2's per-point arrays: X_0..X_{L-1}, D_0..D_{L-2}, SIG_0..SIG_{L-2}."""
+    ws_ = packing.Workspace()
+    t = pk.table
+    for l in range(pk.n_lin):
+        ws_.add(f"X{l}", M_pad, t[l, 0], torch.bfloat16)
+    for l in range(pk.n_lin - 1):
+        ws_.add(f"D{l}", M_pad, t[l, 1], torch.bfloat16)
+    for l in range(pk.n_lin - 1):
+        ws_.add(f"SIG{l}", M_pad, t[l, 1], torch.float32)
+    ws_.allocate(dev)
+    return ws_
+
+
+def _bwd_workspace(pk: RaysPack, M_pad: int, G: int, KS: int, dev):
+    """K5/K3's per-point arrays and partial sums (``sdf_bwd_launch``'s
+    table in csrc/sdf_train.cuh); returns (workspace, n_bias)."""
+    t = pk.table
+    n_lin = pk.n_lin
+    ws_ = packing.Workspace()
+    for l in range(n_lin):
+        ws_.add(f"AB{l}", 2 * M_pad, t[l, 0], torch.bfloat16)
+    for l in range(n_lin):
+        ws_.add(f"BB{l}", 2 * M_pad, t[l, 1], torch.bfloat16)
+    for l in range(n_lin - 1):
+        ws_.add(f"SIG{l}", M_pad, t[l, 1], torch.float32)
+    for l in range(1, n_lin - 1):
+        ws_.add(f"DS{l}", M_pad, t[l - 1, 1], torch.float32)
+    for l in range(n_lin - 1):
+        ws_.add(f"ZC{l}", M_pad, t[l, 1], torch.float32)
+    n_bias = int(t[:, 1].sum())
+    ws_.add("DBPART", G, n_bias, torch.float32)
+    ws_.add("CBPART", G, t[-2, 1], torch.float32)
+    ws_.add("DWPART", KS, packing.dw_elems(pk.meta), torch.float32)
+    ws_.allocate(dev)
+    return ws_, n_bias
+
+
 def launch_fwd_grad(pk: RaysPack, x: torch.Tensor):
     """K4 on pre-packed weights: x CUDA float32 [M, 3] -> (out, sdf [M],
     grad); the only place that counts LAUNCHES_K4."""
@@ -613,15 +710,7 @@ def launch_fwd_grad(pk: RaysPack, x: torch.Tensor):
     if pk.w_buf.device != x.device:
         raise ValueError("packed weights and points on different devices")
     M_pad = packing.round_up(max(M, 1), packing.TILE_M)
-    ws_ = packing.Workspace()
-    t = pk.table
-    for l in range(pk.n_lin):
-        ws_.add(f"X{l}", M_pad, t[l, 0], torch.bfloat16)
-    for l in range(pk.n_lin - 1):
-        ws_.add(f"D{l}", M_pad, t[l, 1], torch.bfloat16)
-    for l in range(pk.n_lin - 1):
-        ws_.add(f"SIG{l}", M_pad, t[l, 1], torch.float32)
-    ws_.allocate(x.device)
+    ws_ = _fwd_workspace(pk, M_pad, x.device)
     out = torch.empty((M, pk.n_out), dtype=torch.float32, device=x.device)
     sdf = torch.empty(M, dtype=torch.float32, device=x.device)
     grad = torch.empty((M, 3), dtype=torch.float32, device=x.device)
@@ -661,27 +750,9 @@ def launch_bwd(pk: RaysPack, x, ct_out, ct_sdf, ct_grad):
     _check_cuda_rows("ct_sdf", ct_sdf.reshape(M, 1), 1, M, dev)
     _check_cuda_rows("ct_grad", ct_grad, 3, M, dev)
     M_pad = packing.round_up(max(M, 1), packing.TILE_M)
-    n_tiles = M_pad // packing.TILE_M
-    G = _grid(dev, n_tiles)
+    G = _grid(dev, M_pad // packing.TILE_M)
     KS = _split_k(dev, pk.meta, 2 * M_pad)
-    t = pk.table
-    n_lin = pk.n_lin
-    ws_ = packing.Workspace()
-    for l in range(n_lin):
-        ws_.add(f"AB{l}", 2 * M_pad, t[l, 0], torch.bfloat16)
-    for l in range(n_lin):
-        ws_.add(f"BB{l}", 2 * M_pad, t[l, 1], torch.bfloat16)
-    for l in range(n_lin - 1):
-        ws_.add(f"SIG{l}", M_pad, t[l, 1], torch.float32)
-    for l in range(1, n_lin - 1):
-        ws_.add(f"DS{l}", M_pad, t[l - 1, 1], torch.float32)
-    for l in range(n_lin - 1):
-        ws_.add(f"ZC{l}", M_pad, t[l, 1], torch.float32)
-    n_bias = int(t[:, 1].sum())
-    ws_.add("DBPART", G, n_bias, torch.float32)
-    ws_.add("CBPART", G, t[-2, 1], torch.float32)
-    ws_.add("DWPART", KS, packing.dw_elems(pk.meta), torch.float32)
-    ws_.allocate(dev)
+    ws_, n_bias = _bwd_workspace(pk, M_pad, G, KS, dev)
     xbar = torch.empty((M, 3), dtype=torch.float32, device=dev)
     dw_pad = torch.empty(packing.dw_elems(pk.meta), dtype=torch.float32, device=dev)
     db_pad = torch.empty(n_bias, dtype=torch.float32, device=dev)
@@ -691,12 +762,77 @@ def launch_bwd(pk: RaysPack, x, ct_out, ct_sdf, ct_grad):
         err = lib.fmov_sdf_bwd(
             x.data_ptr(), ct_out.data_ptr(), ct_sdf.data_ptr(), ct_grad.data_ptr(),
             M, M_pad, pk.n_out, pk.scale, pk.w_buf.data_ptr(), pk.b_buf.data_ptr(),
-            pk.wlast.data_ptr(), pk.meta.ctypes.data_as(ctypes.c_void_p), n_lin,
+            pk.wlast.data_ptr(), pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin,
             pk.skip, pk.multires, ws_.table.ctypes.data_as(ctypes.c_void_p),
             G, KS, xbar.data_ptr(), dw_pad.data_ptr(), db_pad.data_ptr(), stream)
     _raise_on(lib, err, "sdf_bwd", M)
     LAUNCHES_K5 += 1
     return xbar, dw_pad, db_pad
+
+
+def _pe_width(pk: RaysPack) -> int:
+    return 3 * (1 + 2 * pk.multires)
+
+
+def launch_fwd_grad_flat(pk: RaysPack, xe: torch.Tensor):
+    """K2 on pre-packed weights: the encoding xe CUDA float32 [M, pe_dim]
+    -> (out [M, d_out], d_inputs [M, pe_dim]); the only place that counts
+    LAUNCHES_K2."""
+    global LAUNCHES_K2
+    M = xe.shape[0]
+    dev = xe.device
+    _check_cuda_rows("xe", xe, _pe_width(pk), M, dev)
+    if pk.w_buf.device != dev:
+        raise ValueError("packed weights and points on different devices")
+    M_pad = packing.round_up(max(M, 1), packing.TILE_M)
+    ws_ = _fwd_workspace(pk, M_pad, dev)
+    out = torch.empty((M, pk.n_out), dtype=torch.float32, device=dev)
+    d_inputs = torch.empty((M, _pe_width(pk)), dtype=torch.float32, device=dev)
+    lib = _flat_lib()
+    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K2):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fmov_sdf_fwd_grad_flat(
+            xe.data_ptr(), M, M_pad, pk.scale, pk.w_buf.data_ptr(),
+            pk.b_buf.data_ptr(), pk.wlast.data_ptr(),
+            pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin, pk.skip,
+            pk.multires, ws_.table.ctypes.data_as(ctypes.c_void_p),
+            _grid(dev, M_pad // packing.TILE_M), out.data_ptr(), pk.n_out,
+            d_inputs.data_ptr(), stream)
+    _raise_on(lib, err, "sdf_fwd_grad_flat", M)
+    LAUNCHES_K2 += 1
+    return out, d_inputs
+
+
+def launch_bwd_flat(pk: RaysPack, xe, ybar, gbar):
+    """K3 on pre-packed weights: xe, ybar [M, d_out] and gbar [M, pe_dim]
+    -> (xebar [M, pe_dim], dw_pad, db_pad) in the packed layout; the only
+    place that counts LAUNCHES_K3."""
+    global LAUNCHES_K3
+    M = xe.shape[0]
+    dev = xe.device
+    pe_dim = _pe_width(pk)
+    _check_cuda_rows("xe", xe, pe_dim, M, dev)
+    _check_cuda_rows("ybar", ybar, pk.n_out, M, dev)
+    _check_cuda_rows("gbar", gbar, pe_dim, M, dev)
+    M_pad = packing.round_up(max(M, 1), packing.TILE_M)
+    G = _grid(dev, M_pad // packing.TILE_M)
+    KS = _split_k(dev, pk.meta, 2 * M_pad)
+    ws_, n_bias = _bwd_workspace(pk, M_pad, G, KS, dev)
+    xebar = torch.empty((M, pe_dim), dtype=torch.float32, device=dev)
+    dw_pad = torch.empty(packing.dw_elems(pk.meta), dtype=torch.float32, device=dev)
+    db_pad = torch.empty(n_bias, dtype=torch.float32, device=dev)
+    lib = _flat_lib()
+    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K3):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fmov_sdf_bwd_flat(
+            xe.data_ptr(), ybar.data_ptr(), gbar.data_ptr(), M, M_pad, pk.n_out,
+            pk.scale, pk.w_buf.data_ptr(), pk.b_buf.data_ptr(), pk.wlast.data_ptr(),
+            pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin, pk.skip, pk.multires,
+            ws_.table.ctypes.data_as(ctypes.c_void_p), G, KS, xebar.data_ptr(),
+            dw_pad.data_ptr(), db_pad.data_ptr(), stream)
+    _raise_on(lib, err, "sdf_bwd_flat", M)
+    LAUNCHES_K3 += 1
+    return xebar, dw_pad, db_pad
 
 
 def sdf_fwd_grad(ws, bs, x, cfg, pk: RaysPack = None):
@@ -721,6 +857,30 @@ def sdf_bwd(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg, pk: RaysPack = None):
     return sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg)
 
 
+def sdf_fwd_grad_flat(ws, bs, xe, cfg, pk: RaysPack = None):
+    """K2 for a CUDA tensor (packing ``ws`` unless ``pk`` is given), the
+    plain version for a CPU tensor: (out, d_inputs)."""
+    if xe.is_cuda:
+        return launch_fwd_grad_flat(pk or RaysPack(ws, bs, cfg), xe.contiguous())
+    return sdf_fwd_grad_flat_plain(ws, bs, xe, cfg)
+
+
+def sdf_bwd_flat(ws, bs, xe, ybar, gbar, cfg, pk: RaysPack = None):
+    """K3 for a CUDA tensor, the plain version for a CPU tensor:
+    (xebar [M, pe_dim], dws, dbs) in the layout of ``ws``/``bs``."""
+    if xe.is_cuda:
+        pk = pk or RaysPack(ws, bs, cfg)
+        xebar, dw_pad, db_pad = launch_bwd_flat(
+            pk, xe.contiguous(), ybar.contiguous(), gbar.contiguous())
+        dws, dbs = packing.unpack_grads(dw_pad, db_pad, pk.meta, ws, pk.row_maps)
+        return xebar, dws, dbs
+    return sdf_bwd_flat_plain(ws, bs, xe, ybar, gbar, cfg)
+
+
+def _zeros_for(ct, shape, like):
+    return torch.zeros(shape, dtype=like.dtype, device=like.device) if ct is None else ct
+
+
 class _SdfRays(torch.autograd.Function):
     """K4 forward, K5 backward, on the dense weights and biases, so that
     autograd carries the weight-norm (v, g) VJP (``mat_vjp`` in JAX)."""
@@ -742,10 +902,9 @@ class _SdfRays(torch.autograd.Function):
         x, *wb = ctx.saved_tensors
         ws, bs = wb[:ctx.n_lin], wb[ctx.n_lin:]
         M = x.shape[0]
-        zeros = lambda *s: torch.zeros(s, dtype=x.dtype, device=x.device)  # noqa: E731
-        ct_out = zeros(M, ws[-1].shape[1]) if ct_out is None else ct_out
-        ct_sdf = zeros(M) if ct_sdf is None else ct_sdf.reshape(M)
-        ct_grad = zeros(M, 3) if ct_grad is None else ct_grad
+        ct_out = _zeros_for(ct_out, (M, ws[-1].shape[1]), x)
+        ct_sdf = _zeros_for(ct_sdf, (M,), x).reshape(M)
+        ct_grad = _zeros_for(ct_grad, (M, 3), x)
         xbar, dws, dbs = sdf_bwd(ws, bs, x, ct_out, ct_sdf, ct_grad, ctx.cfg,
                                  ctx.pk)
         return (None, None, xbar, *dws, *dbs)
@@ -760,3 +919,54 @@ def sdf_apply_grad_fused_rays(params, cfg, pts, n_samples: int):
         raise ValueError(f"{pts.shape[0]} points are not whole rays of {n_samples}")
     ws, bs = materialize(params, cfg)
     return _SdfRays.apply(_cfg_key(cfg), n_samples, pts, *ws, *bs)
+
+
+class _SdfFlat(torch.autograd.Function):
+    """K2 forward, K3 backward, with the encoding and its derivatives in
+    PyTorch around them: the JAX custom_vjp ``_sdf_apply_grad_op``
+    (``_sdf_apply_grad_fwd`` / ``_sdf_apply_grad_bwd``).  On the dense
+    weights and biases, so that autograd carries the weight-norm VJP."""
+
+    @staticmethod
+    def forward(ctx, cfg_key, x, *wb):
+        cfg = dict(cfg_key)
+        n_lin = len(wb) // 2
+        ws, bs = list(wb[:n_lin]), list(wb[n_lin:])
+        xe, jac, _, _ = pe_parts(x * cfg.get("scale", 1.0), cfg["multires"])
+        pk = RaysPack(ws, bs, cfg) if x.is_cuda else None
+        out, d_inputs = sdf_fwd_grad_flat(ws, bs, xe, cfg, pk)
+        # grad = pe_vjp(xs, d_inputs): the scale and the sdf's /scale cancel
+        grad = dim_sum(d_inputs * jac)
+        ctx.cfg, ctx.pk, ctx.n_lin = cfg, pk, n_lin
+        ctx.save_for_backward(x, d_inputs, *wb)
+        return out, grad
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_out, ct_grad):
+        x, d_inputs, *wb = ctx.saved_tensors
+        cfg = ctx.cfg
+        ws, bs = wb[:ctx.n_lin], wb[ctx.n_lin:]
+        M = x.shape[0]
+        scale = cfg.get("scale", 1.0)
+        ct_out = _zeros_for(ct_out, (M, ws[-1].shape[1]), x)
+        ct_grad = _zeros_for(ct_grad, (M, 3), x)
+        xe, jac, d2, dims = pe_parts(x * scale, cfg["multires"])
+        # out = [z0 / scale, z1..]: the cotangent of the raw z
+        ybar = torch.cat([ct_out[:, :1] / scale, ct_out[:, 1:]], -1)
+        # grad = pe_vjp(xs, d_inputs): the cotangent of d_inputs
+        ct_grad_G = ct_grad[:, dims]
+        xebar, dws, dbs = sdf_bwd_flat(ws, bs, xe, ybar, ct_grad_G * jac, cfg,
+                                       ctx.pk)
+        # through the encoding, plus the xs-dependence of pe_vjp itself
+        xsbar = dim_sum(xebar * jac + ct_grad_G * d_inputs * d2)
+        return (None, xsbar * scale, *dws, *dbs)
+
+
+def sdf_apply_grad_fused(params, cfg, x):
+    """(out [M, d_out], grad [M, 3]) for points x [M, 3]; K2 forward, K3
+    backward (the plain versions for CPU tensors).  Differentiable in the
+    parameters (weight norm included) and in x.  The JAX entry of the
+    same name is its contract."""
+    ws, bs = materialize(params, cfg)
+    return _SdfFlat.apply(_cfg_key(cfg), x, *ws, *bs)

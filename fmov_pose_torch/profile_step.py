@@ -1,13 +1,18 @@
-"""Where the phase-2 training step's time goes on an NVIDIA GPU.
+"""Where a training step's time goes on an NVIDIA GPU.
 
     python -m fmov_pose_torch.profile_step [CONF] [--steps 15] [--trace PATH]
 
-Trains a phase-2 conf as written (its widths, batch, samples and gf pose;
+Trains a conf as written (its widths, batch, samples and pose mode;
 ``warm_up_end`` = 0 so the learning rate is not ~0) on the in-memory
 8-frame 480x640 orbit scene of ``data/scene.py``, and prints one JSON line
 per phase.  ``CONF`` defaults to ``confs/ho3d_global_womask.conf``, whose
 kernel is K1 in the up-sampler; with ``confs/ho3d_global_womask_tpu_fast.conf``
-the kernels are K4/K5 and K8/K9 (``use_fused_train``) on the occupancy grid.
+the kernels are K4/K5 and K8/K9 (``use_fused_train``) on the occupancy grid;
+with the phase-1 ``confs/ho3d_virtual_tpu_fast.conf`` they are K2/K3, and
+the steps are the progressive curriculum's photo and flow steps from its
+start, its depth cut as ``chip_smoke.py`` cuts it (``PROGRESSIVE_CUT``: a
+5-step mesh warm-up, a frame admitted every 8 steps), so that the
+measured steps train the segment poses, admit frames and take flow steps.
 
 * ``ab``: the conf's kernels against the f32 networks in their place,
   alternating kernels, f32, f32, kernels in this one process, ``--steps``
@@ -22,7 +27,7 @@ the kernels are K4/K5 and K8/K9 (``use_fused_train``) on the occupancy grid.
   share describes the profiled run; the ``ab`` step times are the
   unprofiled ones.
 * ``top``: the ops with the most device self time per step.
-* ``kernels``: the ``fmov::K4..K9`` profiler ranges around the launches of
+* ``kernels``: the ``fmov::K2..K9`` profiler ranges around the launches of
   the fused training kernels (their helper launches included), each
   with its device time per step, its share of the busy time and its rank
   among the ops of ``top``.
@@ -43,6 +48,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "confs", "ho3d_global_womask.conf")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+PROGRESSIVE_CUT = {"mesh_warmup_step": 5, "max_pro_iteration": 8, "pro_warm_up_end": 4}
 
 
 def busy_us(trace_events) -> tuple[float, int]:
@@ -59,8 +65,9 @@ def busy_us(trace_events) -> tuple[float, int]:
     return total, n_kernels
 
 
-def _steps(runner, perm, n, switch, fused):
-    """n steps with the SDF config's ``switch`` set to ``fused``;
+def _steps(runner, n, switch, fused):
+    """n steps of the Runner's loop (plan, dispatch, the progressive
+    bookkeeping) with the SDF config's ``switch`` set to ``fused``;
     (per-step device-timeline ms, per-step host enqueue ms)."""
     import torch
     runner.model_cfg["sdf"][switch] = fused
@@ -69,9 +76,10 @@ def _steps(runner, perm, n, switch, fused):
     events[0].record()
     for i in range(n):
         t0 = time.perf_counter()
-        img_id, scalars = runner._plan_step(perm)
-        runner.state, _ = runner.photo_step(runner.state, scalars, img_id)
+        runner._dispatch(*runner._plan_step()[:3])
         runner.iter_step += 1
+        runner._progressive_update()
+        runner._maybe_regen_perms()
         host.append((time.perf_counter() - t0) * 1e3)
         events[i + 1].record()
     torch.cuda.synchronize()
@@ -103,24 +111,30 @@ def main(argv=None):
         runner = Runner(args.conf, case="profile", exp_dir=os.path.join(tmp, "exp"),
                         seed=args.seed, device=dev, scene=scene)
         runner.end_iter, runner.warm_up_end = 10 ** 6, 0.0
+        if runner.progressive:
+            for key, value in PROGRESSIVE_CUT.items():
+                setattr(runner, key, value)
+                runner.conf.put(f"train.{key}", value)
         switch = ("use_fused_train" if runner.model_cfg["sdf"].get("use_fused_train")
                   else "use_fused")
         conf = os.path.relpath(args.conf, ROOT)
-        perm = runner.get_image_perm()
-        _steps(runner, perm, 5, switch, True)  # warm-up
+        runner._init_perms()
+        _steps(runner, 5, switch, True)  # warm-up
 
         ab = []
         for fused in (True, False, False, True):
-            dev_ms, host_ms = _steps(runner, perm, args.steps, switch, fused)
+            dev_ms, host_ms = _steps(runner, args.steps, switch, fused)
             ab.append({"kernels": fused, "step_ms": statistics.median(dev_ms),
                        "host_enqueue_ms": statistics.median(host_ms)})
         print(json.dumps({"phase": "ab", "card": card, "conf": conf, "switch": switch,
-                          "steps": args.steps, "rounds": ab}), flush=True)
+                          "steps": args.steps, "rounds": ab,
+                          "flow_steps": runner.flow_steps,
+                          "current_image": runner.current_image}), flush=True)
 
         n_prof = 5
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            dev_ms, host_ms = _steps(runner, perm, n_prof, switch, True)
+            dev_ms, host_ms = _steps(runner, n_prof, switch, True)
         trace = args.trace or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
         with open(trace) as f:
@@ -131,7 +145,8 @@ def main(argv=None):
             "phase": "profile", "card": card, "conf": conf, "steps": n_prof,
             "step_ms": step_ms, "host_enqueue_ms": sum(host_ms) / n_prof,
             "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
-            "kernels_per_step": n_kernels / n_prof,
+            "kernels_per_step": n_kernels / n_prof, "flow_steps": runner.flow_steps,
+            "current_image": runner.current_image,
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}),
             flush=True)
         # the fmov:: ranges appear twice (host range, device annotation)

@@ -13,10 +13,12 @@ lane padding and are not ported.
 
 ``use_fused_train`` takes the JAX module's gates: at or above
 ``fused_sdf.MIN_SAMPLES_RAYS`` samples the SDF runs through K4/K5
-(``sdf_apply_grad_fused_rays``), and with ``fused_color.MIN_SAMPLES`` the
-color MLP and the composite through K8/K9 (``color_fused_ray``).  The JAX
-paths below those gates that reach other kernels (the flat K2/K3 SDF
-path, and K6/K7 for the color) are not ported yet and raise.
+(``sdf_apply_grad_fused_rays``), below it through the flat K2/K3
+(``sdf_apply_grad_fused``); with ``fused_color.MIN_SAMPLES`` the color MLP
+and the composite run through K8/K9 (``color_fused_ray``), below it on the
+f32 network.  The JAX path that reaches the per-sample color kernels
+K6/K7 (the color gate met without the rays SDF path) is not ported yet
+and raises.
 
 Memory: the JAX step wraps the unfused SDF and color blocks in
 ``jax.checkpoint``; here autograd keeps the activations (a few GB at 512
@@ -118,28 +120,26 @@ def cat_z_vals(params, model_cfg, rays_o, rays_d, z_vals, new_z_vals, sdf, last:
 
 
 def _fused_train_paths(model_cfg, n_samples: int, m_total: int):
-    """(rays SDF path, ray-composited color path) as the JAX render_core
-    picks them; raises where JAX would reach a kernel the port lacks."""
+    """(SDF path: None, "rays" or "flat"; ray-composited color path) as
+    the JAX render_core picks them; raises where JAX would reach a kernel
+    the port lacks."""
     sdf_cfg, color_cfg = model_cfg["sdf"], model_cfg["color"]
     if not sdf_cfg.get("use_fused_train", False):
-        return False, False
+        return None, False
     from fmov_pose_torch.ops import fused_color, fused_sdf
     if not fused_sdf.supported(sdf_cfg):
-        return False, False
-    if not fused_sdf.supported_rays(sdf_cfg, n_samples, m_total):
-        raise NotImplementedError(
-            f"use_fused_train below the rays gate ({m_total} < "
-            f"{fused_sdf.MIN_SAMPLES_RAYS} samples) takes the flat K2/K3 SDF "
-            "kernels, which are not in the port yet (ROADMAP queue 2)")
+        return None, False
+    sdf_path = ("rays" if fused_sdf.supported_rays(sdf_cfg, n_samples, m_total)
+                else "flat")
     if not color_cfg.get("use_fused_train", True):
-        return True, False
+        return sdf_path, False
     if fused_color.supported(color_cfg) and m_total >= fused_color.MIN_SAMPLES:
-        if not fused_color.supported_ray(color_cfg, n_samples):
+        if sdf_path != "rays" or not fused_color.supported_ray(color_cfg, n_samples):
             raise NotImplementedError(
                 "the per-sample color kernels K6/K7 are not in the port yet "
                 "(ROADMAP queue 2)")
-        return True, True
-    return True, False
+        return sdf_path, True
+    return sdf_path, False
 
 
 def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
@@ -153,15 +153,19 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
     mid_z_vals = z_vals + dists * 0.5
 
     sdf_cfg = model_cfg["sdf"]
-    use_rays, use_color_ray = _fused_train_paths(
+    sdf_path, use_color_ray = _fused_train_paths(
         model_cfg, n_samples, batch_size * n_samples)
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z_vals[..., :, None]
            ).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(batch_size, n_samples, 3).reshape(-1, 3)
-    if use_rays:
+    if sdf_path == "rays":
         from fmov_pose_torch.ops import fused_sdf
         sdf_nn, sdf_bn, gradients = fused_sdf.sdf_apply_grad_fused_rays(
             params["sdf"], sdf_cfg, pts, n_samples)
+    elif sdf_path == "flat":
+        from fmov_pose_torch.ops import fused_sdf
+        sdf_nn, gradients = fused_sdf.sdf_apply_grad_fused(params["sdf"], sdf_cfg, pts)
+        sdf_bn = sdf_nn[:, 0].reshape(batch_size, n_samples)
     else:
         sdf_nn, gradients = nets.sdf_apply_with_gradient(params["sdf"], sdf_cfg, pts)
         sdf_bn = sdf_nn[:, 0].reshape(batch_size, n_samples)

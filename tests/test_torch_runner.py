@@ -218,7 +218,7 @@ def test_cli_trains_phase2_gf_conf(tmp_path):
 
 @pytest.mark.parametrize("args,match", [
     (["--mode", "validate_mesh"], "item 10"),
-    (["--mode", "train", "--global_conf", "x.conf"], "items 8-9"),
+    (["--mode", "train", "--global_conf", "x.conf"], "item 9"),
     (["--mode", "train", "--mesh_scale", "2.0"], "item 10"),
     (["--mode", "train", "--align_dir", "out"], "item 10"),
 ])
@@ -237,14 +237,21 @@ def test_cli_needs_cuda_unless_given_a_device():
         exp_runner.main(["--mode", "train", "--conf", "unused.conf"])
 
 
-def test_runner_rejects_progressive_conf(tmp_path):
+@pytest.mark.parametrize("key,extra,match", [
+    ("progressive = True", "progressive = True\n    plan_chunk = 4", "plan_chunk"),
+    ("pose_type = seg", "pose_type = seg\n    pixel_level = True", "pixel_level")])
+def test_runner_rejects_progressive_conf(tmp_path, key, extra, match):
+    """A progressive seg conf trains (tests/test_torch_progressive.py), but
+    its opt-in planned dispatch and pixel-level banks raise, naming their
+    ROADMAP item, before any data is read."""
     from fmov_pose_torch.train.runner import Runner
     conf = tmp_path / "prog.conf"
     conf.write_text(CONF.format(exp_dir=tmp_path / "exp", data_dir=tmp_path)
                     .replace("pose_type = gf", "pose_type = seg")
                     .replace("mask_guided_sampling = True",
-                             "mask_guided_sampling = True\n    progressive = True"))
-    with pytest.raises(NotImplementedError, match="progressive"):
+                             "mask_guided_sampling = True\n    progressive = True")
+                    .replace(key, extra))
+    with pytest.raises(NotImplementedError, match=match + ".*ROADMAP queue 1"):
         Runner(str(conf), device="cpu", scene=object())
 
 

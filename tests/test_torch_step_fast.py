@@ -211,10 +211,15 @@ def test_runner_trains_fast_conf_on_cpu(tmp_path, monkeypatch):
     assert loss.shape == (20,) and np.all(np.isfinite(loss))
 
 
-def test_fused_train_below_the_rays_gate_raises():
-    """Where JAX would take the flat K2/K3 kernels, the port raises."""
+def test_fused_train_below_the_rays_gate_raises(monkeypatch):
+    """Below the rays gate the SDF takes the flat K2/K3 path
+    (tests/test_torch_fused_flat.py); where the color gate is met there,
+    JAX would reach the per-sample color kernels K6/K7, which the port
+    lacks: it raises."""
     cfg = {"sdf": dict(SDF), "color": dict(COLOR), "nerf": dict(NERF),
            "renderer": tneus.make_render_cfg(RENDER)}
+    assert tneus._fused_train_paths(cfg, 16, 64) == ("flat", False)
+    monkeypatch.setattr(fused_color, "MIN_SAMPLES", 0)
     z = torch.linspace(0.5, 1.5, 16).expand(4, 16)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
+    with pytest.raises(NotImplementedError, match="K6/K7"):
         tneus.render_core({}, cfg, torch.zeros(4, 3), torch.ones(4, 3), z, 0.1)
