@@ -7,8 +7,9 @@ Phases, each printing lines as it ends:
   1. device   -- require CUDA; the card, its power limit, CUDA and nvcc
   2. build    -- compile every kernel source of this checkout, one nvcc
                  each, all started together (K1 sdf_fwd.cu, K2/K3
-                 sdf_flat.cu, K4 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K8/K9
-                 color_ray.cu), and print ptxas's registers and spills
+                 sdf_flat.cu, K4 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K6/K7
+                 color_sample.cu, K8/K9 color_ray.cu), and print ptxas's
+                 registers and spills
   3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
                  against its plain PyTorch version at the full width of
                  confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
@@ -23,10 +24,16 @@ Phases, each printing lines as it ends:
                  width of confs/ho3d_virtual_tpu_fast.conf, M = 1,024 x 32
                  and a ragged 1,000; CUDA-event times of the wrapper, the
                  kernel alone and the plain version
-  6. slice    -- Runner trains confs/ho3d_global_womask.conf for 50 steps on
+  6. color-kernels -- K6 and K7 through their entry color_fused (forward
+                 and every gradient leaf, xc included) against the same
+                 entry on CPU copies (the plain versions) at the full width
+                 of the fast conf, M = 512 x 128 and a ragged 1,000, xc
+                 built from K4's outputs; CUDA-event times of the wrapper,
+                 the kernel alone and the plain version
+  7. slice    -- Runner trains confs/ho3d_global_womask.conf for 50 steps on
                  an in-memory 8-frame 480x640 orbit scene: finite losses, a
                  falling color loss, K1 launched 4 times per step
-  7. slice2   -- Runner trains confs/ho3d_global_womask_tpu_fast.conf for 50
+  8. slice2   -- Runner trains confs/ho3d_global_womask_tpu_fast.conf for 50
                  steps on the same scene (occupancy grid refreshed after
                  steps 25 and 50): finite losses, a falling color loss, K4,
                  K5, K8 and K9 launched once per step and K1 never, a grid
@@ -35,7 +42,7 @@ Phases, each printing lines as it ends:
                  copies) and the f32 networks: the loss within 1e-2 of
                  f32's, every gradient leaf within the leaf rule of the
                  plain versions', and the leaves against f32 reported
-  8. slice3   -- Runner trains the progressive phase 1 of
+  9. slice3   -- Runner trains the progressive phase 1 of
                  confs/ho3d_virtual_tpu_fast.conf (segment poses, flow steps,
                  512 + 512 rays x 32 samples) for 50 steps on the same scene,
                  with the schedule's depth cut (mesh warm-up 10 steps, a
@@ -43,6 +50,13 @@ Phases, each printing lines as it ends:
                  loss, K2 and K3 launched once per step and no other kernel,
                  flow steps taken, at least 4 frames admitted and their
                  segments initialised; the same batch check before and after
+ 10. slice4   -- Runner trains the fast phase-2 conf with n_outside = 32
+                 (the NeRF++ background; a copy of the conf written to a
+                 temporary directory) for 50 steps on the same scene: finite
+                 losses, a falling color loss, K4, K5, K6 and K7 launched
+                 once per step and no other kernel, the background
+                 network's parameters moved, a refreshed grid; the batch
+                 check before and after, the nerf.* leaves included
 Then one JSON line of kernel results (each with its launches in its
 path's run, its time, its plain version's, and its bound on the card),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
@@ -69,7 +83,11 @@ SLICE3_SCHEDULE = {"mesh_warmup_step": 10, "max_pro_iteration": 8, "pro_warm_up_
 OCC_UPDATE_FREQ = 25
 SEED = 0
 TIMING_REPS = 20
-SOURCES = ("sdf_fwd", "sdf_flat", "sdf_fwd_grad", "sdf_bwd", "color_ray")
+SOURCES = ("sdf_fwd", "sdf_flat", "sdf_fwd_grad", "sdf_bwd", "color_ray",
+           "color_sample")
+# slice 4: the fast phase-2 conf with the NeRF++ background's samples a ray
+# of the public NeuS womask conf and of scripts/parity_check.py's "p2_bg"
+N_OUTSIDE = 32
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet)
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # rows: max |err| and median |err| relative to max|ref| (K1's rule)
@@ -131,6 +149,7 @@ def phase_build():
     fused_sdf._flat_lib()
     fused_sdf._rays_lib()
     fused_color._lib()
+    fused_color._sample_lib()
     total = time.perf_counter() - t0
     for name in SOURCES:
         info = build.BUILD_INFO[name]
@@ -269,6 +288,21 @@ def _color_work(cfg, M, B, backward):
     if not backward:
         return 2 * prods * M, M * per_sample + B * 12 + w_bytes
     return (3 * 2 * prods * M, 2 * M * per_sample + B * 12 + w_bytes
+            + 4 * prods + 4 * sum(dims[1:]))
+
+
+def _color_sample_work(cfg, M, backward):
+    """(FLOPs, bytes) of K6 (backward False) or K7 on M samples: the color
+    MLP's products (K7: recomputed forward, input and weight gradients);
+    K6 reads xc and writes rgb, K7 reads xc and ct and writes xcbar and the
+    f32 weight gradients; both read the bf16 weights and f32 biases."""
+    from fmov_pose_torch.fields import nets
+    dims = nets.color_dims(cfg)
+    prods = sum(dims[l] * dims[l + 1] for l in range(len(dims) - 1))
+    w_bytes = 2 * prods + 4 * sum(dims[1:])
+    if not backward:
+        return 2 * prods * M, M * 4 * (dims[0] + 3) + w_bytes
+    return (3 * 2 * prods * M, M * 4 * (2 * dims[0] + 3) + w_bytes
             + 4 * prods + 4 * sum(dims[1:]))
 
 
@@ -491,6 +525,97 @@ def phase_flat_kernels(dev):
     return main
 
 
+def phase_color_kernels(dev):
+    """K6 and K7 through their entry ``color_fused`` (packing, launch,
+    unpacking), forward and backward, against the same entry on CPU copies
+    of the same weights, input rows and cotangent, where it takes the
+    plain versions: the rgb rows by the row rule, every gradient leaf (xc
+    and every dense weight and bias) by the leaf rule.  The entry gets the
+    weights dense (``w``, materialised once from the weight norm on the
+    card): materialised on each device, a few weights would round to other
+    bf16 values on the two sides.  xc is built as the render builds it,
+    [pts, PE(dirs), normals, feature], from K4's outputs at the fast conf's
+    full width, and the cotangent as the composite hands it to K7, ct[b]
+    w[b, j] over rays of 128 samples; at the slice-4 step's M = 512 x 128
+    and a ragged 1,000.  Times the wrappers (``color_fwd`` /
+    ``color_bwd``, packing included), the kernels alone on pre-packed
+    weights, and the plain versions on the card."""
+    import numpy as np
+    import torch
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.core.embedder import positional_encode
+    from fmov_pose_torch.fields import nets
+    from fmov_pose_torch.ops import fused_color, fused_sdf
+    cfg_s = model_cfg(FAST_CONF, "sdf_network")
+    cfg_c = model_cfg(FAST_CONF, "rendering_network")
+    rng = np.random.default_rng(SEED + 4)
+    ws_s, bs_s = fused_sdf.materialize(convert.to_torch(convert.to_numpy(
+        nets.init_sdf(rng, cfg_s)), dev), cfg_s)
+    ws, bs = fused_color.materialize(convert.to_torch(convert.to_numpy(
+        nets.init_color(rng, cfg_c)), dev), cfg_c)
+    dense = convert.flatten({"layers": {f"lin{l}": {"w": w.T.contiguous(), "b": b}
+                                        for l, (w, b) in enumerate(zip(ws, bs))}})
+    names = [n for n, _ in dense]
+    pk_s = fused_sdf.RaysPack(ws_s, bs_s, cfg_s)
+    pk = fused_color.RayPack(ws, bs, cfg_c)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    main = {}
+    for M in (65536, 1000):
+        with torch.no_grad():
+            x = (torch.rand((M, 3), generator=gen, device=dev) * 2 - 1) * 0.9
+            out, _, grad = fused_sdf.launch_fwd_grad(pk_s, x)
+            d = torch.randn((M, 3), generator=gen, device=dev)
+            dirs = d / d.norm(dim=-1, keepdim=True)
+            xc = torch.cat([x, positional_encode(dirs, cfg_c["multires_view"]), grad,
+                            out[:, 1:]], -1).contiguous()
+            n_rays = -(-M // 128)
+            ct = (torch.randn((n_rays, 1, 3), generator=gen, device=dev)
+                  * torch.rand((n_rays, 128, 1), generator=gen, device=dev) / 128
+                  ).reshape(-1, 3)[:M].contiguous()
+        res = {}
+        for where, dv in (("kernels", dev), ("plain", torch.device("cpu"))):
+            leaves = [t.detach().to(dv).clone().requires_grad_(True) for _, t in dense]
+            xr = xc.to(dv).requires_grad_(True)
+            before = (fused_color.LAUNCHES_K6, fused_color.LAUNCHES_K7)
+            rgb = fused_color.color_fused(convert.unflatten(zip(names, leaves)), cfg_c, xr)
+            gs = torch.autograd.grad(rgb, [xr] + leaves, ct.to(dv))
+            if dv.type == "cuda":
+                torch.cuda.synchronize()
+            launched = (fused_color.LAUNCHES_K6 - before[0],
+                        fused_color.LAUNCHES_K7 - before[1])
+            _require(launched == ((1, 1) if dv.type == "cuda" else (0, 0)),
+                     f"color_fused on {dv} launched (K6, K7) {launched}")
+            res[where] = (rgb.detach().cpu(), dict(zip(["xc"] + names,
+                                                       (g.cpu() for g in gs))))
+        rows = _rows(res["plain"][0], res["kernels"][0])
+        leaves_res = _leaf_check(res["plain"][1], res["kernels"][1])
+        with torch.no_grad():
+            times = {
+                "K6": [_median_ms(f) for f in (
+                    lambda: fused_color.color_fwd(ws, bs, xc, cfg_c),
+                    lambda: fused_color.launch_fwd_sample(pk, xc),
+                    lambda: fused_color.color_fwd_plain(ws, bs, xc))],
+                "K7": [_median_ms(f) for f in (
+                    lambda: fused_color.color_bwd(ws, bs, xc, ct, cfg_c),
+                    lambda: fused_color.launch_bwd_sample(pk, xc, ct),
+                    lambda: fused_color.color_bwd_plain(ws, bs, xc, ct))]}
+        for key, name, err, ok, tol, max_abs in (
+                ("K6", "color_fwd", rows, rows["ok"], ROW_TOL, rows["max_abs"]),
+                ("K7", "color_bwd", leaves_res, leaves_res["ok"],
+                 f"xc_and_every_leaf:{LEAF_TOL}", leaves_res["max_abs"])):
+            t_entry, t_kernel, t_plain = times[key]
+            _line("color-kernels", name=name, M=M, ok=ok,
+                  errors=json.dumps(err, sort_keys=True).replace(" ", ""), tol=tol,
+                  entry_ms=f"{t_entry:.4f}", kernel_only_ms=f"{t_kernel:.4f}",
+                  plain_ms=f"{t_plain:.4f}")
+            _require(ok, f"{name} through color_fused disagrees with the plain "
+                         f"versions at M={M}: {err}")
+            if M == 65536:
+                main[name] = {"max_abs_err": max_abs, "ms": t_entry, "plain_ms": t_plain,
+                              **_bound(*_color_sample_work(cfg_c, M, key == "K7"))}
+    return main
+
+
 def _history_lines(phase, runner, smi, fallback=None, **extra):
     """The run's loss lines; requires finite losses and a color loss whose
     last 10 steps average below its first 10.  ``fallback``: the color
@@ -597,7 +722,8 @@ def _counters():
     from fmov_pose_torch.ops import fused_color, fused_sdf
     return {"K1": fused_sdf.LAUNCHES, "K2": fused_sdf.LAUNCHES_K2,
             "K3": fused_sdf.LAUNCHES_K3, "K4": fused_sdf.LAUNCHES_K4,
-            "K5": fused_sdf.LAUNCHES_K5, "K8": fused_color.LAUNCHES_K8,
+            "K5": fused_sdf.LAUNCHES_K5, "K6": fused_color.LAUNCHES_K6,
+            "K7": fused_color.LAUNCHES_K7, "K8": fused_color.LAUNCHES_K8,
             "K9": fused_color.LAUNCHES_K9}
 
 
@@ -605,7 +731,16 @@ def _zero_counters():
     from fmov_pose_torch.ops import fused_color, fused_sdf
     fused_sdf.LAUNCHES = fused_sdf.LAUNCHES_K2 = fused_sdf.LAUNCHES_K3 = 0
     fused_sdf.LAUNCHES_K4 = fused_sdf.LAUNCHES_K5 = 0
+    fused_color.LAUNCHES_K6 = fused_color.LAUNCHES_K7 = 0
     fused_color.LAUNCHES_K8 = fused_color.LAUNCHES_K9 = 0
+
+
+def _require_launches(counts, once, phase):
+    """Each kernel of ``once`` launched once a step, every other never."""
+    for k, v in counts.items():
+        want = STEPS if k in once else 0
+        _require(v == want, f"{k} launched {v} times in {STEPS} steps on the "
+                            f"{phase} path (expected {want})")
 
 
 def _check_batch(runner, scene, dev, when, phase="slice2", n_rays=None):
@@ -695,10 +830,7 @@ def phase_slice2(dev, smi, scene, tmp):
         occ_refreshes=runner.occ_refreshes, occ_update_freq=runner.occ_update_freq,
         occ_grid_res=runner.occ_grid_res, occ_mean=f"{occ_mean:.4f}")
     _perf_line("slice2", runner, step_ms, peak, smi)
-    for k in ("K4", "K5", "K8", "K9"):
-        _require(counts[k] == STEPS, f"{k} launched {counts[k]} times in {STEPS} steps")
-    for k in ("K1", "K2", "K3"):
-        _require(counts[k] == 0, f"{k} launched {counts[k]} times on the slice-2 path")
+    _require_launches(counts, ("K4", "K5", "K8", "K9"), "slice-2")
     _require(runner.occ_refreshes == STEPS // OCC_UPDATE_FREQ,
              f"{runner.occ_refreshes} grid refreshes")
     _require(0.0 < occ_mean < 1.0, f"grid mean {occ_mean} after the refreshes")
@@ -772,10 +904,7 @@ def phase_slice3(dev, smi, scene, tmp):
         frame0_color_first10=f"{frame0[:10].mean():.5f}",
         frame0_color_last10=f"{frame0[-10:].mean():.5f}")
     _perf_line("slice3", runner, step_ms, peak, smi, rays_per_step=rays)
-    for k in ("K2", "K3"):
-        _require(counts[k] == STEPS, f"{k} launched {counts[k]} times in {STEPS} steps")
-    for k in ("K1", "K4", "K5", "K8", "K9"):
-        _require(counts[k] == 0, f"{k} launched {counts[k]} times on the slice-3 path")
+    _require_launches(counts, ("K2", "K3"), "slice-3")
     _require(runner.flow_steps >= 1, "no flow step in the slice-3 run")
     _require(runner.current_image >= 4, f"{runner.current_image} frames admitted")
     _require(runner.current_pose_mlp_index >= 3
@@ -783,6 +912,63 @@ def phase_slice3(dev, smi, scene, tmp):
              f"lazy segment inits: {initialized} at segment "
              f"{runner.current_pose_mlp_index}")
     _check_batch(runner, scene, dev, "after_training", phase="slice3", n_rays=rays)
+    return counts
+
+
+def phase_slice4(dev, smi, scene, tmp):
+    """The fast phase-2 conf with the NeRF++ background (``N_OUTSIDE``
+    samples a ray), as written but for the depth of the run: the color
+    gate is met and the background blocks K8/K9, so the color MLP runs
+    through K6/K7, and the background network in f32."""
+    import torch
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.profile_step import conf_with_outside
+    from fmov_pose_torch.train.runner import Runner
+
+    conf = conf_with_outside(FAST_CONF, N_OUTSIDE, tmp)
+    runner = Runner(conf, mode="train", case="orbit_smoke",
+                    exp_dir=os.path.join(tmp, "exp4"), seed=SEED,
+                    device=dev, scene=scene)
+    runner.end_iter, runner.warm_up_end = STEPS, 0.0
+    runner.occ_update_freq = OCC_UPDATE_FREQ
+    r = runner.model_cfg["renderer"]
+    _require(runner.model_cfg["sdf"]["use_fused_train"] and runner.occupancy_sampling
+             and r.n_outside == N_OUTSIDE, "the slice-4 conf runs the fused kernels, "
+                                           "the grid and the background")
+    nerf_cfg = runner.model_cfg["nerf"]
+    _line("slice4", conf=os.path.relpath(FAST_CONF, ROOT),
+          overrides=(f"n_outside={N_OUTSIDE},end_iter={STEPS},warm_up_end=0,"
+                     f"occ_update_freq={OCC_UPDATE_FREQ}"),
+          pose_mode=runner.pose_mode, batch=runner.batch_size,
+          samples=f"{r.n_samples}+{r.n_importance}+{r.n_outside}", perturb=r.perturb,
+          nerf=f"D{nerf_cfg['D']}xW{nerf_cfg['W']}_pe{nerf_cfg['multires']}"
+               f"_view{nerf_cfg['multires_view']}",
+          occ_grid_res=runner.occ_grid_res, n_params=runner.state.layout.size)
+    nerf0 = {n: t.detach().clone()
+             for n, t in convert.flatten(runner.state.params["nerf"])}
+
+    _check_batch(runner, scene, dev, "initial", phase="slice4")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    runner.train()
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    occ_mean = float(runner.state.pose_static["occ_grid"].mean())
+    nerf1 = dict(convert.flatten(runner.state.params["nerf"]))
+    moved = min(float((nerf1[n].detach() - t).abs().max()) for n, t in nerf0.items())
+
+    step_ms = _history_lines(
+        "slice4", runner, smi, launches=json.dumps(counts).replace(" ", ""),
+        occ_refreshes=runner.occ_refreshes, occ_mean=f"{occ_mean:.4f}",
+        nerf_leaves=len(nerf0), nerf_min_max_move=f"{moved:.3e}")
+    _perf_line("slice4", runner, step_ms, peak, smi)
+    _require_launches(counts, ("K4", "K5", "K6", "K7"), "slice-4")
+    _require(moved > 0, "a background network leaf did not move in training")
+    _require(runner.occ_refreshes == STEPS // OCC_UPDATE_FREQ,
+             f"{runner.occ_refreshes} grid refreshes")
+    _require(0.0 < occ_mean < 1.0, f"grid mean {occ_mean} after the refreshes")
+    _check_batch(runner, scene, dev, "after_training", phase="slice4")
     return counts
 
 
@@ -799,6 +985,7 @@ def main():
     k1 = phase_kernels(dev)
     train_k = phase_train_kernels(dev)
     flat_k = phase_flat_kernels(dev)
+    sample_k = phase_color_kernels(dev)
     t0 = time.perf_counter()
     scene = make_orbit_scene(n_frames=8, H=480, W=640, seed=SEED)
     _line("scene", scene="orbit_8x480x640", seconds=f"{time.perf_counter() - t0:.1f}",
@@ -807,6 +994,7 @@ def main():
         k1_launches = phase_slice(dev, smi, scene, tmp)
         counts = phase_slice2(dev, smi, scene, tmp)
         counts3 = phase_slice3(dev, smi, scene, tmp)
+        counts4 = phase_slice4(dev, smi, scene, tmp)
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
     csrc = "fmov_pose_torch/ops/csrc/"
@@ -818,6 +1006,8 @@ def main():
             ("K3", "sdf_bwd_flat", "sdf_flat.cu", "fused_sdf.py:437", counts3, flat_k),
             ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699", counts, train_k),
             ("K5", "sdf_bwd", "sdf_bwd.cu", "fused_sdf.py:761", counts, train_k),
+            ("K6", "color_fwd", "color_sample.cu", "fused_color.py:93", counts4, sample_k),
+            ("K7", "color_bwd", "color_sample.cu", "fused_color.py:108", counts4, sample_k),
             ("K8", "color_ray_fwd", "color_ray.cu", "fused_color.py:375", counts, train_k),
             ("K9", "color_ray_bwd", "color_ray.cu", "fused_color.py:407", counts, train_k)):
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,

@@ -14,32 +14,30 @@
 // inpbar = zbar_l W_l^T, zbar_{l-1} = inpbar [X_l > 0]; at layer 0 the
 // input cotangent splits into pts, PE(dirs) (through PE'), normals and the
 // feature columns.  Weight gradients X_l^T ZB_l over all samples and the
-// bias sums go through atb_kernel / reduce_kernel (train_common.cuh).
+// bias sums go through atb_kernel / reduce_kernel (train_common.cuh).  The
+// layer loop, the descent and the weight gradients are color_train.cuh's,
+// shared with K6/K7 (color_sample.cu); this file holds the input and
+// output stages.
 //
 // What bounds them: ~0.6 MFLOP of bf16 products per sample forward and
 // ~1.8 backward at 4x256 (289 inputs), against ~1.1 KB of inputs per
 // sample, so the products.
 
-#include "train_common.cuh"
+#include "color_train.cuh"
 
 namespace fmov_train {
 namespace {
 
 struct ColorArgs {
-  Layer L[MAX_LIN];
-  int n_lin, mv, npe, d_sdf, d_in, M, M_pad, N, lda, ldb, n_bias;
+  ColorCore k;
+  int mv, npe, d_sdf, N;
   const float* sdf_out;  // [M x d_sdf]
   const float* pts;      // [M x 3]
   const float* dirs;
   const float* nrm;
   const float* wts;      // [M] (= [B x N])
   const float* ct;       // [B x 3] (K9)
-  const bf16* w;
-  const float* bias;
-  bf16* X[MAX_LIN];      // layer inputs, row stride kp(l)
-  bf16* ZB[MAX_LIN];     // output cotangents, row stride np(l) (K9)
   float* C;              // [M_pad x 4] per-sample rgb (K8)
-  float* dbpart;         // [G x n_bias] (K9)
   float* featbar;        // [M x d_sdf] (K9)
   float* ubar;           // [M x 9] (K9)
   float* dweights;       // [M] (K9)
@@ -47,12 +45,12 @@ struct ColorArgs {
 
 // X_0 of the tile: [pts | PE(dirs) | normals | feature | 0 pad to in_w].
 __device__ __forceinline__ void color_input_stage(const ColorArgs& a, int row0) {
-  const Layer& L0 = a.L[0];
+  const Layer& L0 = a.k.L[0];
   for (int i = threadIdx.x; i < TILE_M * L0.in_w; i += THREADS) {
     const int r = i / L0.in_w, c = i % L0.in_w;
     const int gr = row0 + r;
     float v = 0.f;
-    if (gr < a.M && c < a.d_in) {
+    if (gr < a.k.M && c < a.k.d_in) {
       if (c < 3) {
         v = a.pts[(size_t)gr * 3 + c];
       } else if (c < 3 + a.npe) {
@@ -66,68 +64,23 @@ __device__ __forceinline__ void color_input_stage(const ColorArgs& a, int row0) 
         v = a.sdf_out[(size_t)gr * a.d_sdf + 1 + c - 6 - a.npe];
       }
     }
-    a.X[0][(size_t)gr * L0.kp + c] = __float2bfloat16(v);
+    a.k.X[0][(size_t)gr * L0.kp + c] = __float2bfloat16(v);
   }
-}
-
-// Hidden layer l < L-1: X_{l+1} = bf16(relu(X_l W_l + b_l)).
-__device__ __forceinline__ void color_hidden_layer(const ColorArgs& a, int l,
-                                                   int row0, bf16* Asm,
-                                                   bf16* wbuf, float* scr) {
-  const Layer& Ly = a.L[l];
-  __syncthreads();
-  load_tile(Asm, a.lda, a.X[l] + (size_t)row0 * Ly.kp, Ly.kp, Ly.in_w, Ly.kp);
-  const float* b = a.bias + Ly.b_off;
-  bf16* xn = a.X[l + 1];
-  const int kp_next = a.L[l + 1].kp;
-  tile_gemm(Asm, a.lda, a.w + Ly.w_off, Ly.kp, Ly.np, wbuf, a.ldb, scr, nullptr,
-            0, [&](int r, int n, float v) -> float {
-              xn[(size_t)(row0 + r) * kp_next + n] =
-                  __float2bfloat16(fmaxf(v + b[n], 0.f));
-              return 0.f;
-            });
-}
-
-struct Smem {
-  bf16* Asm;
-  bf16* wbuf;
-  float* scr;
-  unsigned char* rest;
-};
-
-__device__ __forceinline__ Smem carve(unsigned char* smem, int lda, int ldb) {
-  Smem m;
-  m.Asm = reinterpret_cast<bf16*>(smem);
-  size_t off = align128((size_t)TILE_M * lda * 2);
-  m.wbuf = reinterpret_cast<bf16*>(smem + off);
-  off += align128((size_t)KCHUNK * ldb * 2);
-  m.scr = reinterpret_cast<float*>(smem + off) + (threadIdx.x >> 5) * 256;
-  off += align128((size_t)WARPS * 256 * 4);
-  m.rest = smem + off;
-  return m;
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
     color_fwd_kernel(const __grid_constant__ ColorArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem m = carve(smem, a.lda, a.ldb);
-  const int last = a.n_lin - 1;
-  const int n_tiles = a.M_pad / TILE_M;
+  const ColorSmem m = color_carve(smem, a.k.lda, a.k.ldb);
+  const int n_tiles = a.k.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M;
     __syncthreads();
     color_input_stage(a, row0);
-    for (int l = 0; l < last; ++l) color_hidden_layer(a, l, row0, m.Asm, m.wbuf, m.scr);
-    const Layer& Ly = a.L[last];
-    __syncthreads();
-    load_tile(m.Asm, a.lda, a.X[last] + (size_t)row0 * Ly.kp, Ly.kp, Ly.in_w, Ly.kp);
-    const float* b = a.bias + Ly.b_off;
-    tile_gemm(m.Asm, a.lda, a.w + Ly.w_off, Ly.kp, Ly.np, m.wbuf, a.ldb, m.scr,
-              nullptr, 0, [&](int r, int n, float v) -> float {
-                if (n < 3)
-                  a.C[(size_t)(row0 + r) * 4 + n] = 1.f / (1.f + expf(-(v + b[n])));
-                return 0.f;
-              });
+    color_forward_tile(a.k, row0, m, nullptr, [&](int r, int n, float p) -> float {
+      if (n < 3) a.C[(size_t)(row0 + r) * 4 + n] = color_sigmoid(p);
+      return 0.f;
+    });
   }
 }
 
@@ -148,81 +101,44 @@ __global__ void composite_kernel(const float* C, const float* wts, int B, int N,
 __global__ void __launch_bounds__(THREADS, 1)
     color_bwd_kernel(const __grid_constant__ ColorArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem m = carve(smem, a.lda, a.ldb);
+  const ColorSmem m = color_carve(smem, a.k.lda, a.k.ldb);
   const int small = 6 + a.npe;  // pts, PE(dirs), normals
   float* XCB = reinterpret_cast<float*>(m.rest);                 // [TILE_M x small]
   size_t off = align128((size_t)TILE_M * small * 4);
   float* Csm = reinterpret_cast<float*>(m.rest + off);           // [TILE_M x 4]
   off += align128((size_t)TILE_M * 4 * 4);
   float* DBACC = reinterpret_cast<float*>(m.rest + off);         // [n_bias]
-  for (int i = threadIdx.x; i < a.n_bias; i += THREADS) DBACC[i] = 0.f;
+  for (int i = threadIdx.x; i < a.k.n_bias; i += THREADS) DBACC[i] = 0.f;
 
-  const int last = a.n_lin - 1;
-  const int n_tiles = a.M_pad / TILE_M;
+  const int M = a.k.M;
+  const int n_tiles = a.k.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M;
     __syncthreads();
     color_input_stage(a, row0);
-    for (int l = 0; l < last; ++l) color_hidden_layer(a, l, row0, m.Asm, m.wbuf, m.scr);
-
-    // last layer: c, zbar = ct w c (1 - c) and its column sums
-    {
-      const Layer& Ly = a.L[last];
-      __syncthreads();
-      load_tile(m.Asm, a.lda, a.X[last] + (size_t)row0 * Ly.kp, Ly.kp, Ly.in_w, Ly.kp);
-      const float* b = a.bias + Ly.b_off;
-      bf16* zb = a.ZB[last];
-      tile_gemm(m.Asm, a.lda, a.w + Ly.w_off, Ly.kp, Ly.np, m.wbuf, a.ldb, m.scr,
-                DBACC + Ly.b_off, Ly.np, [&](int r, int n, float v) -> float {
-                  const int gr = row0 + r;
-                  float z = 0.f;
-                  if (n < 3 && gr < a.M) {
-                    const float c = 1.f / (1.f + expf(-(v + b[n])));
-                    Csm[r * 4 + n] = c;
-                    const float cbar = a.ct[(size_t)(gr / a.N) * 3 + n] * a.wts[gr];
-                    z = cbar * c * (1.f - c);
-                  }
-                  zb[(size_t)gr * Ly.np + n] = __float2bfloat16(z);
-                  return z;
-                });
-    }
+    // c and zbar = ct w c (1 - c)
+    color_forward_cot(a.k, row0, m, DBACC, [&](int r, int gr, int n, float p) -> float {
+      const float c = color_sigmoid(p);
+      Csm[r * 4 + n] = c;
+      const float cbar = a.ct[(size_t)(gr / a.N) * 3 + n] * a.wts[gr];
+      return cbar * c * (1.f - c);
+    });
     __syncthreads();
     for (int r = threadIdx.x; r < TILE_M; r += THREADS) {
       const int gr = row0 + r;
-      if (gr < a.M) {
+      if (gr < M) {
         const float* ct = a.ct + (size_t)(gr / a.N) * 3;
         a.dweights[gr] = Csm[r * 4] * ct[0] + Csm[r * 4 + 1] * ct[1] + Csm[r * 4 + 2] * ct[2];
       }
     }
 
-    for (int l = last; l >= 0; --l) {
-      const Layer& Ly = a.L[l];
-      __syncthreads();
-      load_tile(m.Asm, a.lda, a.ZB[l] + (size_t)row0 * Ly.np, Ly.np, Ly.np, Ly.kr);
-      const int h_w = l > 0 ? Ly.in_w : 0;
-      const bf16* xl = a.X[l];
-      bf16* zbp = l > 0 ? a.ZB[l - 1] : nullptr;
-      const int np_prev = l > 0 ? a.L[l - 1].np : 0;
-      float* cs = l > 0 ? DBACC + a.L[l - 1].b_off : nullptr;
-      tile_gemm(m.Asm, a.lda, a.w + Ly.r_off, Ly.kr, Ly.kp, m.wbuf, a.ldb, m.scr,
-                cs, h_w, [&](int r, int n, float v) -> float {
-                  const int gr = row0 + r;
-                  if (n < h_w) {
-                    const bool on = __bfloat162float(xl[(size_t)gr * Ly.kp + n]) > 0.f;
-                    const float z = on ? v : 0.f;
-                    zbp[(size_t)gr * np_prev + n] = __float2bfloat16(z);
-                    return gr < a.M ? z : 0.f;
-                  }
-                  if (l == 0 && n < a.d_in) {
-                    if (n < small) {
-                      XCB[r * small + n] = v;
-                    } else if (gr < a.M) {
-                      a.featbar[(size_t)gr * a.d_sdf + 1 + n - small] = v;
-                    }
-                  }
-                  return 0.f;
-                });
-    }
+    color_descent(a.k, row0, m, DBACC, [&](int r, int gr, int n, float v) {
+      if (n < small) {
+        XCB[r * small + n] = v;
+      } else if (gr < M) {
+        a.featbar[(size_t)gr * a.d_sdf + 1 + n - small] = v;
+      }
+    });
 
     // featbar column 0; ubar = [pts, sum over PE(dirs) columns of
     // cot PE', normals]
@@ -230,7 +146,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = threadIdx.x; i < TILE_M * 9; i += THREADS) {
       const int r = i / 9, k = i % 9;
       const int gr = row0 + r;
-      if (gr >= a.M) continue;
+      if (gr >= M) continue;
       float u;
       if (k < 3) {
         u = XCB[r * small + k];
@@ -253,10 +169,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (k == 0) a.featbar[(size_t)gr * a.d_sdf] = 0.f;
     }
   }
-
-  __syncthreads();
-  for (int i = threadIdx.x; i < a.n_bias; i += THREADS)
-    a.dbpart[(size_t)blockIdx.x * a.n_bias + i] = DBACC[i];
+  color_store_bias_sums(a.k, DBACC);
 }
 
 // Fills ColorArgs; returns a cudaError_t.
@@ -265,53 +178,31 @@ int color_setup(ColorArgs& a, const float* sdf_out, int d_sdf, const float* pts,
                 int M_pad, int N, const void* w, const float* bias,
                 const int* meta, int n_lin, int mv,
                 const unsigned long long* ptrs, bool backward, int G) {
-  int max_k, max_n;
-  int e = read_layers(meta, n_lin, a.L, &max_k, &max_n, &a.n_bias);
-  if (e) return e;
-  a.n_lin = n_lin;
+  if (mv < 0 || N < 1 || M % N || G < 1) return (int)cudaErrorInvalidValue;
   a.mv = mv;
   a.npe = 3 * (1 + 2 * mv);
   a.d_sdf = d_sdf;
-  a.d_in = 6 + a.npe + d_sdf - 1;
-  if (n_lin < 2 || mv < 0 || N < 1 || M % N || M_pad % TILE_M || M > M_pad ||
-      (M > 0 && M_pad - M >= TILE_M) || G < 1 || a.L[0].in_w < a.d_in ||
-      a.L[0].in_w - a.d_in >= 16 || a.L[n_lin - 1].n != 3)
-    return (int)cudaErrorInvalidValue;
-  for (int l = 1; l < n_lin; ++l)
-    if (a.L[l].in_w != a.L[l - 1].np) return (int)cudaErrorInvalidValue;
-  a.M = M;
-  a.M_pad = M_pad;
   a.N = N;
-  a.lda = max_k + SKEW;
-  a.ldb = max_n + SKEW;
+  int p;
+  int e = color_core_setup(a.k, w, bias, meta, n_lin, 6 + a.npe + d_sdf - 1, M,
+                           M_pad, ptrs, backward, &p);
+  if (e) return e;
   a.sdf_out = sdf_out;
   a.pts = pts;
   a.dirs = dirs;
   a.nrm = nrm;
   a.wts = wts;
   a.ct = nullptr;
-  a.w = static_cast<const bf16*>(w);
-  a.bias = bias;
-  for (int l = 0; l < MAX_LIN; ++l) a.X[l] = a.ZB[l] = nullptr;
-  int p = 0;
-  for (int l = 0; l < n_lin; ++l) a.X[l] = reinterpret_cast<bf16*>(ptrs[p++]);
-  a.C = a.dbpart = a.featbar = a.ubar = a.dweights = nullptr;
-  if (backward) {
-    for (int l = 0; l < n_lin; ++l) a.ZB[l] = reinterpret_cast<bf16*>(ptrs[p++]);
-    a.dbpart = reinterpret_cast<float*>(ptrs[p++]);
-  } else {
-    a.C = reinterpret_cast<float*>(ptrs[p++]);
-  }
+  a.C = a.featbar = a.ubar = a.dweights = nullptr;
+  if (!backward) a.C = reinterpret_cast<float*>(ptrs[p]);
   return 0;
 }
 
-size_t color_smem(const ColorArgs& a, bool backward) {
-  size_t b = align128((size_t)TILE_M * a.lda * 2) + align128((size_t)KCHUNK * a.ldb * 2) +
-             align128((size_t)WARPS * 256 * 4);
-  if (backward)
-    b += align128((size_t)TILE_M * (6 + a.npe) * 4) + align128((size_t)TILE_M * 16) +
-         align128((size_t)a.n_bias * 4);
-  return b;
+size_t color_ray_smem(const ColorArgs& a, bool backward) {
+  if (!backward) return color_smem(a.k, 0);
+  return color_smem(a.k, align128((size_t)TILE_M * (6 + a.npe) * 4) +
+                             align128((size_t)TILE_M * 16) +
+                             align128((size_t)a.k.n_bias * 4));
 }
 
 }  // namespace
@@ -333,7 +224,7 @@ int fmov_color_ray_fwd(const float* sdf_out, int d_sdf, const float* pts,
   int e = color_setup(a, sdf_out, d_sdf, pts, dirs, nrm, wts, M, M_pad, N, w,
                       bias, meta, n_lin, mv, ptrs, false, G);
   if (e) return e;
-  const size_t smem = color_smem(a, false);
+  const size_t smem = color_ray_smem(a, false);
   cudaError_t ce = cudaFuncSetAttribute(
       color_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
@@ -367,7 +258,7 @@ int fmov_color_ray_bwd(const float* sdf_out, int d_sdf, const float* pts,
   a.ubar = ubar;
   a.dweights = dweights;
   float* dwpart = reinterpret_cast<float*>(ptrs[2 * n_lin + 1]);
-  const size_t smem = color_smem(a, true);
+  const size_t smem = color_ray_smem(a, true);
   cudaError_t ce = cudaFuncSetAttribute(
       color_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
@@ -376,26 +267,7 @@ int fmov_color_ray_bwd(const float* sdf_out, int d_sdf, const float* pts,
   color_bwd_kernel<<<G, THREADS, smem, st>>>(a);
   ce = cudaGetLastError();
   if (ce != cudaSuccess) return (int)ce;
-
-  AtbArgs t;
-  t.n_jobs = n_lin;
-  t.KS = KS;
-  int total = 0;
-  for (int l = 0; l < n_lin; ++l) {
-    AtbJob& J = t.job[l];
-    const Layer& L = a.L[l];
-    J.a = a.X[l];
-    J.b = a.ZB[l];
-    J.rows = M_pad;
-    J.lda = L.kp;
-    J.ldb = L.np;
-    J.ni = L.in_w;
-    J.nj = L.np;
-    J.out = dwpart + total;
-    total += L.in_w * L.np;
-  }
-  return weight_grads(t, dwpart, total, dw, a.dbpart, G, a.n_bias, db, nullptr,
-                      0, 0, 1, st);
+  return color_weight_grads(a.k, dwpart, G, KS, dw, db, st);
 }
 
 }  // extern "C"

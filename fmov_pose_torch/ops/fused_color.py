@@ -1,5 +1,6 @@
-"""Ray-composited color MLP: K8 (forward) and K9 (backward), their plain
-versions and the entry ``color_fused_ray``.
+"""The IDR color MLP's kernels: K8/K9 (ray-composited) and K6/K7
+(per sample), their plain versions and the entries ``color_fused_ray``,
+``color_fused`` and ``color_fused_featfirst``.
 
 K8 (``csrc/color_ray.cu``, ``fmov_color_ray_fwd``) replaces the Pallas kernel
 ``fmov_pose_tpu/ops/fused_color.py:_make_ray_fwd_kernel`` (launched by
@@ -11,19 +12,31 @@ K9 (``fmov_color_ray_bwd``) replaces ``_make_ray_bwd_kernel``
 of the feature columns of the SDF output (column 0 gets zero), of pts, dirs
 and normals, of the weights, and the weight and bias gradients.
 
-The input keeps ``nets.color_apply``'s idr order; the JAX kernel's
+K6 (``csrc/color_sample.cu``, ``fmov_color_sample_fwd``) replaces
+``_make_fwd_kernel`` (launched by ``_color_fwd_impl``): the same MLP on
+prebuilt input rows xc [M, d_in], per-sample rgb [M, 3], no composite.  K7
+(``fmov_color_sample_bwd``) replaces ``_make_bwd_kernel``
+(``_color_bwd_impl``): from a per-sample cotangent ct [M, 3] it recomputes
+the forward and returns xcbar [M, d_in] and the weight and bias gradients.
+The render takes them where K8 cannot run: the NeRF++ background mixes
+per-sample colors, or the SDF takes the flat path.  The four kernels share
+one tile code (``csrc/color_train.cuh``) with other input and output
+stages, and K6/K7 take K8/K9's packed weights (``RayPack``).
+
+The input keeps ``nets.color_apply``'s idr order; the JAX kernels'
 feature-first permutation of the first layer is TPU layout, and changes
 only the order of the f32 sums.  Geometry is row layout ([M, 3] each), not
 [9, M] channel planes.  Products round both operands to bf16 and sum in
 f32 (``_dot``/``_dot_acc`` of the JAX module); everything else is f32.
 
-On an H100 the MLP is ~0.6 MFLOP per sample forward and ~1.2 backward,
-so both kernels are bound by their products.  A block keeps one 64-sample
-operand tile in shared memory and streams each layer's weights, as K1
-does; the activations the backward needs are staged in device memory.
-The per-ray composite is a second, small launch (a ray's samples may span
-two tiles), and K9's weight gradients are one product per layer over all
-samples, split over K and reduced in a fixed order.
+On an H100 the MLP is ~0.54 MFLOP per sample forward and ~1.6 backward,
+so all four kernels are bound by their products.  A block keeps one
+64-sample operand tile in shared memory and streams each layer's weights,
+as K1 does; the activations the backward needs are staged in device
+memory.  K8's per-ray composite is a second, small launch (a ray's samples
+may span two tiles).  The backward kernels' weight gradients are one
+product per layer over all samples, split over K and reduced in a fixed
+order.
 """
 
 from __future__ import annotations
@@ -33,11 +46,15 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from fmov_pose_torch.core.embedder import positional_encode
 from fmov_pose_torch.ops import fused_sdf, packing
 
+LAUNCHES_K6 = 0
+LAUNCHES_K7 = 0
 LAUNCHES_K8 = 0
 LAUNCHES_K9 = 0
 # profiler ranges around the launches (``profile_step.py`` reads them)
+PROFILE_K6, PROFILE_K7 = "fmov::K6_color_fwd", "fmov::K7_color_bwd"
 PROFILE_K8, PROFILE_K9 = "fmov::K8_color_ray_fwd", "fmov::K9_color_ray_bwd"
 
 # the JAX gate (``ops/fused_color.py:45``); an H100 measurement may move it
@@ -78,6 +95,33 @@ def _mlp(ws, bs, xc):
     return acts, torch.sigmoid(h)
 
 
+def _descend(ws, acts, zbar):
+    """From the cotangent zbar of the last pre-activation: (the input
+    cotangent, dws, dbs), the backward kernels' descent."""
+    n_lin = len(ws)
+    dws, dbs = [None] * n_lin, [None] * n_lin
+    for l in range(n_lin - 1, -1, -1):
+        dws[l] = _bdot(acts[l].T, zbar)
+        dbs[l] = zbar.sum(0)
+        ibar = _bdot(zbar, ws[l].T)
+        if l > 0:
+            zbar = ibar * (acts[l] > 0.0).to(ibar.dtype)
+    return ibar, dws, dbs
+
+
+def color_fwd_plain(ws, bs, xc):
+    """K6's arithmetic, the JAX ``apply_from_concat`` with bf16 operands:
+    xc [M, d_in] -> rgb [M, 3]."""
+    return _mlp(ws, bs, xc)[1]
+
+
+def color_bwd_plain(ws, bs, xc, ct):
+    """K7's arithmetic, the hand derivation of the JAX ``_make_bwd_kernel``:
+    ct [M, 3] -> (xcbar [M, d_in], dws, dbs)."""
+    acts, c = _mlp(ws, bs, xc)
+    return _descend(ws, acts, ct * c * (1.0 - c))
+
+
 def color_ray_fwd_plain(ws, bs, sdf_out, pts, dirs, normals, weights, cfg):
     """K8's arithmetic -> color [B, 3]."""
     xc, _ = _inputs(sdf_out, pts, dirs, normals, cfg)
@@ -95,15 +139,7 @@ def color_ray_bwd_plain(ws, bs, sdf_out, pts, dirs, normals, weights, ct, cfg):
     B, N = weights.shape
     d_weights = (c.reshape(B, N, 3) * ct[:, None, :]).sum(2)
     cbar = (ct[:, None, :] * weights[:, :, None]).reshape(-1, 3)
-    zbar = cbar * c * (1.0 - c)
-    n_lin = len(ws)
-    dws, dbs = [None] * n_lin, [None] * n_lin
-    for l in range(n_lin - 1, -1, -1):
-        dws[l] = _bdot(acts[l].T, zbar)
-        dbs[l] = zbar.sum(0)
-        ibar = _bdot(zbar, ws[l].T)
-        if l > 0:
-            zbar = ibar * (acts[l] > 0.0).to(ibar.dtype)
+    ibar, dws, dbs = _descend(ws, acts, cbar * c * (1.0 - c))
     n_pe = vjac.shape[1]
     featbar = torch.cat([torch.zeros_like(ibar[:, :1]), ibar[:, 6 + n_pe:]], -1)
     dirs_bar = fused_sdf.dim_sum(ibar[:, 3:3 + n_pe] * vjac)
@@ -163,7 +199,9 @@ def _check(pk, sdf_out, pts, dirs, normals, weights):
     return M, B, N, dev
 
 
-def _workspace(pk, M_pad, dev, backward, G=0, KS=0):
+def _workspace(pk, M_pad, dev, backward, G=0, KS=0, composite=False):
+    """X_0..X_{L-1}; backward: ZB_0..ZB_{L-1}, DBPART, DWPART; K8
+    (``composite``): the per-sample rgb C."""
     ws_ = packing.Workspace()
     t = pk.table
     for l in range(pk.n_lin):
@@ -173,7 +211,7 @@ def _workspace(pk, M_pad, dev, backward, G=0, KS=0):
             ws_.add(f"ZB{l}", M_pad, t[l, 1], torch.bfloat16)
         ws_.add("DBPART", G, int(t[:, 1].sum()), torch.float32)
         ws_.add("DWPART", KS, packing.dw_elems(pk.meta), torch.float32)
-    else:
+    elif composite:
         ws_.add("C", M_pad, 4, torch.float32)
     return ws_.allocate(dev)
 
@@ -184,7 +222,7 @@ def launch_fwd(pk: RayPack, sdf_out, pts, dirs, normals, weights):
     global LAUNCHES_K8
     M, B, N, dev = _check(pk, sdf_out, pts, dirs, normals, weights)
     M_pad = packing.round_up(max(M, 1), packing.TILE_M)
-    ws_ = _workspace(pk, M_pad, dev, False)
+    ws_ = _workspace(pk, M_pad, dev, False, composite=True)
     color = torch.empty((B, 3), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K8):
@@ -254,6 +292,117 @@ def color_ray_bwd(ws, bs, sdf_out, pts, dirs, normals, weights, ct, cfg, pk=None
     return color_ray_bwd_plain(ws, bs, sdf_out, pts, dirs, normals, weights, ct, cfg)
 
 
+def _sample_lib():
+    from fmov_pose_torch.ops import build
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return fused_sdf._typed(build.library("color_sample"), {
+        # (xc, d_in, M, M_pad, w, b, meta, n_lin, ptrs, G, rgb, stream)
+        "fmov_color_sample_fwd": [vp, ci, ci, ci, vp, vp, vp, ci, vp, ci, vp, vp],
+        # (xc, ct, d_in, M, M_pad, w, b, meta, n_lin, ptrs, G, KS, xcbar,
+        #  dw, db, stream)
+        "fmov_color_sample_bwd": [vp, vp, ci, ci, ci, vp, vp, vp, ci, vp, ci, ci,
+                                  vp, vp, vp, vp]})
+
+
+def _check_sample(pk, xc, ct=None):
+    M, dev = xc.shape[0], xc.device
+    fused_sdf._check_cuda_rows("xc", xc, pk.d_in, M, dev)
+    if ct is not None:
+        fused_sdf._check_cuda_rows("ct", ct, 3, M, dev)
+    if pk.w_buf.device != dev:
+        raise ValueError("packed weights and samples on different devices")
+    return M, dev
+
+
+def launch_fwd_sample(pk: RayPack, xc):
+    """K6 on pre-packed weights: xc [M, d_in] -> rgb [M, 3]; the only
+    place that counts LAUNCHES_K6."""
+    global LAUNCHES_K6
+    M, dev = _check_sample(pk, xc)
+    M_pad = packing.round_up(max(M, 1), packing.TILE_M)
+    ws_ = _workspace(pk, M_pad, dev, False)
+    rgb = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    lib = _sample_lib()
+    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K6):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fmov_color_sample_fwd(
+            xc.data_ptr(), pk.d_in, M, M_pad, pk.w_buf.data_ptr(), pk.b_buf.data_ptr(),
+            pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin,
+            ws_.table.ctypes.data_as(ctypes.c_void_p),
+            fused_sdf._grid(dev, M_pad // packing.TILE_M), rgb.data_ptr(), stream)
+    fused_sdf._raise_on(lib, err, "color_sample_fwd", M)
+    LAUNCHES_K6 += 1
+    return rgb
+
+
+def launch_bwd_sample(pk: RayPack, xc, ct):
+    """K7 on pre-packed weights: ct [M, 3] -> (xcbar [M, d_in], dw_pad,
+    db_pad) in the packed layout; the only place that counts LAUNCHES_K7."""
+    global LAUNCHES_K7
+    M, dev = _check_sample(pk, xc, ct)
+    M_pad = packing.round_up(max(M, 1), packing.TILE_M)
+    G = fused_sdf._grid(dev, M_pad // packing.TILE_M)
+    KS = fused_sdf._split_k(dev, pk.meta, M_pad)
+    ws_ = _workspace(pk, M_pad, dev, True, G, KS)
+    xcbar = torch.empty((M, pk.d_in), dtype=torch.float32, device=dev)
+    dw_pad = torch.empty(packing.dw_elems(pk.meta), dtype=torch.float32, device=dev)
+    db_pad = torch.empty(int(pk.table[:, 1].sum()), dtype=torch.float32, device=dev)
+    lib = _sample_lib()
+    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K7):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fmov_color_sample_bwd(
+            xc.data_ptr(), ct.data_ptr(), pk.d_in, M, M_pad, pk.w_buf.data_ptr(),
+            pk.b_buf.data_ptr(), pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin,
+            ws_.table.ctypes.data_as(ctypes.c_void_p), G, KS, xcbar.data_ptr(),
+            dw_pad.data_ptr(), db_pad.data_ptr(), stream)
+    fused_sdf._raise_on(lib, err, "color_sample_bwd", M)
+    LAUNCHES_K7 += 1
+    return xcbar, dw_pad, db_pad
+
+
+def color_fwd(ws, bs, xc, cfg, pk=None):
+    """K6 for a CUDA tensor (packing ``ws`` unless ``pk`` is given), the
+    plain version for a CPU tensor: rgb [M, 3]."""
+    if xc.is_cuda:
+        return launch_fwd_sample(pk or RayPack(ws, bs, cfg), xc.contiguous())
+    return color_fwd_plain(ws, bs, xc)
+
+
+def color_bwd(ws, bs, xc, ct, cfg, pk=None):
+    """K7 for a CUDA tensor, the plain version for a CPU tensor: (xcbar
+    [M, d_in], dws, dbs) in the layout of ``ws``/``bs``."""
+    if xc.is_cuda:
+        pk = pk or RayPack(ws, bs, cfg)
+        xcbar, dw_pad, db_pad = launch_bwd_sample(pk, xc.contiguous(), ct.contiguous())
+        dws, dbs = packing.unpack_grads(dw_pad, db_pad, pk.meta, ws, pk.row_maps)
+        return xcbar, dws, dbs
+    return color_bwd_plain(ws, bs, xc, ct)
+
+
+class _ColorSample(torch.autograd.Function):
+    """K6 forward, K7 backward, on the dense weights and biases, so that
+    autograd carries the weight-norm (v, g) VJP: the JAX custom_vjp
+    ``_color_op``."""
+
+    @staticmethod
+    def forward(ctx, cfg_key, xc, *wb):
+        cfg = dict(cfg_key)
+        n_lin = len(wb) // 2
+        ws, bs = list(wb[:n_lin]), list(wb[n_lin:])
+        pk = RayPack(ws, bs, cfg) if xc.is_cuda else None
+        ctx.cfg, ctx.pk, ctx.n_lin = cfg, pk, n_lin
+        ctx.save_for_backward(xc, *wb)
+        return color_fwd(ws, bs, xc, cfg, pk)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        xc, *wb = ctx.saved_tensors
+        ws, bs = wb[:ctx.n_lin], wb[ctx.n_lin:]
+        xcbar, dws, dbs = color_bwd(ws, bs, xc, ct, ctx.cfg, ctx.pk)
+        return (None, xcbar, *dws, *dbs)
+
+
 class _ColorRay(torch.autograd.Function):
     """K8 forward, K9 backward, on the dense weights and biases."""
 
@@ -292,3 +441,24 @@ def color_fused_ray(params, cfg, sdf_out, pts, dirs, normals, weights):
     ws, bs = materialize(params, cfg)
     return _ColorRay.apply(_cfg_key(cfg), sdf_out, pts, dirs, normals, weights,
                            *ws, *bs)
+
+
+def color_fused(params, cfg, xc):
+    """Per-sample rgb [M, 3] of the color network on prebuilt input rows
+    xc [M, d_in] (``nets.color_apply`` with mode idr and squeeze_out): K6
+    forward, K7 backward (the plain versions for CPU tensors).  Gradients
+    flow to the parameters (weight norm included) and to xc."""
+    ws, bs = materialize(params, cfg)
+    return _ColorSample.apply(_cfg_key(cfg), xc, *ws, *bs)
+
+
+def color_fused_featfirst(params, cfg, pts, dirs, normals, feature):
+    """The counterpart of the JAX entry of this name: ``color_fused`` on
+    the input rows [pts, PE(dirs), normals, feature] built here, pts, dirs
+    and normals [M, 3], feature [M, d_feature].  The order is idr, the
+    order of ``nets.color_apply`` and of the weights: the JAX entry's
+    feature-first column permutation is TPU lane layout and is not
+    ported."""
+    xc = torch.cat([pts, positional_encode(dirs, cfg["multires_view"]), normals,
+                    feature], -1)
+    return color_fused(params, cfg, xc)

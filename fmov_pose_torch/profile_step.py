@@ -13,6 +13,9 @@ the steps are the progressive curriculum's photo and flow steps from its
 start, its depth cut as ``chip_smoke.py`` cuts it (``PROGRESSIVE_CUT``: a
 5-step mesh warm-up, a frame admitted every 8 steps), so that the
 measured steps train the segment poses, admit frames and take flow steps.
+``--n_outside N`` trains a copy of the conf with ``n_outside = N`` (the
+NeRF++ background; with the fast phase-2 conf and 32, slice 4 of the port:
+K4/K5 and the per-sample K6/K7, the background blocking K8/K9).
 
 * ``ab``: the conf's kernels against the f32 networks in their place,
   alternating kernels, f32, f32, kernels in this one process, ``--steps``
@@ -40,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -49,6 +53,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "confs", "ho3d_global_womask.conf")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PROGRESSIVE_CUT = {"mesh_warmup_step": 5, "max_pro_iteration": 8, "pro_warm_up_end": 4}
+
+
+def conf_with_outside(conf: str, n_outside: int, out_dir: str) -> str:
+    """A copy of ``conf`` in ``out_dir`` with ``n_outside`` (the NeRF++
+    background's samples a ray) set; its path."""
+    with open(conf) as f:
+        text, n = re.subn(r"(\bn_outside\s*=\s*)\d+", rf"\g<1>{n_outside}", f.read())
+    if n != 1:
+        raise ValueError(f"{conf}: {n} n_outside settings, expected one")
+    name = os.path.basename(conf).replace(".conf", f"_outside{n_outside}.conf")
+    path = os.path.join(out_dir, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
 
 
 def busy_us(trace_events) -> tuple[float, int]:
@@ -92,6 +110,8 @@ def main(argv=None):
     parser.add_argument("--steps", type=int, default=15)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trace", type=str, default=None)
+    parser.add_argument("--n_outside", type=int, default=None,
+                        help="train a copy of CONF with this n_outside")
     args = parser.parse_args(argv)
 
     import torch
@@ -108,7 +128,9 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     scene = make_orbit_scene(n_frames=8, H=480, W=640, seed=args.seed)
     with tempfile.TemporaryDirectory() as tmp:
-        runner = Runner(args.conf, case="profile", exp_dir=os.path.join(tmp, "exp"),
+        conf_path = (args.conf if args.n_outside is None
+                     else conf_with_outside(args.conf, args.n_outside, tmp))
+        runner = Runner(conf_path, case="profile", exp_dir=os.path.join(tmp, "exp"),
                         seed=args.seed, device=dev, scene=scene)
         runner.end_iter, runner.warm_up_end = 10 ** 6, 0.0
         if runner.progressive:
@@ -117,7 +139,8 @@ def main(argv=None):
                 runner.conf.put(f"train.{key}", value)
         switch = ("use_fused_train" if runner.model_cfg["sdf"].get("use_fused_train")
                   else "use_fused")
-        conf = os.path.relpath(args.conf, ROOT)
+        conf = os.path.relpath(args.conf, ROOT) + (
+            "" if args.n_outside is None else f" n_outside={args.n_outside}")
         runner._init_perms()
         _steps(runner, 5, switch, True)  # warm-up
 

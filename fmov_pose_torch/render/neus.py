@@ -14,11 +14,18 @@ lane padding and are not ported.
 ``use_fused_train`` takes the JAX module's gates: at or above
 ``fused_sdf.MIN_SAMPLES_RAYS`` samples the SDF runs through K4/K5
 (``sdf_apply_grad_fused_rays``), below it through the flat K2/K3
-(``sdf_apply_grad_fused``); with ``fused_color.MIN_SAMPLES`` the color MLP
-and the composite run through K8/K9 (``color_fused_ray``), below it on the
-f32 network.  The JAX path that reaches the per-sample color kernels
-K6/K7 (the color gate met without the rays SDF path) is not ported yet
-and raises.
+(``sdf_apply_grad_fused``).  With ``fused_color.MIN_SAMPLES`` the color
+MLP runs through K8/K9 (``color_fused_ray``, color and composite in one)
+on the rays path without a background, and through the per-sample K6/K7
+(``color_fused_featfirst``) wherever else the JAX module takes them: the
+flat SDF path, or the NeRF++ background, which mixes per-sample colors.
+Below the gate it runs on the f32 network.
+
+``n_outside > 0`` adds the NeRF++ background (``render_core_outside``):
+the background network (``nets.nerf_apply``, f32) on the sorted union of
+the inside and the outside z-values, its alpha and colors mixed into the
+inside ones outside the unit sphere and its tail appended, as in the JAX
+``render_core``.
 
 Memory: the JAX step wraps the unfused SDF and color blocks in
 ``jax.checkpoint``; here autograd keeps the activations (a few GB at 512
@@ -30,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from fmov_pose_torch.core.sampling import merge_sorted, sample_pdf
 from fmov_pose_torch.fields import nets
@@ -119,32 +127,60 @@ def cat_z_vals(params, model_cfg, rays_o, rays_d, z_vals, new_z_vals, sdf, last:
     return merge_sorted(z_vals, new_z_vals, sdf, new_sdf)
 
 
-def _fused_train_paths(model_cfg, n_samples: int, m_total: int):
-    """(SDF path: None, "rays" or "flat"; ray-composited color path) as
-    the JAX render_core picks them; raises where JAX would reach a kernel
-    the port lacks."""
+def _fused_train_paths(model_cfg, n_samples: int, m_total: int,
+                       background: bool = False):
+    """(SDF path: None, "rays" or "flat"; color path: None for the f32
+    network, "ray" for K8/K9 or "sample" for K6/K7) as the JAX render_core
+    picks them; ``background``: the NeRF++ background is mixed in."""
     sdf_cfg, color_cfg = model_cfg["sdf"], model_cfg["color"]
     if not sdf_cfg.get("use_fused_train", False):
-        return None, False
+        return None, None
     from fmov_pose_torch.ops import fused_color, fused_sdf
     if not fused_sdf.supported(sdf_cfg):
-        return None, False
+        return None, None
     sdf_path = ("rays" if fused_sdf.supported_rays(sdf_cfg, n_samples, m_total)
                 else "flat")
-    if not color_cfg.get("use_fused_train", True):
-        return sdf_path, False
-    if fused_color.supported(color_cfg) and m_total >= fused_color.MIN_SAMPLES:
-        if sdf_path != "rays" or not fused_color.supported_ray(color_cfg, n_samples):
-            raise NotImplementedError(
-                "the per-sample color kernels K6/K7 are not in the port yet "
-                "(ROADMAP queue 2)")
-        return sdf_path, True
-    return sdf_path, False
+    if not (color_cfg.get("use_fused_train", True) and fused_color.supported(color_cfg)
+            and m_total >= fused_color.MIN_SAMPLES):
+        return sdf_path, None
+    if (sdf_path == "rays" and not background
+            and fused_color.supported_ray(color_cfg, n_samples)):
+        return sdf_path, "ray"
+    return sdf_path, "sample"
+
+
+def render_core_outside(params, model_cfg, rays_o, rays_d, z_vals, sample_dist):
+    """The NeRF++ background shell: the background network at the
+    mid-points, in the inverted-sphere coordinates [p / r, 1 / r] with
+    r = |p| clipped to [1, 1e10]."""
+    batch_size, n_samples = z_vals.shape
+    dists = torch.cat(
+        [z_vals[..., 1:] - z_vals[..., :-1],
+         torch.full((batch_size, 1), sample_dist, dtype=z_vals.dtype,
+                    device=z_vals.device)], dim=-1)
+    mid_z = z_vals + dists * 0.5
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., :, None]
+    dis_to_center = torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True),
+                                1.0, 1e10)
+    pts4 = torch.cat([pts / dis_to_center, 1.0 / dis_to_center], dim=-1)
+    dirs = rays_d[:, None, :].expand(pts.shape)
+
+    density, sampled_color = nets.nerf_apply(
+        params["nerf"], model_cfg["nerf"], pts4.reshape(-1, 4), dirs.reshape(-1, 3))
+    sampled_color = torch.sigmoid(sampled_color).reshape(batch_size, n_samples, 3)
+    alpha = 1.0 - torch.exp(-F.softplus(density.reshape(batch_size, n_samples)) * dists)
+    weights = _transmittance_weights(alpha)
+    color = (weights[:, :, None] * sampled_color).sum(dim=1)
+    return {"color": color, "sampled_color": sampled_color, "alpha": alpha,
+            "weights": weights}
 
 
 def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
+                background_alpha=None, background_sampled_color=None,
                 background_rgb=None, cos_anneal_ratio=1.0, eval_mode=False):
-    """SDF -> alpha -> composite."""
+    """SDF -> alpha -> composite; the NeRF++ background's alpha and colors
+    [B, N + n_outside] (``render_core_outside`` on the sorted union of the
+    z-values) are mixed in outside the unit sphere and appended."""
     batch_size, n_samples = z_vals.shape
     dists = torch.cat(
         [z_vals[..., 1:] - z_vals[..., :-1],
@@ -153,8 +189,8 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
     mid_z_vals = z_vals + dists * 0.5
 
     sdf_cfg = model_cfg["sdf"]
-    sdf_path, use_color_ray = _fused_train_paths(
-        model_cfg, n_samples, batch_size * n_samples)
+    sdf_path, color_path = _fused_train_paths(
+        model_cfg, n_samples, batch_size * n_samples, background_alpha is not None)
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z_vals[..., :, None]
            ).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(batch_size, n_samples, 3).reshape(-1, 3)
@@ -175,7 +211,12 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
         gradients = gradients.detach()
 
     sampled_color = None  # composited in the kernel on the color-ray path
-    if not use_color_ray:
+    if color_path == "sample":
+        from fmov_pose_torch.ops import fused_color
+        sampled_color = fused_color.color_fused_featfirst(
+            params["color"], model_cfg["color"], pts, dirs, gradients, feature
+        ).reshape(batch_size, n_samples, 3)
+    elif color_path is None:
         sampled_color = nets.color_apply(
             params["color"], model_cfg["color"], pts, gradients, dirs, feature
         ).reshape(batch_size, n_samples, 3)
@@ -198,9 +239,19 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
     inside_sphere = (pts_norm_sq < 1.0).to(alpha.dtype)
     relax_inside_sphere = (pts_norm_sq < 1.44).to(alpha.dtype)
 
+    if background_alpha is not None:
+        alpha = (alpha * inside_sphere
+                 + background_alpha[:, :n_samples] * (1.0 - inside_sphere))
+        alpha = torch.cat([alpha, background_alpha[:, n_samples:]], dim=-1)
+        sampled_color = (
+            sampled_color * inside_sphere[:, :, None]
+            + background_sampled_color[:, :n_samples] * (1.0 - inside_sphere)[:, :, None])
+        sampled_color = torch.cat(
+            [sampled_color, background_sampled_color[:, n_samples:]], dim=1)
+
     weights = _transmittance_weights(alpha)
     weights_sum = weights.sum(dim=-1, keepdim=True)
-    if use_color_ray:
+    if color_path == "ray":
         from fmov_pose_torch.ops import fused_color
         color = fused_color.color_fused_ray(
             params["color"], model_cfg["color"], sdf_nn, pts, dirs, gradients,
@@ -239,24 +290,40 @@ def render(generator, params, model_cfg, rays_o, rays_d, near, far,
     """Full hierarchical render; returns the JAX module's output dict.
 
     ``generator``: the ``torch.Generator`` for the stratified perturbation
-    (unused when the perturbation is 0).  ``occ_grid``: an occupancy grid
+    (unused when the perturbation is 0): the inside draw [B, 1], then the
+    outside one [B, n_outside].  ``occ_grid``: an occupancy grid
     [R, R, R] that places the importance samples instead of the SDF-guided
     up-sampler."""
     cfg: RenderCfg = model_cfg["renderer"]
-    if cfg.n_outside > 0:
-        raise NotImplementedError(
-            "n_outside > 0: the NeRF++ background (render_core_outside) is "
-            "ROADMAP queue 1, item 4")
     batch_size = rays_o.shape[0]
     dev = rays_o.device
     sample_dist = 2.0 / cfg.n_samples
     z_lin = torch.linspace(0.0, 1.0, cfg.n_samples, device=dev)
     z_vals = near + (far - near) * z_lin[None, :]
 
+    z_vals_outside = None
+    if cfg.n_outside > 0:
+        z_vals_outside = torch.linspace(
+            1e-3, 1.0 - 1.0 / (cfg.n_outside + 1.0), cfg.n_outside, device=dev)
+
     perturb = cfg.perturb if perturb_overwrite < 0 else perturb_overwrite
     if perturb > 0:
         t_rand = torch.rand((batch_size, 1), generator=generator, device=dev) - 0.5
         z_vals = z_vals + t_rand * 2.0 / cfg.n_samples
+        if cfg.n_outside > 0:
+            mids = 0.5 * (z_vals_outside[1:] + z_vals_outside[:-1])
+            upper = torch.cat([mids, z_vals_outside[-1:]])
+            lower = torch.cat([z_vals_outside[:1], mids])
+            t_rand2 = torch.rand((batch_size, cfg.n_outside), generator=generator,
+                                 device=dev)
+            z_vals_outside = lower[None, :] + (upper - lower)[None, :] * t_rand2
+
+    if cfg.n_outside > 0:
+        z_vals_outside = far / torch.flip(torch.atleast_2d(z_vals_outside),
+                                          dims=[-1]) + 1.0 / cfg.n_samples
+
+    background_alpha = None
+    background_sampled_color = None
 
     n_samples_total = cfg.n_samples
     if cfg.n_importance > 0 and occ_grid is not None:
@@ -284,8 +351,19 @@ def render(generator, params, model_cfg, rays_o, rays_d, near, far,
                     last=(i + 1 == cfg.up_sample_steps))
         n_samples_total = cfg.n_samples + cfg.n_importance
 
+    if cfg.n_outside > 0:
+        z_vals_feed = torch.sort(torch.cat(
+            [z_vals, z_vals_outside.expand(batch_size, cfg.n_outside)], dim=-1),
+            dim=-1).values
+        ret_outside = render_core_outside(
+            params, model_cfg, rays_o, rays_d, z_vals_feed, sample_dist)
+        background_sampled_color = ret_outside["sampled_color"]
+        background_alpha = ret_outside["alpha"]
+
     ret_fine = render_core(
         params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
+        background_alpha=background_alpha,
+        background_sampled_color=background_sampled_color,
         background_rgb=background_rgb, cos_anneal_ratio=cos_anneal_ratio,
         eval_mode=eval_mode)
 

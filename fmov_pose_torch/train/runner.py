@@ -22,7 +22,8 @@ steps alternate on the flow coin; ``maintain_shape`` adds a batch of an
 earlier frame to every step.
 
 The fused training kernels (``train.use_fused_train_kernels``: K2/K3 or
-K4/K5 for the SDF, K8/K9 for the color) and the occupancy grid
+K4/K5 for the SDF, K8/K9 or K6/K7 for the color), the NeRF++ background
+(``n_outside > 0``, trained with the fields) and the occupancy grid
 (``train.occupancy_sampling``, refreshed after every ``occ_update_freq``-th
 step) are taken as in the JAX Runner.  What the port leaves out raises
 ``NotImplementedError`` naming its ROADMAP item: checkpoints, validation
@@ -186,8 +187,6 @@ class Runner:
             "renderer": neus.make_render_cfg(
                 conf["model.neus_renderer"].as_plain_dict()),
         }
-        if self.model_cfg["renderer"].n_outside > 0:
-            _unsupported("n_outside > 0 (NeRF++ background)", "item 4")
         self.model_cfg["sdf"]["skip_in"] = tuple(
             self.model_cfg["sdf"].get("skip_in", [4]))
         self.model_cfg["nerf"]["skips"] = tuple(
@@ -198,7 +197,7 @@ class Runner:
         # the fused SDF forward of the gradient-free paths (ops/fused_sdf.py)
         self.model_cfg["sdf"]["use_fused"] = conf.get_bool(
             "train.use_fused_kernels", True)
-        # the fused training kernels (K2-K5 SDF, K8/K9 color; render_core)
+        # the fused training kernels (K2-K5 SDF, K6-K9 color; render_core)
         self.model_cfg["sdf"]["use_fused_train"] = conf.get_bool(
             "train.use_fused_train_kernels", False)
         # occupancy-grid guided importance sampling instead of the

@@ -22,6 +22,12 @@ Tolerances:
   |g| is above 1e-4 x the global norm (below it, the sign of a gradient that
   is noise may differ).
 
+The flat case (``test_fused_train_below_the_rays_gate_raises``) keeps the
+rays gate and patches only the color gate to 0: both sides take the flat
+K2/K3 for the SDF and the per-sample K6/K7 for the color, held to the same
+tolerances.  ``fast_step_both`` and ``check_step_against_jax`` serve
+``tests/test_torch_background.py`` too.
+
 The Runner case trains a tiny fast conf on the CPU with the grid refreshed
 every 10 steps.
 """
@@ -95,7 +101,13 @@ def _count_calls(monkeypatch, mod, name):
     return calls
 
 
-def test_fast_step_matches_jax(world, gates, monkeypatch):  # noqa: F811
+def fast_step_both(world, monkeypatch, render=RENDER, counted=()):
+    """The fast step on both sides from the same JAX-initialised weights,
+    grid (refreshed from the initial SDF on each side, which must agree
+    exactly) and ray batch.  ``counted``: (module, name) pairs whose calls
+    are counted while the step and its gradient run.  Returns (JAX loss,
+    metrics and gradient tree, JAX params after one Adam step, port
+    metrics, the port's (name, leaf) items and gradients, the counts)."""
     sc, _, static_j = world
     k1, k2, k3 = jax.random.split(jax.random.key(1), 3)
     params_j = {"sdf": jn.init_sdf(k1, SDF), "color": jn.init_color(k2, COLOR),
@@ -107,9 +119,9 @@ def test_fast_step_matches_jax(world, gates, monkeypatch):  # noqa: F811
         jn.sdf_only(params_j["sdf"], SDF, jnp.asarray(grid_pts)), RES)
     static_j = dict(static_j, occ_grid=occ_j)
     jcfg = {"sdf": dict(SDF), "color": dict(COLOR), "nerf": dict(NERF),
-            "renderer": jneus.make_render_cfg(RENDER)}
+            "renderer": jneus.make_render_cfg(render)}
     tcfg = {"sdf": dict(SDF), "color": dict(COLOR), "nerf": dict(NERF),
-            "renderer": tneus.make_render_cfg(RENDER)}
+            "renderer": tneus.make_render_cfg(render)}
     data = _ray_batch(sc, np.random.default_rng(3))[:B]
     cfg_j = jstep.make_step_config(jcfg, n_segments=1, segment_img_num=1, **STEP_KW)
     cfg_t = tstep.make_step_config(tcfg, **STEP_KW)
@@ -117,12 +129,13 @@ def test_fast_step_matches_jax(world, gates, monkeypatch):  # noqa: F811
         lr=jnp.float32(LR), cos_anneal=jnp.float32(0.7), main_update=1.0,
         pose_update=1.0, mask_guided=1.0, seg_touch=jnp.ones(1),
         seg_freeze=jnp.ones(1), seg_lr=jnp.ones(1), trans_head_on=1.0)
+    counts = {name: _count_calls(monkeypatch, mod, name) for mod, name in counted}
 
     def loss_j(p):
         return jstep._render_and_losses(cfg_j, jax.random.key(9), p, {},
                                         static_j, jnp.asarray(data), sc_j)
 
-    (lj, mj), gj = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params_j)
+    (_, mj), gj = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params_j)
     new_j, _ = joptim.adam_update(gj, joptim.adam_init(params_j), params_j, LR)
 
     tree_t = convert.to_torch(_np_tree(params_j))
@@ -136,18 +149,26 @@ def test_fast_step_matches_jax(world, gates, monkeypatch):  # noqa: F811
     np.testing.assert_array_equal(static_t["occ_grid"].numpy(), np.asarray(occ_j))
     assert 0 < float(static_t["occ_grid"].mean()) < 1
 
-    sdf_calls = _count_calls(monkeypatch, fused_sdf, "sdf_apply_grad_fused_rays")
-    color_calls = _count_calls(monkeypatch, fused_color, "color_fused_ray")
-    launches = (fused_sdf.LAUNCHES_K4, fused_sdf.LAUNCHES_K5,
-                fused_color.LAUNCHES_K8, fused_color.LAUNCHES_K9, fused_sdf.LAUNCHES)
+    launches = _launches()
     lt, mt = tstep._render_and_losses(cfg_t, None, params_t, static_t,
                                       torch.from_numpy(data), tstep.StepScalars(
                                           lr=LR, cos_anneal=0.7))
     grads = torch.autograd.grad(lt, leaves, allow_unused=True)
-    assert (len(sdf_calls), len(color_calls)) == (1, 1)  # the fused path
-    # the CPU takes the plain versions: no kernel launches, no K1
-    assert (fused_sdf.LAUNCHES_K4, fused_sdf.LAUNCHES_K5, fused_color.LAUNCHES_K8,
-            fused_color.LAUNCHES_K9, fused_sdf.LAUNCHES) == launches
+    # the CPU takes the plain versions: no kernel launches
+    assert _launches() == launches
+    return mj, gj, new_j, mt, items, grads, {k: len(v) for k, v in counts.items()}
+
+
+def _launches():
+    return (fused_sdf.LAUNCHES, fused_sdf.LAUNCHES_K2, fused_sdf.LAUNCHES_K3,
+            fused_sdf.LAUNCHES_K4, fused_sdf.LAUNCHES_K5, fused_color.LAUNCHES_K6,
+            fused_color.LAUNCHES_K7, fused_color.LAUNCHES_K8, fused_color.LAUNCHES_K9)
+
+
+def check_step_against_jax(mj, gj, new_j, mt, items, grads, nonzero=()):
+    """The metrics by rtol 1e-3, every gradient leaf by the leaf rule (the
+    leaves ``nonzero`` must have a gradient), and one Adam step from the
+    port's gradients against JAX's step."""
     for k, v in mj.items():
         np.testing.assert_allclose(float(mt[k].detach()), float(v), rtol=1e-3,
                                    atol=1e-7, err_msg=k)
@@ -157,10 +178,11 @@ def test_fast_step_matches_jax(world, gates, monkeypatch):  # noqa: F811
            for (n, l), g in zip(items, grads)}
     res = fused_sdf.leaf_rule(ref, got)
     assert res["ok"], res
-    assert float(ref["sdf.layers.lin0.v"].abs().max()) > 0
-    assert float(ref["color.layers.lin0.v"].abs().max()) > 0
+    for n in ("sdf.layers.lin0.v", "color.layers.lin0.v") + tuple(nonzero):
+        assert float(ref[n].abs().max()) > 0, n
 
     # one Adam step from the port's gradients, as the port's step takes it
+    tree_t = convert.unflatten(items)
     layout = convert.ParamLayout(tree_t)
     flat = layout.ravel(tree_t)
     toptim.adam_update_flat_(layout.ravel(got), toptim.adam_init(flat), flat, LR)
@@ -173,6 +195,14 @@ def test_fast_step_matches_jax(world, gates, monkeypatch):  # noqa: F811
         np.testing.assert_allclose(step_t[settled], step_j[settled], rtol=0,
                                    atol=1e-3 * LR + 1e-6, err_msg=n)
         assert np.abs(step_t).max() <= LR * 1.001
+
+
+def test_fast_step_matches_jax(world, gates, monkeypatch):  # noqa: F811
+    mj, gj, new_j, mt, items, grads, calls = fast_step_both(
+        world, monkeypatch, counted=((fused_sdf, "sdf_apply_grad_fused_rays"),
+                                     (fused_color, "color_fused_ray")))
+    assert calls == {"sdf_apply_grad_fused_rays": 1, "color_fused_ray": 1}  # fused
+    check_step_against_jax(mj, gj, new_j, mt, items, grads)
 
 
 FAST = """
@@ -211,15 +241,37 @@ def test_runner_trains_fast_conf_on_cpu(tmp_path, monkeypatch):
     assert loss.shape == (20,) and np.all(np.isfinite(loss))
 
 
-def test_fused_train_below_the_rays_gate_raises(monkeypatch):
-    """Below the rays gate the SDF takes the flat K2/K3 path
-    (tests/test_torch_fused_flat.py); where the color gate is met there,
-    JAX would reach the per-sample color kernels K6/K7, which the port
-    lacks: it raises."""
+def test_fused_train_below_the_rays_gate_raises(world, monkeypatch):  # noqa: F811
+    """Below the rays gate with the color gate met: the flat K2/K3 path
+    for the SDF and the per-sample K6/K7 for the color, on both sides (the
+    JAX kernels in interpret mode, the port's plain versions).  This route
+    raised before the port had K6/K7; now the loss, every gradient leaf
+    and one Adam step match JAX's."""
+    jax.clear_caches()
+    monkeypatch.setenv("FMOV_PALLAS_INTERPRET", "1")
+    from fmov_pose_tpu.ops import fused_color as jfc
+    from fmov_pose_tpu.ops import fused_sdf as jfs
+    for mod in (jfs, jfc):
+        monkeypatch.setattr(mod, "TILE", 32)
+    monkeypatch.setattr(jfc, "MIN_SAMPLES", 0)
+    monkeypatch.setattr(fused_color, "MIN_SAMPLES", 0)
     cfg = {"sdf": dict(SDF), "color": dict(COLOR), "nerf": dict(NERF),
            "renderer": tneus.make_render_cfg(RENDER)}
-    assert tneus._fused_train_paths(cfg, 16, 64) == ("flat", False)
-    monkeypatch.setattr(fused_color, "MIN_SAMPLES", 0)
-    z = torch.linspace(0.5, 1.5, 16).expand(4, 16)
-    with pytest.raises(NotImplementedError, match="K6/K7"):
-        tneus.render_core({}, cfg, torch.zeros(4, 3), torch.ones(4, 3), z, 0.1)
+    M = B * (RENDER["n_samples"] + RENDER["n_importance"])
+    assert M < fused_sdf.MIN_SAMPLES_RAYS == jfs.MIN_SAMPLES_RAYS
+    assert tneus._fused_train_paths(cfg, 16, M) == ("flat", "sample")
+    mj, gj, new_j, mt, items, grads, calls = fast_step_both(
+        world, monkeypatch, counted=(
+            (jfs, "_sdf_forward_grad_impl"), (jfc, "_color_fwd_impl"),
+            (jfc, "_color_bwd_impl"), (jfs, "_sdf_fwd_grad_rays_impl"),
+            (jfc, "_ray_fwd_impl"), (fused_sdf, "sdf_apply_grad_fused"),
+            (fused_color, "color_fwd"), (fused_color, "color_bwd"),
+            (fused_color, "color_fused_ray")))
+    jax.clear_caches()
+    # JAX: K2 and K6/K7, no rays kernel; the port: the same entries
+    assert calls["_sdf_forward_grad_impl"] >= 1 and calls["_color_fwd_impl"] >= 1
+    assert calls["_color_bwd_impl"] >= 1
+    assert calls["_sdf_fwd_grad_rays_impl"] == calls["_ray_fwd_impl"] == 0
+    assert (calls["sdf_apply_grad_fused"], calls["color_fwd"], calls["color_bwd"],
+            calls["color_fused_ray"]) == (1, 1, 1, 0)
+    check_step_against_jax(mj, gj, new_j, mt, items, grads)
