@@ -2,6 +2,8 @@
 """Drive the PyTorch port's main paths once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
+    python3 chip_smoke.py train-kernels flat-kernels   # device, build and
+                                 # the named kernel phases only, no result line
 
 Phases, each printing lines as it ends:
   1. device   -- require CUDA; the card, its power limit, CUDA and nvcc
@@ -9,21 +11,24 @@ Phases, each printing lines as it ends:
                  each, all started together (K1 sdf_fwd.cu, K2/K3
                  sdf_flat.cu, K4 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K6/K7
                  color_sample.cu, K8/K9 color_ray.cu), and print ptxas's
-                 registers and spills
+                 registers and spills (by name for K5's and K3's per-point
+                 kernels)
   3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
                  against its plain PyTorch version at the full width of
                  confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
   4. train-kernels -- K4, K5, K8 and K9 through their entries against their
                  plain versions at the full width of
                  confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
-                 3 x 128 (ragged); CUDA-event times of the entry, the kernel
-                 alone and the plain version
+                 3 x 128 (ragged), K5 also against itself: two launches on
+                 the same inputs bitwise equal; CUDA-event times of the
+                 entry, the kernel alone and the plain version
   5. flat-kernels -- K2 and K3 through their entry sdf_apply_grad_fused
                  (forward and every gradient leaf, x included) against the
                  same entry on CPU copies (the plain versions) at the full
                  width of confs/ho3d_virtual_tpu_fast.conf, M = 1,024 x 32
-                 and a ragged 1,000; CUDA-event times of the wrapper, the
-                 kernel alone and the plain version
+                 and a ragged 1,000, K3 also bitwise equal over two launches;
+                 CUDA-event times of the wrapper, the kernel alone and the
+                 plain version
   6. color-kernels -- K6 and K7 through their entry color_fused (forward
                  and every gradient leaf, xc included) against the same
                  entry on CPU copies (the plain versions) at the full width
@@ -155,9 +160,54 @@ def phase_build():
         info = build.BUILD_INFO[name]
         regs = [l.strip() for l in info["log"].splitlines()
                 if "registers" in l or "spill" in l]
+        per_point = {k: v for k, v in _ptxas_entries(info["log"]).items()
+                     if k in PER_POINT_BWD}
         _line("build", kernel=name, nvcc_seconds=f"{info['seconds']:.2f}",
-              ptxas=repr(" | ".join(regs)))
+              ptxas=repr(" | ".join(regs)),
+              **{k: json.dumps(v).replace(" ", "") for k, v in per_point.items()})
     _line("build", all_seconds=f"{total:.2f}")
+
+
+# K5's and K3's per-point kernels, whose registers and spills the build
+# line names
+PER_POINT_BWD = ("sdf_bwd_kernel", "sdf_bwd_flat_kernel")
+
+
+def _kernel_name(mangled):
+    """The function's own name in an Itanium-mangled name: the last
+    length-prefixed piece before the nested name ends (``_ZN...E``)."""
+    i, name = 0, mangled
+    while i < len(mangled):
+        if mangled[i].isdigit():
+            j = i
+            while j < len(mangled) and mangled[j].isdigit():
+                j += 1
+            n = int(mangled[i:j])
+            name, i = mangled[j:j + n], j + n
+        elif mangled[i] == "E" and i > 2:
+            break
+        else:
+            i += 1
+    return name
+
+
+def _ptxas_entries(log):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from ptxas -v."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            cur = _kernel_name(m.group(1))
+            out.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def model_cfg(conf, section):
@@ -341,6 +391,17 @@ LEAF_TOL = "rel_L2<1e-2_or_abs_L2<1e-4*global_norm"
 ROW_TOL = f"median/max|ref|<={ROW_MEDIAN_TOL}_max/max|ref|<={ROW_MAX_TOL}"
 
 
+def _same_twice(phase, name, M, launch):
+    """Two launches on the same inputs give bitwise the same outputs (the
+    design's fixed-order sums promise it)."""
+    import torch
+    first, second = launch(), launch()
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for p, q in zip(first, second))
+    _line(phase, name=name, M=M, check="bitwise_run_to_run", ok=same)
+    _require(same, f"{name} gave other bits on a second launch at M={M}")
+
+
 def phase_train_kernels(dev):
     """K4, K5, K8 and K9 through their entries (packing, launch, and for
     K5/K9 the unpacking of the weight gradients) against their plain
@@ -412,6 +473,8 @@ def phase_train_kernels(dev):
                 lambda: fused_sdf.LAUNCHES_K4)
 
             ct_out, ct_sdf, ct_grad = randn(M, ws[-1].shape[1]), randn(M), randn(M, 3)
+            _same_twice("train-kernels", "sdf_bwd", M,
+                        lambda: fused_sdf.launch_bwd(pk, x, ct_out, ct_sdf, ct_grad))
             names5 = ("x", "w", "b")
             report("sdf_bwd", B, N,
                    lambda got, ref: _leaf_check(_leaves(names5, ref), _leaves(names5, got)),
@@ -495,6 +558,8 @@ def phase_flat_kernels(dev):
         xe, jac, _, dims = fused_sdf.pe_parts(x * cfg["scale"], cfg["multires"])
         ybar = torch.cat([ct_out[:, :1] / cfg["scale"], ct_out[:, 1:]], -1)
         gbar = ct_grad[:, dims] * jac
+        _same_twice("flat-kernels", "sdf_bwd_flat", M,
+                    lambda: fused_sdf.launch_bwd_flat(pk, xe, ybar, gbar))
         times = {
             "K2": [_median_ms(f) for f in (
                 lambda: fused_sdf.sdf_fwd_grad_flat(ws, bs, xe, cfg),
@@ -972,16 +1037,29 @@ def phase_slice4(dev, smi, scene, tmp):
     return counts
 
 
-def main():
+KERNEL_PHASES = {"kernels": phase_kernels, "train-kernels": phase_train_kernels,
+                 "flat-kernels": phase_flat_kernels, "color-kernels": phase_color_kernels}
+
+
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    unknown = [a for a in argv if a not in KERNEL_PHASES]
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; "
+              f"choose from {sorted(KERNEL_PHASES)}", file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     from fmov_pose_torch.data.scene import make_orbit_scene
     dev, smi = phase_device()
     phase_build()
+    if argv:  # a kernel check only: no training, no result line
+        for name in argv:
+            KERNEL_PHASES[name](dev)
+        return 0
     k1 = phase_kernels(dev)
     train_k = phase_train_kernels(dev)
     flat_k = phase_flat_kernels(dev)
@@ -1022,4 +1100,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

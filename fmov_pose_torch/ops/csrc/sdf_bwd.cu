@@ -24,14 +24,23 @@
 // reduced with the per-block bias sums by reduce_kernel
 // (train_common.cuh).  Three launches.
 //
+// The per-point pass (steps 1-4) is sdf_bwd_tile (sdf_bwd_pipe.cuh): the
+// weights stream through a cp.async ring across products and tiles, the
+// products run on mma.sync with their epilogues in registers, each
+// product's A operand stays in shared memory (ping-pong), and the f32
+// per-point arrays are stored in the warps' fragment order.
+//
 // What bounds it: ~4.4 MFLOP of per-point products and ~2.3 MFLOP of
-// weight-gradient products per point at 8x256, so the products; the
-// ~40 KB a point of intermediates (bf16 operands, f32 sigmoids, d_l and
-// Hessian terms) are staged in the workspace in device memory, read back
-// by the block that wrote them.  Determinism: one block per SM with fixed
-// tiles, column sums in fixed order, split-K partials reduced in order.
+// weight-gradient products a point at 8x256 would take ~0.45 ms at M =
+// 65,536 at the bf16 peak; what sets the time is memory.  The per-point
+// pass writes and reads back ~5 GB of intermediates (bf16 operands of the
+// weight-gradient product, f32 sigmoids, d_l and Hessian terms) in the
+// workspace, and its epilogues, where that traffic happens, do not overlap
+// the tensor cores; the weight-gradient product reads the bf16 operands
+// once more.  Determinism: one block per SM with fixed tiles, column sums
+// in fixed order, split-K partials reduced in order.
 
-#include "sdf_train.cuh"
+#include "sdf_bwd_pipe.cuh"
 
 namespace fmov_train {
 namespace {
@@ -40,24 +49,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     sdf_bwd_kernel(const __grid_constant__ BwdArgs a) {
   const SdfArgs& s = a.s;
   extern __shared__ __align__(128) unsigned char smem[];
-  const SdfSmem m = sdf_smem_carve(s, smem);
-  size_t off = m.off;
-  float* DIN = reinterpret_cast<float*>(smem + off);
-  off += align128((size_t)TILE_M * s.pe_pad * 4);
-  float* XEB = reinterpret_cast<float*>(smem + off);
-  off += align128((size_t)TILE_M * s.pe_pad * 4);
-  float* DBACC = reinterpret_cast<float*>(smem + off);
-  off += align128((size_t)a.n_bias * 4);
-  float* CBACC = reinterpret_cast<float*>(smem + off);
-
-  const int ncb = s.L[s.n_lin - 2].np;
-  for (int i = threadIdx.x; i < a.n_bias; i += THREADS) DBACC[i] = 0.f;
-  for (int i = threadIdx.x; i < ncb; i += THREADS) CBACC[i] = 0.f;
+  const BwdSmem m = bwd_smem_carve(a, smem);
+  const float* DIN = m.DIN;
+  const float* XEB = m.XEB;
+  WRing R = bwd_block_start(a, m);
 
   const int n_tiles = s.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M;
-    sdf_bwd_tile(a, row0, m, DIN, XEB, DBACC, CBACC);
+    sdf_bwd_tile(a, row0, m, R);
 
     // xbar = scale * sum_c (XEB PE' + ct_grad DIN PE'') over dim d's columns
     for (int i = threadIdx.x; i < TILE_M * 3; i += THREADS) {
@@ -78,7 +78,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       a.xbar[(size_t)gr * 3 + d] = g * s.scale;
     }
   }
-  sdf_bwd_store_sums(a, DBACC, CBACC);
+  bwd_block_end(a, m);
 }
 
 }  // namespace
@@ -88,7 +88,7 @@ using namespace fmov_train;
 
 extern "C" {
 
-// ptrs: the workspace table of sdf_bwd_launch (sdf_train.cuh).  dw: the
+// ptrs: the workspace table of sdf_bwd_launch (sdf_bwd_pipe.cuh).  dw: the
 // padded per-layer [in_w x np] blocks, concatenated; db: the padded
 // biases.  Returns a cudaError_t (0 = launched).
 int fmov_sdf_bwd(const float* x, const float* ct_out, const float* ct_sdf,

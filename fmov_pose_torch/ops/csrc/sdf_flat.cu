@@ -24,18 +24,20 @@
 //
 // What bounds them: at 8x256, ~2.0 MFLOP of bf16 products a point for K2
 // and ~5.8 for K3 (forward, chain, Phase A and B, and the weight-gradient
-// products), against ~160 and ~1,340 bytes a point in and out: the
-// products bound both by far.  As in K4/K5, a block keeps one 64-point
-// operand tile in shared memory, streams each layer's weights from L2 in
-// 32-row chunks through tensor cores (wmma bf16, f32 accumulators), and
-// stages the per-point intermediates (sigmoids, the gradient chain, the
-// Hessian term) in a workspace in device memory, read back only by the
-// block that wrote them.  Weight gradients: one product per layer over all
+// products), against ~160 and ~1,340 bytes a point in and out.  K2, as K4,
+// keeps one 64-point operand tile in shared memory and streams each
+// layer's weights from L2 in 32-row chunks through tensor cores (wmma
+// bf16, f32 accumulators).  K3 runs K5's per-point pass (sdf_bwd_pipe.cuh:
+// a cp.async weight ring, mma.sync with register epilogues, A operands
+// kept in shared memory), which is bound by the intermediates it stages
+// in the workspace (sigmoids, the gradient chain, the Hessian term, the
+// bf16 operands of the weight gradients), read back only by the block
+// that wrote them.  Weight gradients: one product per layer over all
 // points, split over K and reduced in a fixed order, so run to run the
 // result is the same (the Pallas kernel summed them over a sequential
 // grid).
 
-#include "sdf_train.cuh"
+#include "sdf_bwd_pipe.cuh"
 
 namespace fmov_train {
 namespace {
@@ -63,31 +65,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     sdf_bwd_flat_kernel(const __grid_constant__ BwdArgs a) {
   const SdfArgs& s = a.s;
   extern __shared__ __align__(128) unsigned char smem[];
-  const SdfSmem m = sdf_smem_carve(s, smem);
-  size_t off = m.off;
-  float* DIN = reinterpret_cast<float*>(smem + off);
-  off += align128((size_t)TILE_M * s.pe_pad * 4);
-  float* XEB = reinterpret_cast<float*>(smem + off);
-  off += align128((size_t)TILE_M * s.pe_pad * 4);
-  float* DBACC = reinterpret_cast<float*>(smem + off);
-  off += align128((size_t)a.n_bias * 4);
-  float* CBACC = reinterpret_cast<float*>(smem + off);
-
-  const int ncb = s.L[s.n_lin - 2].np;
-  for (int i = threadIdx.x; i < a.n_bias; i += THREADS) DBACC[i] = 0.f;
-  for (int i = threadIdx.x; i < ncb; i += THREADS) CBACC[i] = 0.f;
+  const BwdSmem m = bwd_smem_carve(a, smem);
+  const float* XEB = m.XEB;
+  WRing R = bwd_block_start(a, m);
 
   const int n_tiles = s.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M;
-    sdf_bwd_tile(a, row0, m, DIN, XEB, DBACC, CBACC);
+    sdf_bwd_tile(a, row0, m, R);
     for (int i = threadIdx.x; i < TILE_M * s.pe_dim; i += THREADS) {
       const int r = i / s.pe_dim, c = i % s.pe_dim;
       const int gr = row0 + r;
       if (gr < s.M) a.xbar[(size_t)gr * s.pe_dim + c] = XEB[r * s.pe_pad + c];
     }
   }
-  sdf_bwd_store_sums(a, DBACC, CBACC);
+  bwd_block_end(a, m);
 }
 
 }  // namespace
@@ -128,7 +120,7 @@ int fmov_sdf_fwd_grad_flat(const float* xe, int M, int M_pad, float scale,
   return (int)cudaGetLastError();
 }
 
-// K3.  ptrs: the workspace table of sdf_bwd_launch (sdf_train.cuh).  dw:
+// K3.  ptrs: the workspace table of sdf_bwd_launch (sdf_bwd_pipe.cuh).  dw:
 // the padded per-layer [in_w x np] blocks, concatenated; db: the padded
 // biases.  Returns a cudaError_t (0 = launched).
 int fmov_sdf_bwd_flat(const float* xe, const float* ybar, const float* gbar,

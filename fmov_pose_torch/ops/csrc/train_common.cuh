@@ -1,5 +1,6 @@
-// Shared pieces of the fused training kernels for Hopper (sm_90a): K4
-// (sdf_fwd_grad.cu), K5 (sdf_bwd.cu), K8 and K9 (color_ray.cu).
+// Shared pieces of the fused training kernels for Hopper (sm_90a): K2-K9
+// (K3's and K5's per-point pass has its own product loop,
+// sdf_bwd_pipe.cuh; their weight gradients use atb_kernel here).
 //
 // Arithmetic contract (the TPU kernels'): every product rounds both
 // operands to bf16 and accumulates in f32; everything else is f32.

@@ -677,26 +677,38 @@ def _fwd_workspace(pk: RaysPack, M_pad: int, dev) -> packing.Workspace:
     return ws_
 
 
+def bwd_workspace_specs(table, M_pad: int, G: int, KS: int, dw_elems: int):
+    """K5/K3's per-point arrays and partial sums, in the order of
+    ``sdf_bwd_launch``'s pointer table (csrc/sdf_bwd_pipe.cuh): the bf16
+    operands of the weight-gradient product row-major, the f32 arrays
+    SIG, DS and ZC in the per-point pass's fragment order (each 64-row
+    tile of a [M_pad, W] array one row of 64 W values, ``frag4``).
+    Returns ([(name, rows, width, dtype)], n_bias)."""
+    t = np.asarray(table).tolist()
+    n_lin = len(t)
+    tiles = M_pad // packing.TILE_M
+    specs = [(f"AB{l}", 2 * M_pad, t[l][0], torch.bfloat16) for l in range(n_lin)]
+    specs += [(f"BB{l}", 2 * M_pad, t[l][1], torch.bfloat16) for l in range(n_lin)]
+    specs += [(f"SIG{l}", tiles, packing.TILE_M * t[l][1], torch.float32)
+              for l in range(n_lin - 1)]
+    specs += [(f"DS{l}", tiles, packing.TILE_M * t[l - 1][1], torch.float32)
+              for l in range(1, n_lin - 1)]
+    specs += [(f"ZC{l}", tiles, packing.TILE_M * t[l][1], torch.float32)
+              for l in range(n_lin - 1)]
+    n_bias = sum(row[1] for row in t)
+    specs += [("DBPART", G, n_bias, torch.float32), ("CBPART", G, t[-2][1], torch.float32),
+              ("DWPART", KS, dw_elems, torch.float32)]
+    return specs, n_bias
+
+
 def _bwd_workspace(pk: RaysPack, M_pad: int, G: int, KS: int, dev):
-    """K5/K3's per-point arrays and partial sums (``sdf_bwd_launch``'s
-    table in csrc/sdf_train.cuh); returns (workspace, n_bias)."""
-    t = pk.table
-    n_lin = pk.n_lin
+    """K5/K3's workspace (``bwd_workspace_specs``), allocated; returns
+    (workspace, n_bias)."""
+    specs, n_bias = bwd_workspace_specs(pk.table, M_pad, G, KS,
+                                        packing.dw_elems(pk.meta))
     ws_ = packing.Workspace()
-    for l in range(n_lin):
-        ws_.add(f"AB{l}", 2 * M_pad, t[l, 0], torch.bfloat16)
-    for l in range(n_lin):
-        ws_.add(f"BB{l}", 2 * M_pad, t[l, 1], torch.bfloat16)
-    for l in range(n_lin - 1):
-        ws_.add(f"SIG{l}", M_pad, t[l, 1], torch.float32)
-    for l in range(1, n_lin - 1):
-        ws_.add(f"DS{l}", M_pad, t[l - 1, 1], torch.float32)
-    for l in range(n_lin - 1):
-        ws_.add(f"ZC{l}", M_pad, t[l, 1], torch.float32)
-    n_bias = int(t[:, 1].sum())
-    ws_.add("DBPART", G, n_bias, torch.float32)
-    ws_.add("CBPART", G, t[-2, 1], torch.float32)
-    ws_.add("DWPART", KS, packing.dw_elems(pk.meta), torch.float32)
+    for spec in specs:
+        ws_.add(*spec)
     ws_.allocate(dev)
     return ws_, n_bias
 
