@@ -11,24 +11,24 @@ Phases, each printing lines as it ends:
                  each, all started together (K1 sdf_fwd.cu, K2/K3
                  sdf_flat.cu, K4 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K6/K7
                  color_sample.cu, K8/K9 color_ray.cu), and print ptxas's
-                 registers and spills (by name for K5's and K3's per-point
-                 kernels)
+                 registers and spills (by name for the four per-point SDF
+                 kernels, K4's, K2's, K5's and K3's)
   3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
                  against its plain PyTorch version at the full width of
                  confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
   4. train-kernels -- K4, K5, K8 and K9 through their entries against their
                  plain versions at the full width of
                  confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
-                 3 x 128 (ragged), K5 also against itself: two launches on
-                 the same inputs bitwise equal; CUDA-event times of the
-                 entry, the kernel alone and the plain version
+                 3 x 128 (ragged), K4 and K5 also against themselves: two
+                 launches on the same inputs bitwise equal; CUDA-event
+                 times of the entry, the kernel alone and the plain version
   5. flat-kernels -- K2 and K3 through their entry sdf_apply_grad_fused
                  (forward and every gradient leaf, x included) against the
                  same entry on CPU copies (the plain versions) at the full
                  width of confs/ho3d_virtual_tpu_fast.conf, M = 1,024 x 32
-                 and a ragged 1,000, K3 also bitwise equal over two launches;
-                 CUDA-event times of the wrapper, the kernel alone and the
-                 plain version
+                 and a ragged 1,000, K2 and K3 also bitwise equal over two
+                 launches; CUDA-event times of the wrapper, the kernel alone
+                 and the plain version
   6. color-kernels -- K6 and K7 through their entry color_fused (forward
                  and every gradient leaf, xc included) against the same
                  entry on CPU copies (the plain versions) at the full width
@@ -161,16 +161,17 @@ def phase_build():
         regs = [l.strip() for l in info["log"].splitlines()
                 if "registers" in l or "spill" in l]
         per_point = {k: v for k, v in _ptxas_entries(info["log"]).items()
-                     if k in PER_POINT_BWD}
+                     if k in PER_POINT}
         _line("build", kernel=name, nvcc_seconds=f"{info['seconds']:.2f}",
               ptxas=repr(" | ".join(regs)),
               **{k: json.dumps(v).replace(" ", "") for k, v in per_point.items()})
     _line("build", all_seconds=f"{total:.2f}")
 
 
-# K5's and K3's per-point kernels, whose registers and spills the build
-# line names
-PER_POINT_BWD = ("sdf_bwd_kernel", "sdf_bwd_flat_kernel")
+# the per-point SDF kernels (K4, K2, K5, K3), whose registers and spills
+# the build line names
+PER_POINT = ("sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel", "sdf_bwd_kernel",
+             "sdf_bwd_flat_kernel")
 
 
 def _kernel_name(mangled):
@@ -464,6 +465,8 @@ def phase_train_kernels(dev):
                         "max_abs": max(float((out - ro).abs().max()), g["max_abs"]),
                         "ok": e["ok"] and g["ok"] and bool(torch.equal(sdf, out[:, 0]))}
 
+            _same_twice("train-kernels", "sdf_fwd_grad", M,
+                        lambda: fused_sdf.launch_fwd_grad(pk, x))
             out, _, grad = report(
                 "sdf_fwd_grad", B, N, k4_err,
                 f"out:K1_rule;grad:{ROW_TOL};sdf==out[:,0]",
@@ -558,6 +561,8 @@ def phase_flat_kernels(dev):
         xe, jac, _, dims = fused_sdf.pe_parts(x * cfg["scale"], cfg["multires"])
         ybar = torch.cat([ct_out[:, :1] / cfg["scale"], ct_out[:, 1:]], -1)
         gbar = ct_grad[:, dims] * jac
+        _same_twice("flat-kernels", "sdf_fwd_grad_flat", M,
+                    lambda: fused_sdf.launch_fwd_grad_flat(pk, xe))
         _same_twice("flat-kernels", "sdf_bwd_flat", M,
                     lambda: fused_sdf.launch_bwd_flat(pk, xe, ybar, gbar))
         times = {

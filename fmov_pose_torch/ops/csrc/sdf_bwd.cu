@@ -24,7 +24,7 @@
 // reduced with the per-block bias sums by reduce_kernel
 // (train_common.cuh).  Three launches.
 //
-// The per-point pass (steps 1-4) is sdf_bwd_tile (sdf_bwd_pipe.cuh): the
+// The per-point pass (steps 1-4) is sdf_bwd_tile (sdf_pipe.cuh): the
 // weights stream through a cp.async ring across products and tiles, the
 // products run on mma.sync with their epilogues in registers, each
 // product's A operand stays in shared memory (ping-pong), and the f32
@@ -40,7 +40,7 @@
 // once more.  Determinism: one block per SM with fixed tiles, column sums
 // in fixed order, split-K partials reduced in order.
 
-#include "sdf_bwd_pipe.cuh"
+#include "sdf_pipe.cuh"
 
 namespace fmov_train {
 namespace {
@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const BwdSmem m = bwd_smem_carve(a, smem);
   const float* DIN = m.DIN;
   const float* XEB = m.XEB;
-  WRing R = bwd_block_start(a, m);
+  WRing<BwdSeq> R = bwd_block_start(a, m);
 
   const int n_tiles = s.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -88,7 +88,7 @@ using namespace fmov_train;
 
 extern "C" {
 
-// ptrs: the workspace table of sdf_bwd_launch (sdf_bwd_pipe.cuh).  dw: the
+// ptrs: the workspace table of sdf_bwd_launch (sdf_pipe.cuh).  dw: the
 // padded per-layer [in_w x np] blocks, concatenated; db: the padded
 // biases.  Returns a cudaError_t (0 = launched).
 int fmov_sdf_bwd(const float* x, const float* ct_out, const float* ct_sdf,

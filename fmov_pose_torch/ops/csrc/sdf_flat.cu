@@ -10,8 +10,8 @@
 // every argument, and computes the positional encoding and its
 // derivatives around the kernels, as the JAX entries do.
 //
-// They are K4 and K5 with other input and output stages (one kernel body
-// for two Pallas kernels of the same math; sdf_train.cuh):
+// They are K4 and K5 with other input and output stages (one tile each
+// for two Pallas kernels of the same math, sdf_pipe.cuh):
 //   K2: xe [M x pe_dim] in, its rows loaded where K4 runs the encoding;
 //       out [M x n_out] = [z0 / scale, z1..] and d_inputs [M x pe_dim] (the
 //       reverse chain's cotangent of xe, before the encoding's Jacobian)
@@ -24,20 +24,18 @@
 //
 // What bounds them: at 8x256, ~2.0 MFLOP of bf16 products a point for K2
 // and ~5.8 for K3 (forward, chain, Phase A and B, and the weight-gradient
-// products), against ~160 and ~1,340 bytes a point in and out.  K2, as K4,
-// keeps one 64-point operand tile in shared memory and streams each
-// layer's weights from L2 in 32-row chunks through tensor cores (wmma
-// bf16, f32 accumulators).  K3 runs K5's per-point pass (sdf_bwd_pipe.cuh:
-// a cp.async weight ring, mma.sync with register epilogues, A operands
-// kept in shared memory), which is bound by the intermediates it stages
-// in the workspace (sigmoids, the gradient chain, the Hessian term, the
-// bf16 operands of the weight gradients), read back only by the block
-// that wrote them.  Weight gradients: one product per layer over all
-// points, split over K and reduced in a fixed order, so run to run the
-// result is the same (the Pallas kernel summed them over a sequential
-// grid).
+// products), against ~160 and ~1,340 bytes a point in and out.  Both run
+// the per-point pipeline of sdf_pipe.cuh (a cp.async weight ring, mma.sync
+// with register epilogues, A operands kept in shared memory): K2 K4's
+// tile, which stages only the sigmoids in the workspace, and K3 K5's,
+// which is bound by the intermediates it stages there (sigmoids, the
+// gradient chain, the Hessian term, the bf16 operands of the weight
+// gradients), read back only by the block that wrote them.  Weight
+// gradients: one product per layer over all points, split over K and
+// reduced in a fixed order, so run to run the result is the same (the
+// Pallas kernel summed them over a sequential grid).
 
-#include "sdf_bwd_pipe.cuh"
+#include "sdf_pipe.cuh"
 
 namespace fmov_train {
 namespace {
@@ -46,19 +44,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     sdf_fwd_grad_flat_kernel(const __grid_constant__ SdfArgs s, float* out,
                              int n_out, float* d_inputs) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const SdfSmem m = sdf_smem_carve(s, smem);
-  float* DIN = reinterpret_cast<float*>(smem + m.off);
+  const FwdSmem m = fwd_smem_carve(s, smem);
+  const float* DIN = m.DIN;
+  WRing<FwdSeq> R = ring_start<FwdSeq>(s, m.ring);
 
   const int n_tiles = s.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M;
-    sdf_fwd_grad_tile(s, row0, m, DIN, out, n_out, nullptr);
+    sdf_fwd_grad_tile(s, row0, m, R, out, n_out, nullptr);
     for (int i = threadIdx.x; i < TILE_M * s.pe_dim; i += THREADS) {
       const int r = i / s.pe_dim, c = i % s.pe_dim;
       const int gr = row0 + r;
       if (gr < s.M) d_inputs[(size_t)gr * s.pe_dim + c] = DIN[r * s.pe_pad + c];
     }
   }
+  cp_async_wait<0>();
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   extern __shared__ __align__(128) unsigned char smem[];
   const BwdSmem m = bwd_smem_carve(a, smem);
   const float* XEB = m.XEB;
-  WRing R = bwd_block_start(a, m);
+  WRing<BwdSeq> R = bwd_block_start(a, m);
 
   const int n_tiles = s.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -89,8 +89,8 @@ using namespace fmov_train;
 
 extern "C" {
 
-// K2.  ptrs: X_0..X_{L-1}, D_0..D_{L-2}, SIG_0..SIG_{L-2} (fused_sdf.py
-// launch_fwd_grad_flat).  Returns a cudaError_t (0 = launched).
+// K2.  ptrs: SIG_0..SIG_{L-2} (fused_sdf.py fwd_workspace_specs).  Returns
+// a cudaError_t (0 = launched).
 int fmov_sdf_fwd_grad_flat(const float* xe, int M, int M_pad, float scale,
                            const void* w, const float* bias, const float* wlast,
                            const int* meta, int n_lin, int skip, int multires,
@@ -106,21 +106,11 @@ int fmov_sdf_fwd_grad_flat(const float* xe, int M, int M_pad, float scale,
   s.w = static_cast<const bf16*>(w);
   s.bias = bias;
   s.wlast = wlast;
-  int p = 0;
-  for (int l = 0; l < n_lin; ++l) s.X[l] = reinterpret_cast<bf16*>(ptrs[p++]);
-  for (int l = 0; l < n_lin - 1; ++l) s.D[l] = reinterpret_cast<bf16*>(ptrs[p++]);
-  for (int l = 0; l < n_lin - 1; ++l) s.SIG[l] = reinterpret_cast<float*>(ptrs[p++]);
-  const size_t smem = sdf_smem(s, (size_t)TILE_M * s.pe_pad * 4);
-  cudaError_t ce = cudaFuncSetAttribute(
-      sdf_fwd_grad_flat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (ce != cudaSuccess) return (int)ce;
-  if (M <= 0) return 0;
-  sdf_fwd_grad_flat_kernel<<<G, THREADS, smem, (cudaStream_t)stream>>>(
-      s, out, n_out, d_inputs);
-  return (int)cudaGetLastError();
+  return sdf_fwd_launch(sdf_fwd_grad_flat_kernel, s, ptrs, G, (cudaStream_t)stream,
+                        out, n_out, d_inputs);
 }
 
-// K3.  ptrs: the workspace table of sdf_bwd_launch (sdf_bwd_pipe.cuh).  dw:
+// K3.  ptrs: the workspace table of sdf_bwd_launch (sdf_pipe.cuh).  dw:
 // the padded per-layer [in_w x np] blocks, concatenated; db: the padded
 // biases.  Returns a cudaError_t (0 = launched).
 int fmov_sdf_bwd_flat(const float* xe, const float* ybar, const float* gbar,

@@ -8,16 +8,21 @@
 // skip concat / sqrt2), out = [z0 / scale, z1..] of the last layer, then
 // the reverse chain of d(sdf)/dx through the hidden layers and the PE
 // Jacobian (scale cancels: the gradient is with respect to raw x).  The
-// notation and the shared layers are in sdf_train.cuh.
+// notation is in sdf_train.cuh.
 //
-// What bounds it: ~2.2 MFLOP of bf16 products per point at 8x256 against
-// 12 bytes in and 1,044 out, so the products bound it.  The sigmoids of 8
-// layers (8 KB a point in f32) do not fit in shared memory beside the
-// operand tile, so they go to the workspace in device memory and come
-// back in the reverse chain; the weights stream from L2 per layer, as in
-// K1.  One block per SM loops over tiles.
+// The tile is sdf_fwd_grad_tile (sdf_pipe.cuh), shared with K2: the
+// weights of its 17 products (at 8x256) stream through a cp.async ring
+// across products and tiles, the products run on mma.sync with their
+// epilogues in registers, and each product's A operand stays in shared
+// memory (ping-pong).  What bounds it: ~2.2 MFLOP of bf16 products per
+// point at 8x256 against 12 bytes in and 1,044 out, so the products would;
+// what sets the time is the weight stream from L2 (~2.2 MB a tile) and the
+// epilogues.  The sigmoids of 8 layers (8 KB a point in f32) do not fit in
+// shared memory beside the A operands and the ring, so they go to the
+// workspace in fragment order and come back in the reverse chain.  One
+// block per SM loops over tiles.
 
-#include "sdf_train.cuh"
+#include "sdf_pipe.cuh"
 
 namespace fmov_train {
 namespace {
@@ -26,13 +31,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     sdf_fwd_grad_kernel(const __grid_constant__ SdfArgs s, float* out,
                         int n_out, float* sdf, float* grad) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const SdfSmem m = sdf_smem_carve(s, smem);
-  float* DIN = reinterpret_cast<float*>(smem + m.off);
+  const FwdSmem m = fwd_smem_carve(s, smem);
+  const float* DIN = m.DIN;
+  WRing<FwdSeq> R = ring_start<FwdSeq>(s, m.ring);
 
   const int n_tiles = s.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M;
-    sdf_fwd_grad_tile(s, row0, m, DIN, out, n_out, sdf);
+    sdf_fwd_grad_tile(s, row0, m, R, out, n_out, sdf);
 
     // grad[d] = sum over the PE columns c of dim d of DIN[c] PE'(c)
     for (int i = threadIdx.x; i < TILE_M * 3; i += THREADS) {
@@ -52,6 +58,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       grad[(size_t)gr * 3 + d] = g;
     }
   }
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -61,8 +68,8 @@ using namespace fmov_train;
 
 extern "C" {
 
-// ptrs: X_0..X_{L-1}, D_0..D_{L-2}, SIG_0..SIG_{L-2} (fused_sdf.py
-// launch_fwd_grad).  Returns a cudaError_t (0 = launched).
+// ptrs: SIG_0..SIG_{L-2} (fused_sdf.py fwd_workspace_specs).  Returns a
+// cudaError_t (0 = launched).
 int fmov_sdf_fwd_grad(const float* x, int M, int M_pad, float scale,
                       const void* w, const float* bias, const float* wlast,
                       const int* meta, int n_lin, int skip, int multires,
@@ -78,18 +85,8 @@ int fmov_sdf_fwd_grad(const float* x, int M, int M_pad, float scale,
   s.w = static_cast<const bf16*>(w);
   s.bias = bias;
   s.wlast = wlast;
-  int p = 0;
-  for (int l = 0; l < n_lin; ++l) s.X[l] = reinterpret_cast<bf16*>(ptrs[p++]);
-  for (int l = 0; l < n_lin - 1; ++l) s.D[l] = reinterpret_cast<bf16*>(ptrs[p++]);
-  for (int l = 0; l < n_lin - 1; ++l) s.SIG[l] = reinterpret_cast<float*>(ptrs[p++]);
-  const size_t smem = sdf_smem(s, (size_t)TILE_M * s.pe_pad * 4);
-  cudaError_t ce = cudaFuncSetAttribute(
-      sdf_fwd_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (ce != cudaSuccess) return (int)ce;
-  if (M <= 0) return 0;
-  sdf_fwd_grad_kernel<<<G, THREADS, smem, (cudaStream_t)stream>>>(s, out, n_out,
-                                                                  sdf, grad);
-  return (int)cudaGetLastError();
+  return sdf_fwd_launch(sdf_fwd_grad_kernel, s, ptrs, G, (cudaStream_t)stream, out,
+                        n_out, sdf, grad);
 }
 
 }  // extern "C"

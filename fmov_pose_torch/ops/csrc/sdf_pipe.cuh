@@ -1,17 +1,21 @@
-// The per-point pass of the second-order SDF backward, K5 (sdf_bwd.cu)
-// and K3 (sdf_flat.cu): sdf_bwd_tile and its launch.
+// The per-point pipeline of the SDF training kernels: K4 (sdf_fwd_grad.cu)
+// and K2 (sdf_flat.cu), the forward with its gradient chain, run
+// sdf_fwd_grad_tile; K5 (sdf_bwd.cu) and K3 (sdf_flat.cu), the second-order
+// backward, run sdf_bwd_tile.
 //
 // A block of 8 warps owns a 64-point tile at a time and runs the tile's
-// fixed sequence of products A [64 x K] @ W [K x N] (bwd_product): the
-// forward to layer L-2, the reverse chain, Phase A and Phase B, 4 L - 3
-// products at L linears (33 at 8x256).  Three parts:
+// fixed sequence of products A [64 x K] @ W [K x N] (FwdSeq: the forward,
+// the last layer included, and the reverse chain, 2 L - 1 products at L
+// linears, 17 at 8x256; BwdSeq: the forward to layer L-2, the reverse
+// chain, Phase A and Phase B, 4 L - 3 products, 33 at 8x256).  Three
+// parts:
 //   * The weight ring.  The weights of that sequence are the same for
 //     every tile, so they stream through a ring of RING chunk buffers
 //     [KCHUNK x ldb] in shared memory with cp.async 16-byte copies, RING -
 //     1 chunks ahead of the tensor cores, one barrier per chunk.  The ring
 //     runs on across products and tiles: the next product's first chunks
-//     are in flight during an epilogue, the next tile's during the xbar /
-//     xebar stage.  Rows keep the SKEW pad, so ldmatrix is conflict-free.
+//     are in flight during an epilogue, the next tile's during the output
+//     stage.  Rows keep the SKEW pad, so ldmatrix is conflict-free.
 //   * Register epilogues.  Products run on mma.sync m16n8k16 (bf16 in,
 //     f32 accumulators; ldmatrix for A, ldmatrix.trans for the row-major
 //     chunk).  Warp w owns the column tiles w, w + 8, w + 16 of every
@@ -24,13 +28,16 @@
 //     Column sums: per lane, then shuffles, in a fixed order.
 //   * A operands on chip.  Product p reads its A from A + (p % 2) in shared
 //     memory, written by the epilogue of product p - 1 (or the encoding and
-//     ybar stages), which also writes the bf16 operands of the
-//     weight-gradient product (X, D, FB, ZB) row-major to the workspace.
+//     ybar stages).  The backward's layers also write the bf16 operands of
+//     its weight-gradient product (X, D, FB, ZB) row-major to the
+//     workspace; the forward's write only SIG there.
 //
-// What bounds it now (NVIDIA H100 80GB HBM3, PERF.md): the workspace
-// traffic of the epilogues (~5 GB of f32 and bf16 per-point arrays at M =
-// 65,536, 8x256), during which the tensor cores idle, and the weight
-// stream from L2 (~4 MB a tile); the products themselves are a small part.
+// What bounds them now (NVIDIA H100 80GB HBM3, PERF.md): for K5/K3 the
+// workspace traffic of the epilogues (~5 GB of f32 and bf16 per-point
+// arrays at M = 65,536, 8x256), during which the tensor cores idle, and the
+// weight stream from L2 (~4 MB a tile); for K4/K2 the weight stream (~2.2
+// MB a tile) and the epilogues (SIG, 0.53 GB at M = 65,536, and the f32
+// rows of out); the products themselves are a small part.
 
 #pragma once
 
@@ -55,36 +62,62 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Product p of a tile's sequence: the weight block (offset, K, N) it
-// streams.  p < L-1: forward l = p; then the reverse chain l = L-2..0;
-// Phase A l = 0..L-2; Phase B l = L-1..0.
-__device__ __forceinline__ void bwd_product(const SdfArgs& s, int p, int& off,
-                                            int& K, int& N) {
-  const int L1 = s.n_lin - 1;
-  int l;
-  bool rev;
-  if (p < L1) {
-    l = p;
-    rev = false;
-  } else if (p < 2 * L1) {
-    l = 2 * L1 - 1 - p;
-    rev = true;
-  } else if (p < 3 * L1) {
-    l = p - 2 * L1;
-    rev = false;
-  } else {
-    l = 4 * L1 - p;
-    rev = true;
+// The product sequences of a tile: product p's weight block (offset, K,
+// N).  The ring issues them in this order and the tile consumes them in
+// the same order, product for product and chunk for chunk.  kOperands:
+// the layers also store the weight-gradient product's operands (X_l, D_l,
+// DS_l) in the workspace, which only the backward needs (a compile-time
+// flag: the backward kernels sit at the register limit).
+//
+// K5/K3: p < L-1: forward l = p; then the reverse chain l = L-2..0; Phase
+// A l = 0..L-2; Phase B l = L-1..0.
+struct BwdSeq {
+  static constexpr bool kOperands = true;
+  static __device__ __forceinline__ int count(const SdfArgs& s) { return 4 * s.n_lin - 3; }
+  static __device__ __forceinline__ void product(const SdfArgs& s, int p, int& off,
+                                                 int& K, int& N) {
+    const int L1 = s.n_lin - 1;
+    int l;
+    bool rev;
+    if (p < L1) {
+      l = p;
+      rev = false;
+    } else if (p < 2 * L1) {
+      l = 2 * L1 - 1 - p;
+      rev = true;
+    } else if (p < 3 * L1) {
+      l = p - 2 * L1;
+      rev = false;
+    } else {
+      l = 4 * L1 - p;
+      rev = true;
+    }
+    const Layer& Ly = s.L[l];
+    off = rev ? Ly.r_off : Ly.w_off;
+    K = rev ? Ly.kr : Ly.kp;
+    N = rev ? Ly.kp : Ly.np;
   }
-  const Layer& Ly = s.L[l];
-  off = rev ? Ly.r_off : Ly.w_off;
-  K = rev ? Ly.kr : Ly.kp;
-  N = rev ? Ly.kp : Ly.np;
-}
+};
 
-// The weight ring of one block.  Every thread keeps the same cursors: the
-// next chunk to issue (product ip, chunk ic, block-local tile it) and the
-// slots to issue into and consume from.
+// K4/K2: p < L: forward l = p, the last layer included; then the reverse
+// chain l = L-2..0.
+struct FwdSeq {
+  static constexpr bool kOperands = false;
+  static __device__ __forceinline__ int count(const SdfArgs& s) { return 2 * s.n_lin - 1; }
+  static __device__ __forceinline__ void product(const SdfArgs& s, int p, int& off,
+                                                 int& K, int& N) {
+    const bool rev = p >= s.n_lin;
+    const Layer& Ly = s.L[rev ? 2 * s.n_lin - 2 - p : p];
+    off = rev ? Ly.r_off : Ly.w_off;
+    K = rev ? Ly.kr : Ly.kp;
+    N = rev ? Ly.kp : Ly.np;
+  }
+};
+
+// The weight ring of one block over the sequence Seq.  Every thread keeps
+// the same cursors: the next chunk to issue (product ip, chunk ic,
+// block-local tile it) and the slots to issue into and consume from.
+template <class Seq>
 struct WRing {
   bf16* buf;  // RING x [KCHUNK x ldb]
   int ldb, n_prod, n_tiles;
@@ -94,10 +127,11 @@ struct WRing {
 // Issues the next chunk of the sequence into its slot (every thread its
 // share of 16-byte copies) and commits a group, empty past the block's
 // last tile.
-__device__ __forceinline__ void ring_issue(const SdfArgs& s, WRing& R) {
+template <class Seq>
+__device__ __forceinline__ void ring_issue(const SdfArgs& s, WRing<Seq>& R) {
   if (R.it < R.n_tiles) {
     int off, K, N;
-    bwd_product(s, R.ip, off, K, N);
+    Seq::product(s, R.ip, off, K, N);
     const bf16* src = s.w + off + (size_t)R.ic * KCHUNK * N;
     bf16* dst = R.buf + R.islot * (KCHUNK * R.ldb);
     const int vpr = N >> 3;
@@ -117,13 +151,16 @@ __device__ __forceinline__ void ring_issue(const SdfArgs& s, WRing& R) {
   cp_async_commit();
 }
 
-// The ring at the start of a block: RING - 1 chunks in flight.
-__device__ __forceinline__ WRing ring_start(const SdfArgs& s, bf16* buf, int n_tiles) {
-  WRing R;
+// The ring at the start of a block, over the block's tiles (blockIdx.x,
+// + gridDim.x, ...): RING - 1 chunks in flight.
+template <class Seq>
+__device__ __forceinline__ WRing<Seq> ring_start(const SdfArgs& s, bf16* buf) {
+  const int n_tiles = s.M_pad / TILE_M;
+  WRing<Seq> R;
   R.buf = buf;
   R.ldb = s.ldb;
-  R.n_prod = 4 * s.n_lin - 3;
-  R.n_tiles = n_tiles;
+  R.n_prod = Seq::count(s);
+  R.n_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   R.ip = R.ic = R.it = R.islot = R.cslot = 0;
   for (int i = 0; i < RING - 1; ++i) ring_issue(s, R);
   return R;
@@ -196,8 +233,8 @@ __device__ __forceinline__ void st_bf16x2(bf16* p, float a, float b) {
 // one barrier (the chunk visible to all, the slot consumed before free),
 // issue the chunk RING - 1 ahead, multiply.  The first barrier comes
 // before any product, so the block may still be writing A on entry.
-template <class Pre, class Epi>
-__device__ __forceinline__ void pipe_gemm(const SdfArgs& s, WRing& R, const bf16* A,
+template <class Seq, class Pre, class Epi>
+__device__ __forceinline__ void pipe_gemm(const SdfArgs& s, WRing<Seq>& R, const bf16* A,
                                           int lda, int K, int N, float* colsum,
                                           int colsum_n, Pre pre, Epi epi) {
   const int warp = threadIdx.x >> 5;
@@ -347,14 +384,13 @@ __device__ __forceinline__ BwdSmem bwd_smem_carve(const BwdArgs& a,
 }
 
 // The block's start: zeroed sums and the ring's first chunks in flight.
-__device__ __forceinline__ WRing bwd_block_start(const BwdArgs& a, const BwdSmem& m) {
+__device__ __forceinline__ WRing<BwdSeq> bwd_block_start(const BwdArgs& a,
+                                                         const BwdSmem& m) {
   const SdfArgs& s = a.s;
   const int ncb = s.L[s.n_lin - 2].np;
   for (int i = threadIdx.x; i < a.n_bias; i += THREADS) m.DBACC[i] = 0.f;
   for (int i = threadIdx.x; i < ncb; i += THREADS) m.CBACC[i] = 0.f;
-  const int n_tiles = s.M_pad / TILE_M;
-  const int mine = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  return ring_start(s, m.ring, mine);
+  return ring_start<BwdSeq>(s, m.ring);
 }
 
 // Completes the next product's A operand An [TILE_M x K] after an
@@ -470,18 +506,22 @@ __device__ __forceinline__ void st_frag_bf16(bf16* P, size_t ld, const Frag& f,
   st_bf16x2(P + (f.r + 8) * ld + f.n, v2, v3);
 }
 
-// Forward layer l < L-1: z = X_l W_l + b_l (A = X_l); stores sig_l and
-// X_{l+1} (into An and the workspace), or at l = L-2 X_{L-1} (workspace
-// only) and D_{L-2} = bf16(wlast sig) (An and the workspace).
-__device__ __forceinline__ void bwd_forward_layer(const SdfArgs& s, int l, int row0,
-                                                  const bf16* A, bf16* An, WRing& R) {
+// Forward layer l < L-1: z = X_l W_l + b_l (A = X_l); stores sig_l (in
+// fragment order) and X_{l+1} into An.  With Seq::kOperands (the
+// backward), X_{l+1} also goes to the workspace, and at l = L-2, which
+// has no last-layer product after it, D_{L-2} = bf16(wlast sig) takes
+// X_{L-1}'s place in An (and goes to the workspace).
+template <class Seq>
+__device__ __forceinline__ void forward_layer(const SdfArgs& s, int l, int row0,
+                                              const bf16* A, bf16* An, WRing<Seq>& R) {
+  constexpr bool ops = Seq::kOperands;
   const Layer& Ly = s.L[l];
   const float* b = s.bias + Ly.b_off;
-  const bool pre_last = l == s.n_lin - 2;
+  const bool pre_last = ops && l == s.n_lin - 2;
   const float cx = l + 1 == s.skip ? INV_SQRT2 : 1.f;
   const int kp_next = s.L[l + 1].kp;
-  bf16* X = s.X[l + 1] + (size_t)row0 * kp_next;
-  bf16* D = s.D[l] + (size_t)row0 * Ly.np;
+  bf16* X = ops ? s.X[l + 1] + (size_t)row0 * kp_next : nullptr;
+  bf16* D = ops ? s.D[l] + (size_t)row0 * Ly.np : nullptr;
   pipe_gemm(s, R, A, s.lda, Ly.kp, Ly.np, nullptr, 0,
             [&](const Frag& f) {
               In2 in;
@@ -499,7 +539,8 @@ __device__ __forceinline__ void bwd_forward_layer(const SdfArgs& s, int l, int r
               act_pair(v[2] + in.a.x, sp[2], sig[2]);
               act_pair(v[3] + in.a.y, sp[3], sig[3]);
               *frag4(s.SIG[l], Ly.np, row0, f) = make_float4(sig[0], sig[1], sig[2], sig[3]);
-              st_frag_bf16(X, kp_next, f, sp[0] * cx, sp[1] * cx, sp[2] * cx, sp[3] * cx);
+              if (ops)
+                st_frag_bf16(X, kp_next, f, sp[0] * cx, sp[1] * cx, sp[2] * cx, sp[3] * cx);
               if (pre_last) {
                 const float w0 = in.a.z, w1 = in.a.w;
                 const float d[4] = {w0 * sig[0], w1 * sig[1], w0 * sig[2], w1 * sig[3]};
@@ -512,11 +553,14 @@ __device__ __forceinline__ void bwd_forward_layer(const SdfArgs& s, int l, int r
 }
 
 // Reverse-chain layer l <= L-2: f = D_l W_l^T (A = D_l); the h part gives
-// d_l (kept in DS_l) and D_{l-1} = bf16(d_l sig_{l-1}) (An and the
-// workspace); the PE part (l == S or l == 0) is added to DIN.
-__device__ __forceinline__ void bwd_reverse_layer(const SdfArgs& s, int l, int row0,
-                                                  const bf16* A, bf16* An, float* DIN,
-                                                  WRing& R) {
+// d_l and D_{l-1} = bf16(d_l sig_{l-1}) into An (with Seq::kOperands also
+// d_l into DS_l and D_{l-1} into the workspace); the PE part (l == S or
+// l == 0) is added to DIN.
+template <class Seq>
+__device__ __forceinline__ void reverse_layer(const SdfArgs& s, int l, int row0,
+                                              const bf16* A, bf16* An, float* DIN,
+                                              WRing<Seq>& R) {
+  constexpr bool ops = Seq::kOperands;
   const Layer& Ly = s.L[l];
   const bool at_skip = l == s.skip;
   const int h_w = at_skip ? s.hoff : (l == 0 ? 0 : Ly.in_w);
@@ -524,7 +568,7 @@ __device__ __forceinline__ void bwd_reverse_layer(const SdfArgs& s, int l, int r
   const bool has_pe = at_skip || l == 0;
   const float c2 = at_skip ? INV_SQRT2 : 1.f;
   const int np_prev = l > 0 ? s.L[l - 1].np : 0;
-  bf16* D = l > 0 ? s.D[l - 1] + (size_t)row0 * np_prev : nullptr;
+  bf16* D = ops && l > 0 ? s.D[l - 1] + (size_t)row0 * np_prev : nullptr;
   pipe_gemm(s, R, A, s.lda, Ly.kr, Ly.kp, nullptr, 0,
             [&](const Frag& f) {
               float4 sg = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -534,9 +578,9 @@ __device__ __forceinline__ void bwd_reverse_layer(const SdfArgs& s, int l, int r
             [&](const Frag& f, float (&v)[4], const float4& sg) {
               if (f.n < h_w) {  // h_w is a multiple of 16: whole fragments
                 const float4 d = make_float4(v[0] * c2, v[1] * c2, v[2] * c2, v[3] * c2);
-                *frag4(s.DS[l], np_prev, row0, f) = d;
+                if (ops) *frag4(s.DS[l], np_prev, row0, f) = d;
                 const float e[4] = {d.x * sg.x, d.y * sg.y, d.z * sg.z, d.w * sg.w};
-                st_frag_bf16(D, np_prev, f, e[0], e[1], e[2], e[3]);
+                if (ops) st_frag_bf16(D, np_prev, f, e[0], e[1], e[2], e[3]);
                 st_frag_bf16(An, s.lda, f, e[0], e[1], e[2], e[3]);
               } else if (has_pe) {
                 add_pe(DIN, s.pe_pad, f, pe_off, v, c2);
@@ -545,7 +589,7 @@ __device__ __forceinline__ void bwd_reverse_layer(const SdfArgs& s, int l, int r
 }
 
 // Per tile (derivation in the JAX module at ops/fused_sdf.py:407-434), 4 L
-// - 3 products p in bwd_product's order, product p's A operand in
+// - 3 products p in BwdSeq's order, product p's A operand in
 // A + (p % 2), written by the epilogue (or stage) before it:
 //   1. the encoding stage, with gbar into FB_0 and FB_S;
 //   2. forward to layer L-2 (sig_l, X_l) and the reverse chain (d_l, D_l,
@@ -562,7 +606,7 @@ __device__ __forceinline__ void bwd_reverse_layer(const SdfArgs& s, int l, int r
 // product.  DIN and XEB hold the tile's d_inputs and xebar on return
 // (after a barrier).
 __device__ __forceinline__ void sdf_bwd_tile(const BwdArgs& a, int row0,
-                                             const BwdSmem& m, WRing& R) {
+                                             const BwdSmem& m, WRing<BwdSeq>& R) {
   const SdfArgs& s = a.s;
   const int last = s.n_lin - 1;
   const size_t a_elems = (size_t)TILE_M * s.lda;
@@ -572,7 +616,7 @@ __device__ __forceinline__ void sdf_bwd_tile(const BwdArgs& a, int row0,
   bwd_pe_stage(a, row0, m);
 
   for (int l = 0; l < last; ++l, ++p) {
-    bwd_forward_layer(s, l, row0, buf(p), buf(p + 1), R);
+    forward_layer(s, l, row0, buf(p), buf(p + 1), R);
     if (l + 1 == s.skip)
       finish_a(s, buf(p + 1), s.hoff, m.PES, s.L[l + 1].kp);
     else if (l + 1 < last)
@@ -581,7 +625,7 @@ __device__ __forceinline__ void sdf_bwd_tile(const BwdArgs& a, int row0,
       finish_a(s, buf(p + 1), s.L[l].np, nullptr, s.L[l].kr);  // D_{L-2}
   }
   for (int l = last - 1; l >= 0; --l, ++p) {
-    bwd_reverse_layer(s, l, row0, buf(p), buf(p + 1), m.DIN, R);
+    reverse_layer(s, l, row0, buf(p), buf(p + 1), m.DIN, R);
     if (l > 0)
       finish_a(s, buf(p + 1), s.L[l - 1].np, nullptr, s.L[l - 1].kr);
     else
@@ -797,6 +841,200 @@ inline int sdf_bwd_launch(Kernel kernel, BwdArgs& a, int n_bias,
   const int cb_off = total - s.L[n_lin - 1].in_w * s.L[n_lin - 1].np;
   return weight_grads(t, dwpart, total, dw, a.dbpart, G, n_bias, db, a.cbpart,
                       ncb, cb_off, s.L[n_lin - 1].np, st);
+}
+
+// ---------------------------------------------------------------------------
+// The forward with its gradient chain (K4, K2)
+// ---------------------------------------------------------------------------
+
+// The shared memory of a forward block, in this order.
+struct FwdSmem {
+  bf16* A;     // 2 x [TILE_M x lda]: product p's A operand in A + (p % 2)
+  bf16* ring;  // RING x [KCHUNK x ldb]
+  float* DIN;  // [TILE_M x pe_pad]
+  bf16* PES;   // [TILE_M x pe_pad]: X_S's PE half, PE / sqrt2
+};
+
+inline size_t fwd_smem_bytes(const SdfArgs& s) {
+  return 2 * align128((size_t)TILE_M * s.lda * 2) +
+         align128((size_t)RING * KCHUNK * s.ldb * 2) +
+         align128((size_t)TILE_M * s.pe_pad * 4) + align128((size_t)TILE_M * s.pe_pad * 2);
+}
+
+__device__ __forceinline__ FwdSmem fwd_smem_carve(const SdfArgs& s, unsigned char* smem) {
+  FwdSmem m;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    unsigned char* p = smem + off;
+    off += align128(bytes);
+    return p;
+  };
+  m.A = reinterpret_cast<bf16*>(take(2 * (size_t)TILE_M * s.lda * 2));
+  m.ring = reinterpret_cast<bf16*>(take((size_t)RING * KCHUNK * s.ldb * 2));
+  m.DIN = reinterpret_cast<float*>(take((size_t)TILE_M * s.pe_pad * 4));
+  m.PES = reinterpret_cast<bf16*>(take((size_t)TILE_M * s.pe_pad * 2));
+  return m;
+}
+
+// The tile's encoding into X_0 (in A, product 0's operand) and the PE half
+// of X_S (PES): computed from x (rays kernel; rows past M encode x = 0),
+// or read from xe_in (flat kernel).  Zeroes DIN.
+__device__ __forceinline__ void fwd_pe_stage(const SdfArgs& s, int row0,
+                                             const FwdSmem& m) {
+  const int total = TILE_M * s.pe_pad;
+  constexpr int PB = 4;  // passes whose loads are in flight together
+  for (int i0 = threadIdx.x; i0 < total; i0 += PB * THREADS) {
+    float u[PB];  // flat: xe; rays: x at the column's dim
+#pragma unroll
+    for (int k = 0; k < PB; ++k) {
+      const int i = i0 + k * THREADS;
+      const int r = i / s.pe_pad, c = i % s.pe_pad;
+      const int gr = row0 + r;
+      u[k] = 0.f;
+      if (i < total && c < s.pe_dim && gr < s.M) {
+        if (s.xe_in != nullptr) {
+          u[k] = s.xe_in[(size_t)gr * s.pe_dim + c];
+        } else {
+          int d, kind;
+          float f;
+          pe_col(c, d, kind, f);
+          u[k] = s.x[(size_t)gr * 3 + d];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PB; ++k) {
+      const int i = i0 + k * THREADS;
+      if (i >= total) break;
+      const int r = i / s.pe_pad, c = i % s.pe_pad;
+      float v = 0.f;
+      if (c < s.pe_dim) {
+        if (s.xe_in != nullptr) {
+          v = u[k];
+        } else {
+          int d, kind;
+          float f, j, j2;
+          pe_col(c, d, kind, f);
+          pe_eval(kind, f, u[k] * s.scale, v, j, j2);
+        }
+      }
+      m.A[r * s.lda + c] = __float2bfloat16(v);
+      m.PES[i] = __float2bfloat16(v * INV_SQRT2);
+      m.DIN[i] = 0.f;
+    }
+  }
+  finish_a(s, m.A, s.pe_pad, nullptr, s.L[0].kp);
+}
+
+// The last layer: z = X_{L-1} W_{L-1} + b (A = X_{L-1}); out = [z0 /
+// scale, z1..] for the real rows and columns (and sdf = out[:, 0] when
+// set), stored as scalars: out's row stride (4 n_out bytes) need not be
+// 8-byte aligned.  Then each warp writes D_{L-2} = bf16(wlast sig_{L-2}),
+// the first reverse product's operand, into An for its column tiles of
+// np(L-2): An held X_{L-2}, which no warp reads once all have passed this
+// product's first barrier.
+__device__ __forceinline__ void last_layer(const SdfArgs& s, int row0, const bf16* A,
+                                           bf16* An, WRing<FwdSeq>& R, float* out,
+                                           int n_out, float* sdf) {
+  const int last = s.n_lin - 1;
+  const Layer& Ly = s.L[last];
+  const float* b = s.bias + Ly.b_off;
+  pipe_gemm(s, R, A, s.lda, Ly.kp, Ly.np, nullptr, 0,
+            [&](const Frag& f) { return make_float2(b[f.n], b[f.n + 1]); },
+            [&](const Frag& f, float (&v)[4], const float2& bn) {
+              if (f.n >= n_out) return;
+              const bool c1 = f.n + 1 < n_out;
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int gr = row0 + f.r + 8 * half;
+                if (gr >= s.M) continue;
+                float z0 = v[2 * half] + bn.x;
+                if (f.n == 0) {
+                  z0 = z0 / s.scale;
+                  if (sdf != nullptr) sdf[gr] = z0;
+                }
+                float* o = out + (size_t)gr * n_out + f.n;
+                o[0] = z0;
+                if (c1) o[1] = v[2 * half + 1] + bn.y;
+              }
+            });
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int npd = s.L[last - 1].np;
+  float* sig = s.SIG[last - 1];
+  for (int j = warp; j < npd >> 4; j += WARPS) {
+    float4 sg[2][4];
+    float2 w[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = j * 16 + h * 8 + (lane & 3) * 2;
+      w[h] = make_float2(s.wlast[n], s.wlast[n + 1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sg[h][i] = *frag4(sig, npd, row0, Frag{i, j, h, i * 16 + (lane >> 2), n});
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const Frag f{i, j, h, i * 16 + (lane >> 2), j * 16 + h * 8 + (lane & 3) * 2};
+        const float4 g = sg[h][i];
+        st_frag_bf16(An, s.lda, f, w[h].x * g.x, w[h].y * g.y, w[h].x * g.z, w[h].y * g.w);
+      }
+  }
+}
+
+// Per tile (notation in sdf_train.cuh), 2 L - 1 products p in FwdSeq's
+// order, product p's A operand in A + (p % 2), written by the epilogue (or
+// stage) before it:
+//   1. the encoding stage;
+//   2. the forward l = 0..L-2 (sig_l into SIG_l, X_{l+1} into the next A);
+//   3. the last layer: out (and sdf), then D_{L-2};
+//   4. the reverse chain l = L-2..0 (D_{l-1} into the next A, the PE parts
+//      added to DIN).
+// Only SIG goes to the workspace.  DIN holds the tile's d_inputs on return
+// (after a barrier).
+__device__ __forceinline__ void sdf_fwd_grad_tile(const SdfArgs& s, int row0,
+                                                  const FwdSmem& m, WRing<FwdSeq>& R,
+                                                  float* out, int n_out, float* sdf) {
+  const int last = s.n_lin - 1;
+  const size_t a_elems = (size_t)TILE_M * s.lda;
+  int p = 0;
+  auto buf = [&](int q) { return m.A + (q & 1) * a_elems; };
+  __syncthreads();  // DIN, PES, A free
+  fwd_pe_stage(s, row0, m);
+
+  for (int l = 0; l < last; ++l, ++p) {
+    forward_layer(s, l, row0, buf(p), buf(p + 1), R);
+    if (l + 1 == s.skip)
+      finish_a(s, buf(p + 1), s.hoff, m.PES, s.L[l + 1].kp);
+    else
+      finish_a(s, buf(p + 1), s.L[l].np, nullptr, s.L[l + 1].kp);
+  }
+  last_layer(s, row0, buf(p), buf(p + 1), R, out, n_out, sdf);
+  finish_a(s, buf(p + 1), s.L[last - 1].np, nullptr, s.L[last - 1].kr);  // D_{L-2}
+  ++p;
+  for (int l = last - 1; l >= 0; --l, ++p) {
+    reverse_layer(s, l, row0, buf(p), buf(p + 1), m.DIN, R);
+    if (l > 0) finish_a(s, buf(p + 1), s.L[l - 1].np, nullptr, s.L[l - 1].kr);
+  }
+  __syncthreads();
+}
+
+// Host side of a forward launch: takes SIG_0..SIG_{L-2} from the pointer
+// table (fused_sdf.py fwd_workspace_specs) and launches `kernel` (one
+// block per SM at most) with (s, args...).  Returns a cudaError_t.
+template <class Kernel, class... Args>
+inline int sdf_fwd_launch(Kernel kernel, SdfArgs& s, const unsigned long long* ptrs,
+                          int G, cudaStream_t st, Args... args) {
+  for (int l = 0; l < s.n_lin - 1; ++l) s.SIG[l] = reinterpret_cast<float*>(ptrs[l]);
+  const size_t smem = fwd_smem_bytes(s);
+  cudaError_t ce = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (ce != cudaSuccess) return (int)ce;
+  if (s.M <= 0) return 0;
+  kernel<<<G, THREADS, smem, st>>>(s, args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fmov_train

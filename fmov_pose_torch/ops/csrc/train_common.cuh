@@ -1,12 +1,13 @@
-// Shared pieces of the fused training kernels for Hopper (sm_90a): K2-K9
-// (K3's and K5's per-point pass has its own product loop,
-// sdf_bwd_pipe.cuh; their weight gradients use atb_kernel here).
+// Shared pieces of the fused training kernels for Hopper (sm_90a): K2-K9.
+// The color kernels K6-K9 (color_train.cuh) run their products on
+// tile_gemm here; the per-point SDF kernels K2-K5 on their own pipeline
+// (sdf_pipe.cuh), and K3's and K5's weight gradients on atb_kernel here.
 //
 // Arithmetic contract (the TPU kernels'): every product rounds both
 // operands to bf16 and accumulates in f32; everything else is f32.
 //
-// A block of 8 warps owns a 64-point tile at a time.  Every product of the
-// kernels is A [64 x K] @ W [K x N]: A is a bf16 tile in shared memory
+// A block of 8 warps owns a 64-point tile at a time.  Every product of
+// tile_gemm is A [64 x K] @ W [K x N]: A is a bf16 tile in shared memory
 // (load_tile), W a bf16 block of the packed weights (fmov_pose_torch/ops/
 // packing.py), streamed from device memory in 32-row chunks, and the
 // product runs on tensor cores (wmma bf16 16x16x16, f32 accumulators;

@@ -343,20 +343,23 @@ def sdf_apply_fused(params, cfg, x):
 #
 # On an H100 K4 is ~2.2 MFLOP per point and K5 ~6.6 (33 products of
 # ~256x256 per point, plus the weight gradients), so both are bound by
-# the products.  Their per-point intermediates (sigmoids, gradient chain,
-# cotangents; ~40 KB per point in K5) do not fit in shared memory, so a
-# block keeps one 64-point operand tile in shared memory and stages the
-# rest in a workspace in device memory; K5 recomputes the forward instead
-# of keeping K4's.  K5's weight gradients are one product per layer over
-# all points (``[fbar; inp]^T @ [e; zbar]``, the Phase A and B terms
-# stacked), split over K and reduced in a fixed order: run to run the
-# result is the same.
+# the products.  Both run one per-point pipeline (``csrc/sdf_pipe.cuh``):
+# the weights stream through a cp.async ring, the products run on mma.sync
+# with their epilogues in registers, and each product's A operand stays in
+# shared memory.  The per-point intermediates that do not fit beside them
+# go to a workspace in device memory: K4 only its sigmoids
+# (``fwd_workspace_specs``), K5 also the gradient chain, the cotangents
+# and the weight-gradient operands (``bwd_workspace_specs``; ~40 KB per
+# point); K5 recomputes the forward instead of keeping K4's.  K5's weight
+# gradients are one product per layer over all points (``[fbar; inp]^T @
+# [e; zbar]``, the Phase A and B terms stacked), split over K and reduced
+# in a fixed order: run to run the result is the same.
 #
 # K2 and K3 (``csrc/sdf_flat.cu``) replace ``_make_fwd_grad_kernel`` and
 # ``_make_bwd_kernel_biased`` (``_sdf_forward_grad_impl`` /
 # ``_sdf_bwd_impl``), which the JAX ``render_core`` takes below the rays
 # gate through ``sdf_apply_grad_fused``.  The same math as K4/K5, and the
-# same kernel body with other input and output stages: they take the
+# same per-point tiles with other input and output stages: they take the
 # encoding xe [M, pe_dim] as given, and K2 returns d_inputs [M, pe_dim],
 # K3 takes its cotangent gbar and returns xebar [M, pe_dim].  The entry
 # computes the PE, its Jacobian-vector products and the second-derivative
@@ -663,23 +666,31 @@ def _raise_on(lib, err, what, M):
                            f"(cudaError {err}, M={M})")
 
 
+def fwd_workspace_specs(table, M_pad: int):
+    """K4/K2's per-point arrays, in the order of ``sdf_fwd_launch``'s
+    pointer table (csrc/sdf_pipe.cuh): SIG_0..SIG_{L-2}, the sigmoids the
+    reverse chain reads back, in the per-point pass's fragment order (each
+    64-row tile of a [M_pad, np(l)] array one row of 64 np(l) values,
+    ``frag4``); the layer inputs and D_l stay in shared memory.  Returns
+    [(name, rows, width, dtype)]."""
+    t = np.asarray(table).tolist()
+    tiles = M_pad // packing.TILE_M
+    return [(f"SIG{l}", tiles, packing.TILE_M * t[l][1], torch.float32)
+            for l in range(len(t) - 1)]
+
+
 def _fwd_workspace(pk: RaysPack, M_pad: int, dev) -> packing.Workspace:
-    """K4/K2's per-point arrays: X_0..X_{L-1}, D_0..D_{L-2}, SIG_0..SIG_{L-2}."""
+    """K4/K2's workspace (``fwd_workspace_specs``), allocated."""
     ws_ = packing.Workspace()
-    t = pk.table
-    for l in range(pk.n_lin):
-        ws_.add(f"X{l}", M_pad, t[l, 0], torch.bfloat16)
-    for l in range(pk.n_lin - 1):
-        ws_.add(f"D{l}", M_pad, t[l, 1], torch.bfloat16)
-    for l in range(pk.n_lin - 1):
-        ws_.add(f"SIG{l}", M_pad, t[l, 1], torch.float32)
+    for spec in fwd_workspace_specs(pk.table, M_pad):
+        ws_.add(*spec)
     ws_.allocate(dev)
     return ws_
 
 
 def bwd_workspace_specs(table, M_pad: int, G: int, KS: int, dw_elems: int):
     """K5/K3's per-point arrays and partial sums, in the order of
-    ``sdf_bwd_launch``'s pointer table (csrc/sdf_bwd_pipe.cuh): the bf16
+    ``sdf_bwd_launch``'s pointer table (csrc/sdf_pipe.cuh): the bf16
     operands of the weight-gradient product row-major, the f32 arrays
     SIG, DS and ZC in the per-point pass's fragment order (each 64-row
     tile of a [M_pad, W] array one row of 64 W values, ``frag4``).

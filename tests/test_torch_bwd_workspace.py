@@ -1,9 +1,9 @@
 """The workspace of K5 and K3, the second-order SDF backward
 (``fmov_pose_torch/ops/fused_sdf.py``, ``bwd_workspace_specs``), and the
-build line of ``chip_smoke.py`` that reports their per-point kernel.
+build line of ``chip_smoke.py`` that reports the per-point SDF kernels.
 
 The kernels read the workspace through a pointer table in the order of
-``sdf_bwd_launch`` (``ops/csrc/sdf_bwd_pipe.cuh``): AB_l ([FB_l; X_l]),
+``sdf_bwd_launch`` (``ops/csrc/sdf_pipe.cuh``): AB_l ([FB_l; X_l]),
 BB_l ([D_l; ZB_l]), SIG_l, DS_l, ZC_l, then the partial sums.  The bf16
 operands of the weight-gradient product stay row-major; the f32 arrays
 that only the per-point pass reads back are stored in its fragment order,
@@ -124,4 +124,11 @@ def test_build_line_names_the_per_point_kernels():
     assert chip_smoke._kernel_name(
         "_ZN10fmov_train12_GLOBAL__N_119sdf_bwd_flat_kernelENS_7BwdArgsE") \
         == "sdf_bwd_flat_kernel"
-    assert set(chip_smoke.PER_POINT_BWD) == {"sdf_bwd_kernel", "sdf_bwd_flat_kernel"}
+    assert chip_smoke._kernel_name(
+        "_ZN10fmov_train12_GLOBAL__N_119sdf_fwd_grad_kernelENS_7SdfArgsEPfiS2_S2_") \
+        == "sdf_fwd_grad_kernel"
+    assert chip_smoke._kernel_name(
+        "_ZN10fmov_train12_GLOBAL__N_124sdf_fwd_grad_flat_kernelENS_7SdfArgsEPfiS2_") \
+        == "sdf_fwd_grad_flat_kernel"
+    assert set(chip_smoke.PER_POINT) == {"sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel",
+                                          "sdf_bwd_kernel", "sdf_bwd_flat_kernel"}
