@@ -11,16 +11,17 @@ Phases, each printing lines as it ends:
                  each, all started together (K1 sdf_fwd.cu, K2/K3
                  sdf_flat.cu, K4 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K6/K7
                  color_sample.cu, K8/K9 color_ray.cu), and print ptxas's
-                 registers and spills (by name for the four per-point SDF
-                 kernels, K4's, K2's, K5's and K3's)
+                 registers and spills (by name for the six per-point
+                 kernels on the pipeline: K4's, K2's, K5's, K3's, K9's and
+                 K7's)
   3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
                  against its plain PyTorch version at the full width of
                  confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
   4. train-kernels -- K4, K5, K8 and K9 through their entries against their
                  plain versions at the full width of
                  confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
-                 3 x 128 (ragged), K4 and K5 also against themselves: two
-                 launches on the same inputs bitwise equal; CUDA-event
+                 3 x 128 (ragged), K4, K5 and K9 also against themselves:
+                 two launches on the same inputs bitwise equal; CUDA-event
                  times of the entry, the kernel alone and the plain version
   5. flat-kernels -- K2 and K3 through their entry sdf_apply_grad_fused
                  (forward and every gradient leaf, x included) against the
@@ -33,8 +34,9 @@ Phases, each printing lines as it ends:
                  and every gradient leaf, xc included) against the same
                  entry on CPU copies (the plain versions) at the full width
                  of the fast conf, M = 512 x 128 and a ragged 1,000, xc
-                 built from K4's outputs; CUDA-event times of the wrapper,
-                 the kernel alone and the plain version
+                 built from K4's outputs, K7 also bitwise equal over two
+                 launches; CUDA-event times of the wrapper, the kernel alone
+                 and the plain version
   7. slice    -- Runner trains confs/ho3d_global_womask.conf for 50 steps on
                  an in-memory 8-frame 480x640 orbit scene: finite losses, a
                  falling color loss, K1 launched 4 times per step
@@ -168,10 +170,10 @@ def phase_build():
     _line("build", all_seconds=f"{total:.2f}")
 
 
-# the per-point SDF kernels (K4, K2, K5, K3), whose registers and spills
-# the build line names
+# the per-point kernels on the pipeline (K4, K2, K5, K3, K9, K7), whose
+# registers and spills the build line names
 PER_POINT = ("sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel", "sdf_bwd_kernel",
-             "sdf_bwd_flat_kernel")
+             "sdf_bwd_flat_kernel", "color_bwd_kernel", "color_sample_bwd_kernel")
 
 
 def _kernel_name(mangled):
@@ -499,6 +501,8 @@ def phase_train_kernels(dev):
                    lambda: fused_color.LAUNCHES_K8)
 
             ct = randn(B, 3)
+            _same_twice("train-kernels", "color_ray_bwd", M,
+                        lambda: fused_color.launch_bwd(cpk, *geo, ct))
             names9 = ("sdf_out", "pts", "dirs", "normals", "weights", "w", "b")
             report("color_ray_bwd", B, N,
                    lambda got, ref: _leaf_check(_leaves(names9, ref), _leaves(names9, got)),
@@ -659,6 +663,8 @@ def phase_color_kernels(dev):
                                                        (g.cpu() for g in gs))))
         rows = _rows(res["plain"][0], res["kernels"][0])
         leaves_res = _leaf_check(res["plain"][1], res["kernels"][1])
+        _same_twice("color-kernels", "color_bwd", M,
+                    lambda: fused_color.launch_bwd_sample(pk, xc, ct))
         with torch.no_grad():
             times = {
                 "K6": [_median_ms(f) for f in (

@@ -7,21 +7,26 @@
 // Per 64-sample tile the input X_0 = [pts, PE(dirs), normals, feature]
 // (idr order, the feature being columns 1.. of the raw SDF output) is
 // built in f32 and rounded to bf16, then the ReLU layers and the sigmoid
-// rgb c.  K8 writes c and composites each ray, color[b] = sum_j c w[b, j],
-// in a second launch (a ray's samples may span two tiles).  K9 recomputes
-// the forward (keeping X_l for the ReLU masks and the weight gradients),
-// then d_weights = c . ct[b], zbar = ct[b] w c (1 - c), and descends:
-// inpbar = zbar_l W_l^T, zbar_{l-1} = inpbar [X_l > 0]; at layer 0 the
-// input cotangent splits into pts, PE(dirs) (through PE'), normals and the
-// feature columns.  Weight gradients X_l^T ZB_l over all samples and the
-// bias sums go through atb_kernel / reduce_kernel (train_common.cuh).  The
-// layer loop, the descent and the weight gradients are color_train.cuh's,
-// shared with K6/K7 (color_sample.cu); this file holds the input and
-// output stages.
+// rgb c.  K8 (the first design: color_forward_tile on tile_gemm) writes c
+// and composites each ray, color[b] = sum_j c w[b, j], in a second launch
+// (a ray's samples may span two tiles).  K9 runs color_bwd_tile on the
+// per-point pipeline (color_train.cuh, pipe.cuh): it recomputes the
+// forward, then d_weights = c . ct[b], zbar = ct[b] w c (1 - c), and
+// descends: inpbar = zbar_l W_l^T, zbar_{l-1} = inpbar [X_l > 0]; at layer
+// 0 the input cotangent splits into pts, PE(dirs) (through PE'), normals
+// (shared memory, for the ubar stage) and the feature columns (featbar).
+// Weight gradients X_l^T ZB_l over all samples and the bias sums go
+// through atb_kernel / reduce_kernel (train_common.cuh).  This file holds
+// the input and output stages.
 //
 // What bounds them: ~0.6 MFLOP of bf16 products per sample forward and
 // ~1.8 backward at 4x256 (289 inputs), against ~1.1 KB of inputs per
-// sample, so the products.
+// sample, so the products, 0.108 ms for K9 at M = 65,536 on an H100.  Far
+// from it: K8's first design loads every A from device memory and waits
+// on each weight chunk; K9's per-point pass keeps its operands on chip and
+// streams the weights ahead, but its mma.sync loop and epilogues overlap
+// nothing (PERF.md), and the weight-gradient product (atb_kernel, wmma
+// from device memory) is a second pass over X_l and ZB_l.
 
 #include "color_train.cuh"
 
@@ -43,27 +48,28 @@ struct ColorArgs {
   float* dweights;       // [M] (K9)
 };
 
-// X_0 of the tile: [pts | PE(dirs) | normals | feature | 0 pad to in_w].
+// Column c < d_in of X_0 at the real row gr: [pts | PE(dirs) | normals |
+// feature].
+__device__ __forceinline__ float color_input(const ColorArgs& a, int gr, int c) {
+  if (c < 3) return a.pts[(size_t)gr * 3 + c];
+  if (c < 3 + a.npe) {
+    int d, kind;
+    float f, v, j, j2;
+    pe_col(c - 3, d, kind, f);
+    pe_eval(kind, f, a.dirs[(size_t)gr * 3 + d], v, j, j2);
+    return v;
+  }
+  if (c < 6 + a.npe) return a.nrm[(size_t)gr * 3 + c - 3 - a.npe];
+  return a.sdf_out[(size_t)gr * a.d_sdf + 1 + c - 6 - a.npe];
+}
+
+// X_0 of the tile into the workspace: zero past d_in (to in_w) and past M.
 __device__ __forceinline__ void color_input_stage(const ColorArgs& a, int row0) {
   const Layer& L0 = a.k.L[0];
   for (int i = threadIdx.x; i < TILE_M * L0.in_w; i += THREADS) {
     const int r = i / L0.in_w, c = i % L0.in_w;
     const int gr = row0 + r;
-    float v = 0.f;
-    if (gr < a.k.M && c < a.k.d_in) {
-      if (c < 3) {
-        v = a.pts[(size_t)gr * 3 + c];
-      } else if (c < 3 + a.npe) {
-        int d, kind;
-        float f, j, j2;
-        pe_col(c - 3, d, kind, f);
-        pe_eval(kind, f, a.dirs[(size_t)gr * 3 + d], v, j, j2);
-      } else if (c < 6 + a.npe) {
-        v = a.nrm[(size_t)gr * 3 + c - 3 - a.npe];
-      } else {
-        v = a.sdf_out[(size_t)gr * a.d_sdf + 1 + c - 6 - a.npe];
-      }
-    }
+    const float v = (gr < a.k.M && c < a.k.d_in) ? color_input(a, gr, c) : 0.f;
     a.k.X[0][(size_t)gr * L0.kp + c] = __float2bfloat16(v);
   }
 }
@@ -77,9 +83,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int row0 = tile * TILE_M;
     __syncthreads();
     color_input_stage(a, row0);
-    color_forward_tile(a.k, row0, m, nullptr, [&](int r, int n, float p) -> float {
+    color_forward_tile(a.k, row0, m, [&](int r, int n, float p) {
       if (n < 3) a.C[(size_t)(row0 + r) * 4 + n] = color_sigmoid(p);
-      return 0.f;
     });
   }
 }
@@ -101,48 +106,71 @@ __global__ void composite_kernel(const float* C, const float* wts, int B, int N,
 __global__ void __launch_bounds__(THREADS, 1)
     color_bwd_kernel(const __grid_constant__ ColorArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const ColorSmem m = color_carve(smem, a.k.lda, a.k.ldb);
+  const ColorBwdSmem m = color_bwd_carve(a.k, smem);
   const int small = 6 + a.npe;  // pts, PE(dirs), normals
-  float* XCB = reinterpret_cast<float*>(m.rest);                 // [TILE_M x small]
-  size_t off = align128((size_t)TILE_M * small * 4);
-  float* Csm = reinterpret_cast<float*>(m.rest + off);           // [TILE_M x 4]
-  off += align128((size_t)TILE_M * 4 * 4);
-  float* DBACC = reinterpret_cast<float*>(m.rest + off);         // [n_bias]
-  for (int i = threadIdx.x; i < a.k.n_bias; i += THREADS) DBACC[i] = 0.f;
+  float* XCB = reinterpret_cast<float*>(m.rest);  // [TILE_M x small]
+  WRing<ColorBwdSeq> R = color_bwd_block_start(a.k, m);
 
   const int M = a.k.M;
+  const int lane = threadIdx.x & 31;
   const int n_tiles = a.k.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M;
-    __syncthreads();
-    color_input_stage(a, row0);
-    // c and zbar = ct w c (1 - c)
-    color_forward_cot(a.k, row0, m, DBACC, [&](int r, int gr, int n, float p) -> float {
-      const float c = color_sigmoid(p);
-      Csm[r * 4 + n] = c;
-      const float cbar = a.ct[(size_t)(gr / a.N) * 3 + n] * a.wts[gr];
-      return cbar * c * (1.f - c);
-    });
-    __syncthreads();
-    for (int r = threadIdx.x; r < TILE_M; r += THREADS) {
-      const int gr = row0 + r;
-      if (gr < M) {
-        const float* ct = a.ct + (size_t)(gr / a.N) * 3;
-        a.dweights[gr] = Csm[r * 4] * ct[0] + Csm[r * 4 + 1] * ct[1] + Csm[r * 4 + 2] * ct[2];
-      }
-    }
-
-    color_descent(a.k, row0, m, DBACC, [&](int r, int gr, int n, float v) {
-      if (n < small) {
-        XCB[r * small + n] = v;
-      } else if (gr < M) {
-        a.featbar[(size_t)gr * a.d_sdf + 1 + n - small] = v;
-      }
-    });
+    color_bwd_tile(
+        a.k, row0, m, R,
+        [&](int gr, int c) { return color_input(a, gr, c); },
+        // ct[ray] at the rgb columns n, n + 1 of rows r, r + 8, and w there
+        [&](const Frag& f, int r0) {
+          In2 in;
+          in.a = in.b = make_float4(0.f, 0.f, 0.f, 0.f);
+          const int g0 = r0 + f.r, g1 = g0 + 8;
+          if (f.n < 3) {
+            const bool c1 = f.n + 1 < 3;
+            if (g0 < M) {
+              const float* ct = a.ct + (size_t)(g0 / a.N) * 3 + f.n;
+              in.a.x = ct[0];
+              in.a.y = c1 ? ct[1] : 0.f;
+              in.b.x = a.wts[g0];
+            }
+            if (g1 < M) {
+              const float* ct = a.ct + (size_t)(g1 / a.N) * 3 + f.n;
+              in.a.z = ct[0];
+              in.a.w = c1 ? ct[1] : 0.f;
+              in.b.y = a.wts[g1];
+            }
+          }
+          return in;
+        },
+        // d_weights = c . ct[ray]: a row's channels 0, 1 sit in lane 4q and
+        // channel 2 in lane 4q + 1, all in h = 0
+        [&](const Frag& f, int r0, const float (&c)[4], const In2& in) {
+          if (f.h != 0) return;
+          float d0 = c[0] * in.a.x + c[1] * in.a.y;
+          float d1 = c[2] * in.a.z + c[3] * in.a.w;
+          d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+          d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+          const int g0 = r0 + f.r;
+          if ((lane & 3) == 0) {
+            if (g0 < M) a.dweights[g0] = d0;
+            if (g0 + 8 < M) a.dweights[g0 + 8] = d1;
+          }
+        },
+        // the input cotangent: the small columns to XCB, the feature
+        // columns to featbar (rows of 4 d_sdf bytes: scalar stores)
+        [&](const Frag& f, int r0, const float (&v)[4]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = f.r + 8 * (e >> 1), n = f.n + (e & 1);
+            if (n < small) {
+              XCB[r * small + n] = v[e];
+            } else if (n < a.k.d_in && r0 + r < M) {
+              a.featbar[(size_t)(r0 + r) * a.d_sdf + 1 + n - small] = v[e];
+            }
+          }
+        });
 
     // featbar column 0; ubar = [pts, sum over PE(dirs) columns of
     // cot PE', normals]
-    __syncthreads();
     for (int i = threadIdx.x; i < TILE_M * 9; i += THREADS) {
       const int r = i / 9, k = i % 9;
       const int gr = row0 + r;
@@ -169,7 +197,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (k == 0) a.featbar[(size_t)gr * a.d_sdf] = 0.f;
     }
   }
-  color_store_bias_sums(a.k, DBACC);
+  color_bwd_block_end(a.k, m);
 }
 
 // Fills ColorArgs; returns a cudaError_t.
@@ -198,13 +226,6 @@ int color_setup(ColorArgs& a, const float* sdf_out, int d_sdf, const float* pts,
   return 0;
 }
 
-size_t color_ray_smem(const ColorArgs& a, bool backward) {
-  if (!backward) return color_smem(a.k, 0);
-  return color_smem(a.k, align128((size_t)TILE_M * (6 + a.npe) * 4) +
-                             align128((size_t)TILE_M * 16) +
-                             align128((size_t)a.k.n_bias * 4));
-}
-
 }  // namespace
 }  // namespace fmov_train
 
@@ -224,7 +245,7 @@ int fmov_color_ray_fwd(const float* sdf_out, int d_sdf, const float* pts,
   int e = color_setup(a, sdf_out, d_sdf, pts, dirs, nrm, wts, M, M_pad, N, w,
                       bias, meta, n_lin, mv, ptrs, false, G);
   if (e) return e;
-  const size_t smem = color_ray_smem(a, false);
+  const size_t smem = color_smem(a.k);
   cudaError_t ce = cudaFuncSetAttribute(
       color_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
@@ -258,16 +279,9 @@ int fmov_color_ray_bwd(const float* sdf_out, int d_sdf, const float* pts,
   a.ubar = ubar;
   a.dweights = dweights;
   float* dwpart = reinterpret_cast<float*>(ptrs[2 * n_lin + 1]);
-  const size_t smem = color_ray_smem(a, true);
-  cudaError_t ce = cudaFuncSetAttribute(
-      color_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (ce != cudaSuccess) return (int)ce;
-  if (M <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  color_bwd_kernel<<<G, THREADS, smem, st>>>(a);
-  ce = cudaGetLastError();
-  if (ce != cudaSuccess) return (int)ce;
-  return color_weight_grads(a.k, dwpart, G, KS, dw, db, st);
+  return color_bwd_launch(color_bwd_kernel, a, a.k,
+                          align128((size_t)TILE_M * (6 + a.npe) * 4), dwpart, G, KS,
+                          dw, db, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -13,10 +13,15 @@
 //
 // They are K8/K9's math without the composite, so they are the same tile
 // code (color_train.cuh) with other input and output stages:
-//   K6: the input stage reads xc rows (zero past d_in); the epilogue
-//       writes rgb [M x 3] = sigmoid(p) and launches no composite.
-//   K7: recomputes the forward; zbar = ct c (1 - c) from a per-sample
-//       ct [M x 3]; the descent's layer-0 stage writes xcbar [M x d_in]
+//   K6: the first design (color_forward_tile on tile_gemm: each layer's A
+//       loaded from device memory, weights in 32-row chunks through wmma);
+//       the input stage reads xc rows (zero past d_in); the epilogue writes
+//       rgb [M x 3] = sigmoid(p) and launches no composite.
+//   K7: color_bwd_tile on the per-point pipeline (pipe.cuh: the weight
+//       ring, mma.sync register epilogues, A operands in shared memory):
+//       the input stage reads xc rows straight into the first A; it
+//       recomputes the forward; zbar = ct c (1 - c) from a per-sample ct
+//       [M x 3]; the descent's layer-0 epilogue writes xcbar [M x d_in]
 //       rows and splits nothing.  Weight gradients X_l^T ZB_l over all
 //       samples and the bias sums are reduced in a fixed order, so they
 //       are the same from run to run (the Pallas kernel summed them over
@@ -26,11 +31,10 @@
 // everything else is f32.  What bounds them at 4x256 on the 289-wide
 // input: ~0.54 MFLOP of products a sample forward and ~1.6 backward,
 // against ~1.2 KB (K6) and ~2.4 KB (K7) of rows in and out a sample, so
-// the products.  As in K8/K9, a block keeps one 64-sample operand tile in
-// shared memory and streams each layer's weights in 32-row chunks through
-// tensor cores (wmma bf16, f32 accumulators); the layer activations the
-// backward needs are staged in device memory, read back only by the block
-// that wrote them.
+// the products.  K7's per-point pass overlaps nothing (its mma.sync loop
+// stops at a barrier every 32 weight rows, and the tensor cores idle
+// during the epilogues), and its weight gradients are a second pass over
+// the stored X_l and ZB_l (atb_kernel).
 
 #include "color_train.cuh"
 
@@ -66,10 +70,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int row0 = tile * TILE_M;
     __syncthreads();
     sample_input_stage(a, row0);
-    color_forward_tile(a.k, row0, m, nullptr, [&](int r, int n, float p) -> float {
+    color_forward_tile(a.k, row0, m, [&](int r, int n, float p) {
       const int gr = row0 + r;
       if (n < 3 && gr < a.k.M) a.rgb[(size_t)gr * 3 + n] = color_sigmoid(p);
-      return 0.f;
     });
   }
 }
@@ -77,26 +80,44 @@ __global__ void __launch_bounds__(THREADS, 1)
 __global__ void __launch_bounds__(THREADS, 1)
     color_sample_bwd_kernel(const __grid_constant__ SampleArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const ColorSmem m = color_carve(smem, a.k.lda, a.k.ldb);
-  float* DBACC = reinterpret_cast<float*>(m.rest);  // [n_bias]
-  for (int i = threadIdx.x; i < a.k.n_bias; i += THREADS) DBACC[i] = 0.f;
-
-  const int d_in = a.k.d_in;
+  const ColorBwdSmem m = color_bwd_carve(a.k, smem);
+  WRing<ColorBwdSeq> R = color_bwd_block_start(a.k, m);
+  const int d_in = a.k.d_in, M = a.k.M;
   const int n_tiles = a.k.M_pad / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TILE_M;
-    __syncthreads();
-    sample_input_stage(a, row0);
-    // zbar = ct c (1 - c)
-    color_forward_cot(a.k, row0, m, DBACC, [&](int r, int gr, int n, float p) -> float {
-      const float c = color_sigmoid(p);
-      return a.ct[(size_t)gr * 3 + n] * c * (1.f - c);
-    });
-    color_descent(a.k, row0, m, DBACC, [&](int r, int gr, int n, float v) {
-      if (gr < a.k.M) a.xcbar[(size_t)gr * d_in + n] = v;
-    });
+    color_bwd_tile(
+        a.k, tile * TILE_M, m, R,
+        [&](int gr, int c) { return a.xc[(size_t)gr * d_in + c]; },
+        // ct at the rgb columns n, n + 1 of rows r, r + 8; w = 1
+        [&](const Frag& f, int r0) {
+          In2 in;
+          in.a = make_float4(0.f, 0.f, 0.f, 0.f);
+          in.b = make_float4(1.f, 1.f, 0.f, 0.f);
+          const int g0 = r0 + f.r, g1 = g0 + 8;
+          if (f.n < 3) {
+            const bool c1 = f.n + 1 < 3;
+            if (g0 < M) {
+              in.a.x = a.ct[(size_t)g0 * 3 + f.n];
+              in.a.y = c1 ? a.ct[(size_t)g0 * 3 + f.n + 1] : 0.f;
+            }
+            if (g1 < M) {
+              in.a.z = a.ct[(size_t)g1 * 3 + f.n];
+              in.a.w = c1 ? a.ct[(size_t)g1 * 3 + f.n + 1] : 0.f;
+            }
+          }
+          return in;
+        },
+        [](const Frag&, int, const float (&)[4], const In2&) {},
+        // xcbar rows (4 d_in bytes: scalar stores)
+        [&](const Frag& f, int r0, const float (&v)[4]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int gr = r0 + f.r + 8 * (e >> 1), n = f.n + (e & 1);
+            if (n < d_in && gr < M) a.xcbar[(size_t)gr * d_in + n] = v[e];
+          }
+        });
   }
-  color_store_bias_sums(a.k, DBACC);
+  color_bwd_block_end(a.k, m);
 }
 
 }  // namespace
@@ -121,7 +142,7 @@ int fmov_color_sample_fwd(const float* xc, int d_in, int M, int M_pad,
   a.ct = nullptr;
   a.rgb = rgb;
   a.xcbar = nullptr;
-  const size_t smem = color_smem(a.k, 0);
+  const size_t smem = color_smem(a.k);
   cudaError_t ce = cudaFuncSetAttribute(
       color_sample_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
@@ -148,16 +169,8 @@ int fmov_color_sample_bwd(const float* xc, const float* ct, int d_in, int M,
   a.rgb = nullptr;
   a.xcbar = xcbar;
   float* dwpart = reinterpret_cast<float*>(ptrs[p]);
-  const size_t smem = color_smem(a.k, align128((size_t)a.k.n_bias * 4));
-  cudaError_t ce = cudaFuncSetAttribute(
-      color_sample_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (ce != cudaSuccess) return (int)ce;
-  if (M <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  color_sample_bwd_kernel<<<G, THREADS, smem, st>>>(a);
-  ce = cudaGetLastError();
-  if (ce != cudaSuccess) return (int)ce;
-  return color_weight_grads(a.k, dwpart, G, KS, dw, db, st);
+  return color_bwd_launch(color_sample_bwd_kernel, a, a.k, 0, dwpart, G, KS, dw, db,
+                          (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Shared pieces of the fused training kernels for Hopper (sm_90a): K2-K9.
-// The color kernels K6-K9 (color_train.cuh) run their products on
-// tile_gemm here; the per-point SDF kernels K2-K5 on their own pipeline
-// (sdf_pipe.cuh), and K3's and K5's weight gradients on atb_kernel here.
+// The color forward kernels K6/K8 (color_train.cuh) run their products on
+// tile_gemm here; the per-point passes of K2-K5 (sdf_pipe.cuh) and of the
+// color backward K7/K9 (color_train.cuh) on the pipeline of pipe.cuh; the
+// weight gradients of K3, K5, K7 and K9 on atb_kernel here.
 //
 // Arithmetic contract (the TPU kernels'): every product rounds both
 // operands to bf16 and accumulates in f32; everything else is f32.
@@ -13,9 +14,7 @@
 // product runs on tensor cores (wmma bf16 16x16x16, f32 accumulators;
 // warp w owns column tiles w, w+8, w+16 for all four row tiles).  An
 // epilogue functor sees each element (row, column, value) once, through a
-// per-warp 16x16 f32 scratch, and may return a value to add to a per-block
-// column sum; a column belongs to one warp, which adds its rows in order,
-// so the sums are the same from run to run.
+// per-warp 16x16 f32 scratch.
 //
 // Weight gradients are one product per layer over all points, A^T B with
 // A [rows x ni] and B [rows x nj] bf16 arrays the per-point kernels wrote:
@@ -149,17 +148,14 @@ __device__ __forceinline__ void load_tile(bf16* dst, int lds, const bf16* src,
 
 // acc = A [TILE_M x K] (shared, row stride lda) @ W [K x N] (device, row
 // stride N, streamed through wbuf [KCHUNK x ldb]), then epi(r, n, acc) for
-// every element; when colsum is set, epi's return values of columns
-// n < colsum_n are added to colsum[n] (rows 0..63 in order).
-// K % KCHUNK == 0, N % 16 == 0, N <= MAX_N.  Its first barrier comes
+// every element.  K % KCHUNK == 0, N % 16 == 0, N <= MAX_N.  Its first barrier comes
 // before any product, so the block may still be writing A (load_tile)
 // on entry.
 template <class Epi>
 __device__ __forceinline__ void tile_gemm(const bf16* A, int lda,
                                           const bf16* __restrict__ W, int K,
                                           int N, bf16* wbuf, int ldb,
-                                          float* scr, float* colsum,
-                                          int colsum_n, Epi epi) {
+                                          float* scr, Epi epi) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -201,12 +197,11 @@ __device__ __forceinline__ void tile_gemm(const bf16* A, int lda,
   }
 
   // Other warps may still be in the K loop; this reads only the warp's
-  // own scratch and writes device memory or the warp's own columns.
+  // own scratch and writes device memory.
 #pragma unroll
   for (int jj = 0; jj < COLT; ++jj) {
     const int j = warp + jj * WARPS;
     if (j >= ncol) continue;
-    float csum = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       wmma::store_matrix_sync(scr, acc[i][jj], 16, wmma::mem_row_major);
@@ -214,16 +209,10 @@ __device__ __forceinline__ void tile_gemm(const bf16* A, int lda,
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const int e = lane * 8 + t;
-        scr[e] = epi(i * 16 + (e >> 4), j * 16 + (e & 15), scr[e]);
-      }
-      __syncwarp();
-      if (lane < 16) {
-        for (int rr = 0; rr < 16; ++rr) csum += scr[rr * 16 + lane];
+        epi(i * 16 + (e >> 4), j * 16 + (e & 15), scr[e]);
       }
       __syncwarp();
     }
-    if (colsum != nullptr && lane < 16 && j * 16 + lane < colsum_n)
-      colsum[j * 16 + lane] += csum;
   }
 }
 

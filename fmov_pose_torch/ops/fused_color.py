@@ -30,13 +30,19 @@ only the order of the f32 sums.  Geometry is row layout ([M, 3] each), not
 f32 (``_dot``/``_dot_acc`` of the JAX module); everything else is f32.
 
 On an H100 the MLP is ~0.54 MFLOP per sample forward and ~1.6 backward,
-so all four kernels are bound by their products.  A block keeps one
-64-sample operand tile in shared memory and streams each layer's weights,
-as K1 does; the activations the backward needs are staged in device
-memory.  K8's per-ray composite is a second, small launch (a ray's samples
-may span two tiles).  The backward kernels' weight gradients are one
-product per layer over all samples, split over K and reduced in a fixed
-order.
+so all four kernels are bound by their products.  The forward kernels
+K8/K6 keep the first design: a block keeps one 64-sample operand tile in
+shared memory and streams each layer's weights, as K1 does, each layer's
+input staged in device memory.  The backward kernels K9/K7 run their
+per-point pass on the pipeline of the SDF training kernels
+(``csrc/pipe.cuh``): the weights of their 2 L products stream through a
+cp.async ring ahead of the tensor cores, the products run on mma.sync with
+the epilogues in registers, each product's A operand stays in shared
+memory, and the ReLU masks are bits in shared memory; each layer's input
+X_l and output cotangent ZB_l still go to the workspace (``_workspace``),
+for the weight gradients, which are one product per layer over all
+samples, split over K and reduced in a fixed order.  K8's per-ray
+composite is a second, small launch (a ray's samples may span two tiles).
 """
 
 from __future__ import annotations

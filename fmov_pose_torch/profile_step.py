@@ -34,6 +34,10 @@ K4/K5 and the per-sample K6/K7, the background blocking K8/K9).
   the fused training kernels (their helper launches included), each
   with its device time per step, its share of the busy time and its rank
   among the ops of ``top``.
+* ``split``: each range's device time per step by kernel name (e.g. K9's
+  per-point ``color_bwd_kernel``, its ``atb_kernel`` and its
+  ``reduce_kernel``), the kernels tied to the range through the
+  correlation ids of the launches made inside it.
 
 Needs CUDA; raises without it.  ``--trace`` also writes the Chrome trace.
 """
@@ -81,6 +85,43 @@ def busy_us(trace_events) -> tuple[float, int]:
             end = b
     n_kernels = sum(1 for e in trace_events if e.get("cat") == "kernel")
     return total, n_kernels
+
+
+def _short(kernel):
+    """A device kernel's own name: ``void ns::(anonymous namespace)::k<T>(A)``
+    -> ``k``."""
+    name, depth, plain = kernel.replace("(anonymous namespace)", "anon"), 0, ""
+    for ch in name:  # drop template arguments, nested ones included
+        depth += (ch == "<") - (ch == ">")
+        if depth == 0 and ch != ">":
+            plain += ch
+    return plain.split("(", 1)[0].rsplit("::", 1)[-1].split()[-1]
+
+
+def range_split(trace_events, prefix="fmov::") -> dict:
+    """{range: {kernel: device us}} over a Chrome trace: a kernel belongs
+    to a ``prefix`` range when the runtime call that launched it (same
+    correlation id) lies inside the range on the host thread that ran
+    it."""
+    ranges = [e for e in trace_events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith(prefix) and "dur" in e]
+    owner = {}
+    for e in trace_events:
+        if e.get("cat") != "cuda_runtime" or "correlation" not in e.get("args", {}):
+            continue
+        for r in ranges:
+            if (r["tid"] == e["tid"] and r["pid"] == e["pid"]
+                    and r["ts"] <= e["ts"] <= r["ts"] + r["dur"]):
+                owner[e["args"]["correlation"]] = r["name"]
+                break
+    out = {}
+    for e in trace_events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") == "kernel" and corr in owner:
+            per = out.setdefault(owner[corr], {})
+            name = _short(e["name"])
+            per[name] = per.get(name, 0.0) + e["dur"]
+    return out
 
 
 def _steps(runner, n, switch, fused):
@@ -161,7 +202,8 @@ def main(argv=None):
         trace = args.trace or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
         with open(trace) as f:
-            busy, n_kernels = busy_us(json.load(f)["traceEvents"])
+            events = json.load(f)["traceEvents"]
+        busy, n_kernels = busy_us(events)
         step_ms = sum(dev_ms) / n_prof
         busy_ms = busy / 1e3 / n_prof
         print(json.dumps({
@@ -193,6 +235,9 @@ def main(argv=None):
              "share_of_busy": t / 1e3 / n_prof / busy_ms,
              "rank": 1 + sum(s > t for s in selfs)}
             for k, t in sorted(ranges.items())]}), flush=True)
+        print(json.dumps({"phase": "split", "card": card, "conf": conf, "ranges": {
+            r: {k: us / 1e3 / n_prof for k, us in sorted(per.items())}
+            for r, per in sorted(range_split(events).items())}}), flush=True)
 
 
 if __name__ == "__main__":

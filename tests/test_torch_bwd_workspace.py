@@ -1,6 +1,7 @@
 """The workspace of K5 and K3, the second-order SDF backward
 (``fmov_pose_torch/ops/fused_sdf.py``, ``bwd_workspace_specs``), and the
-build line of ``chip_smoke.py`` that reports the per-point SDF kernels.
+build line of ``chip_smoke.py`` that reports the per-point kernels on the
+pipeline (K4, K2, K5, K3, and the color backward's K9 and K7).
 
 The kernels read the workspace through a pointer table in the order of
 ``sdf_bwd_launch`` (``ops/csrc/sdf_pipe.cuh``): AB_l ([FB_l; X_l]),
@@ -130,5 +131,12 @@ def test_build_line_names_the_per_point_kernels():
     assert chip_smoke._kernel_name(
         "_ZN10fmov_train12_GLOBAL__N_124sdf_fwd_grad_flat_kernelENS_7SdfArgsEPfiS2_") \
         == "sdf_fwd_grad_flat_kernel"
+    assert chip_smoke._kernel_name(
+        "_ZN10fmov_train12_GLOBAL__N_116color_bwd_kernelENS0_9ColorArgsE") \
+        == "color_bwd_kernel"
+    assert chip_smoke._kernel_name(
+        "_ZN10fmov_train12_GLOBAL__N_123color_sample_bwd_kernelENS0_10SampleArgsE") \
+        == "color_sample_bwd_kernel"
     assert set(chip_smoke.PER_POINT) == {"sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel",
-                                          "sdf_bwd_kernel", "sdf_bwd_flat_kernel"}
+                                          "sdf_bwd_kernel", "sdf_bwd_flat_kernel",
+                                          "color_bwd_kernel", "color_sample_bwd_kernel"}

@@ -288,6 +288,32 @@ def test_profile_busy_time_is_the_union_of_device_intervals():
     assert busy_us(events) == (15.0 + 2.0 + 1.0, 4)
 
 
+def test_profile_split_ties_kernels_to_their_ranges():
+    """A kernel counts toward the fmov:: range whose host interval holds
+    the runtime call that launched it, by correlation id, whenever the
+    kernel itself ran; template arguments and namespaces leave the name."""
+    from fmov_pose_torch.profile_step import range_split
+    k9 = "void fmov_train::(anonymous namespace)::color_bwd_kernel(fmov_train::(anonymous namespace)::ColorArgs)"
+    events = [
+        {"cat": "user_annotation", "name": "fmov::K9_color_ray_bwd", "ts": 0.0,
+         "dur": 10.0, "pid": 1, "tid": 2},
+        {"cat": "user_annotation", "name": "other_range", "ts": 20.0, "dur": 10.0,
+         "pid": 1, "tid": 2},
+        {"cat": "cuda_runtime", "ts": 1.0, "pid": 1, "tid": 2, "args": {"correlation": 5}},
+        {"cat": "cuda_runtime", "ts": 2.0, "pid": 1, "tid": 2, "args": {"correlation": 6}},
+        {"cat": "cuda_runtime", "ts": 3.0, "pid": 1, "tid": 9, "args": {"correlation": 7}},
+        {"cat": "cuda_runtime", "ts": 21.0, "pid": 1, "tid": 2, "args": {"correlation": 8}},
+        {"cat": "kernel", "name": k9, "ts": 40.0, "dur": 3.0, "args": {"correlation": 5}},
+        {"cat": "kernel", "name": "fmov_train::atb_kernel(fmov_train::AtbArgs)",
+         "ts": 44.0, "dur": 1.5, "args": {"correlation": 6}},
+        {"cat": "kernel", "name": "at::native::fill<float, int>(int)", "ts": 46.0,
+         "dur": 1.0, "args": {"correlation": 7}},   # another thread
+        {"cat": "kernel", "name": "gemm", "ts": 47.0, "dur": 1.0,
+         "args": {"correlation": 8}}]                # outside fmov::
+    assert range_split(events) == {
+        "fmov::K9_color_ray_bwd": {"color_bwd_kernel": 3.0, "atb_kernel": 1.5}}
+
+
 def test_chip_smoke_refuses_without_cuda():
     """chip_smoke.py exits non-zero and prints no result without a GPU."""
     if torch.cuda.is_available():
