@@ -11,16 +11,16 @@ Phases, each printing lines as it ends:
                  each, all started together (K1 sdf_fwd.cu, K2/K3
                  sdf_flat.cu, K4 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K6/K7
                  color_sample.cu, K8/K9 color_ray.cu), and print ptxas's
-                 registers and spills (by name for the six per-point
-                 kernels on the pipeline: K4's, K2's, K5's, K3's, K9's and
-                 K7's)
+                 registers and spills (by name for the eight per-point
+                 kernels on the pipeline: K4's, K2's, K5's, K3's, K8's,
+                 K6's, K9's and K7's)
   3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
                  against its plain PyTorch version at the full width of
                  confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
   4. train-kernels -- K4, K5, K8 and K9 through their entries against their
                  plain versions at the full width of
                  confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
-                 3 x 128 (ragged), K4, K5 and K9 also against themselves:
+                 3 x 128 (ragged), K4, K5, K8 and K9 also against themselves:
                  two launches on the same inputs bitwise equal; CUDA-event
                  times of the entry, the kernel alone and the plain version
   5. flat-kernels -- K2 and K3 through their entry sdf_apply_grad_fused
@@ -34,8 +34,8 @@ Phases, each printing lines as it ends:
                  and every gradient leaf, xc included) against the same
                  entry on CPU copies (the plain versions) at the full width
                  of the fast conf, M = 512 x 128 and a ragged 1,000, xc
-                 built from K4's outputs, K7 also bitwise equal over two
-                 launches; CUDA-event times of the wrapper, the kernel alone
+                 built from K4's outputs, K6 and K7 also bitwise equal over
+                 two launches; CUDA-event times of the wrapper, the kernel alone
                  and the plain version
   7. slice    -- Runner trains confs/ho3d_global_womask.conf for 50 steps on
                  an in-memory 8-frame 480x640 orbit scene: finite losses, a
@@ -170,10 +170,11 @@ def phase_build():
     _line("build", all_seconds=f"{total:.2f}")
 
 
-# the per-point kernels on the pipeline (K4, K2, K5, K3, K9, K7), whose
-# registers and spills the build line names
+# the per-point kernels on the pipeline (K4, K2, K5, K3, K8, K6, K9, K7),
+# whose registers and spills the build line names
 PER_POINT = ("sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel", "sdf_bwd_kernel",
-             "sdf_bwd_flat_kernel", "color_bwd_kernel", "color_sample_bwd_kernel")
+             "sdf_bwd_flat_kernel", "color_fwd_kernel", "color_sample_fwd_kernel",
+             "color_bwd_kernel", "color_sample_bwd_kernel")
 
 
 def _kernel_name(mangled):
@@ -494,6 +495,8 @@ def phase_train_kernels(dev):
             dirs = d / d.norm(dim=-1, keepdim=True)
             weights = rand(B, N) / N
             geo = (out, x, dirs, grad, weights)
+            _same_twice("train-kernels", "color_ray_fwd", M,
+                        lambda: (fused_color.launch_fwd(cpk, *geo),))
             report("color_ray_fwd", B, N, lambda got, ref: _rows(ref, got), ROW_TOL,
                    lambda: fused_color.color_ray_fwd(cws, cbs, *geo, cfg_c),
                    lambda: fused_color.launch_fwd(cpk, *geo),
@@ -663,6 +666,8 @@ def phase_color_kernels(dev):
                                                        (g.cpu() for g in gs))))
         rows = _rows(res["plain"][0], res["kernels"][0])
         leaves_res = _leaf_check(res["plain"][1], res["kernels"][1])
+        _same_twice("color-kernels", "color_fwd", M,
+                    lambda: (fused_color.launch_fwd_sample(pk, xc),))
         _same_twice("color-kernels", "color_bwd", M,
                     lambda: fused_color.launch_bwd_sample(pk, xc, ct))
         with torch.no_grad():

@@ -6,27 +6,28 @@
 //
 // Per 64-sample tile the input X_0 = [pts, PE(dirs), normals, feature]
 // (idr order, the feature being columns 1.. of the raw SDF output) is
-// built in f32 and rounded to bf16, then the ReLU layers and the sigmoid
-// rgb c.  K8 (the first design: color_forward_tile on tile_gemm) writes c
-// and composites each ray, color[b] = sum_j c w[b, j], in a second launch
-// (a ray's samples may span two tiles).  K9 runs color_bwd_tile on the
-// per-point pipeline (color_train.cuh, pipe.cuh): it recomputes the
-// forward, then d_weights = c . ct[b], zbar = ct[b] w c (1 - c), and
-// descends: inpbar = zbar_l W_l^T, zbar_{l-1} = inpbar [X_l > 0]; at layer
-// 0 the input cotangent splits into pts, PE(dirs) (through PE'), normals
-// (shared memory, for the ubar stage) and the feature columns (featbar).
-// Weight gradients X_l^T ZB_l over all samples and the bias sums go
-// through atb_kernel / reduce_kernel (train_common.cuh).  This file holds
-// the input and output stages.
+// built in f32 per element (color_input) and rounded to bf16 into the
+// first A operand, then the ReLU layers and the sigmoid rgb c, all on the
+// per-point pipeline (color_train.cuh, pipe.cuh).  K8 walks the forward's
+// 5 products (ColorFwdSeq, at 4x256): its epilogue writes c to C [M_pad x
+// 4] and a second launch composites each ray, color[b] = sum_j c w[b, j]
+// (a ray's samples may span two tiles).  K9 runs color_bwd_tile: it
+// recomputes the forward through the same function, then d_weights = c .
+// ct[b], zbar = ct[b] w c (1 - c), and descends: inpbar = zbar_l W_l^T,
+// zbar_{l-1} = inpbar [X_l > 0]; at layer 0 the input cotangent splits
+// into pts, PE(dirs) (through PE'), normals (shared memory, for the ubar
+// stage) and the feature columns (featbar).  Weight gradients X_l^T ZB_l
+// over all samples and the bias sums go through atb_kernel /
+// reduce_kernel (train_common.cuh).  This file holds the input and output
+// stages.
 //
 // What bounds them: ~0.6 MFLOP of bf16 products per sample forward and
 // ~1.8 backward at 4x256 (289 inputs), against ~1.1 KB of inputs per
-// sample, so the products, 0.108 ms for K9 at M = 65,536 on an H100.  Far
-// from it: K8's first design loads every A from device memory and waits
-// on each weight chunk; K9's per-point pass keeps its operands on chip and
-// streams the weights ahead, but its mma.sync loop and epilogues overlap
-// nothing (PERF.md), and the weight-gradient product (atb_kernel, wmma
-// from device memory) is a second pass over X_l and ZB_l.
+// sample, so the products: 0.036 ms for K8 and 0.108 ms for K9 at M =
+// 65,536 on an H100.  Far from it: the mma.sync loop stops at a barrier
+// every 32 weight rows and the tensor cores idle through the epilogues
+// and the input stage (PERF.md); K9's weight-gradient product (atb_kernel,
+// wmma from device memory) is a second pass over X_l and ZB_l.
 
 #include "color_train.cuh"
 
@@ -63,30 +64,31 @@ __device__ __forceinline__ float color_input(const ColorArgs& a, int gr, int c) 
   return a.sdf_out[(size_t)gr * a.d_sdf + 1 + c - 6 - a.npe];
 }
 
-// X_0 of the tile into the workspace: zero past d_in (to in_w) and past M.
-__device__ __forceinline__ void color_input_stage(const ColorArgs& a, int row0) {
-  const Layer& L0 = a.k.L[0];
-  for (int i = threadIdx.x; i < TILE_M * L0.in_w; i += THREADS) {
-    const int r = i / L0.in_w, c = i % L0.in_w;
-    const int gr = row0 + r;
-    const float v = (gr < a.k.M && c < a.k.d_in) ? color_input(a, gr, c) : 0.f;
-    a.k.X[0][(size_t)gr * L0.kp + c] = __float2bfloat16(v);
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
     color_fwd_kernel(const __grid_constant__ ColorArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const ColorSmem m = color_carve(smem, a.k.lda, a.k.ldb);
+  const ColorPipeSmem m = color_pipe_carve<ColorFwdSeq>(a.k, smem);
+  WRing<ColorFwdSeq> R = color_block_start<ColorFwdSeq>(a.k, m);
   const int n_tiles = a.k.M_pad / TILE_M;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TILE_M;
-    __syncthreads();
-    color_input_stage(a, row0);
-    color_forward_tile(a.k, row0, m, [&](int r, int n, float p) {
-      if (n < 3) a.C[(size_t)(row0 + r) * 4 + n] = color_sigmoid(p);
-    });
-  }
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+    color_forward(
+        a.k, tile * TILE_M, m, R, [&](int gr, int c) { return color_input(a, gr, c); },
+        nullptr,
+        // c's rgb columns of rows r, r + 8 into C (rows of 16 bytes): a
+        // pair at column 0, one value at column 2
+        [&](const Frag& f, int r0, const float (&c)[4]) {
+          if (f.n >= 3) return;
+          float* C0 = a.C + (size_t)(r0 + f.r) * 4 + f.n;
+          float* C1 = C0 + 8 * 4;
+          if (f.n == 0) {
+            *reinterpret_cast<float2*>(C0) = make_float2(c[0], c[1]);
+            *reinterpret_cast<float2*>(C1) = make_float2(c[2], c[3]);
+          } else {
+            *C0 = c[0];
+            *C1 = c[2];
+          }
+        });
+  color_block_end<ColorFwdSeq>(a.k, m);
 }
 
 // color[b][ch] = sum_j C[b N + j][ch] w[b N + j], j in order.
@@ -106,10 +108,10 @@ __global__ void composite_kernel(const float* C, const float* wts, int B, int N,
 __global__ void __launch_bounds__(THREADS, 1)
     color_bwd_kernel(const __grid_constant__ ColorArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const ColorBwdSmem m = color_bwd_carve(a.k, smem);
+  const ColorPipeSmem m = color_pipe_carve<ColorBwdSeq>(a.k, smem);
   const int small = 6 + a.npe;  // pts, PE(dirs), normals
   float* XCB = reinterpret_cast<float*>(m.rest);  // [TILE_M x small]
-  WRing<ColorBwdSeq> R = color_bwd_block_start(a.k, m);
+  WRing<ColorBwdSeq> R = color_block_start<ColorBwdSeq>(a.k, m);
 
   const int M = a.k.M;
   const int lane = threadIdx.x & 31;
@@ -197,7 +199,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (k == 0) a.featbar[(size_t)gr * a.d_sdf] = 0.f;
     }
   }
-  color_bwd_block_end(a.k, m);
+  color_block_end<ColorBwdSeq>(a.k, m);
 }
 
 // Fills ColorArgs; returns a cudaError_t.
@@ -233,8 +235,8 @@ using namespace fmov_train;
 
 extern "C" {
 
-// ptrs: X_0..X_{L-1}, C [M_pad x 4] (fused_color.py launch_fwd).  Returns a
-// cudaError_t (0 = launched).
+// ptrs: C [M_pad x 4] (fused_color.py launch_fwd).  Returns a cudaError_t
+// (0 = launched).
 int fmov_color_ray_fwd(const float* sdf_out, int d_sdf, const float* pts,
                        const float* dirs, const float* nrm, const float* wts,
                        int M, int M_pad, int N, const void* w, const float* bias,
@@ -245,15 +247,9 @@ int fmov_color_ray_fwd(const float* sdf_out, int d_sdf, const float* pts,
   int e = color_setup(a, sdf_out, d_sdf, pts, dirs, nrm, wts, M, M_pad, N, w,
                       bias, meta, n_lin, mv, ptrs, false, G);
   if (e) return e;
-  const size_t smem = color_smem(a.k);
-  cudaError_t ce = cudaFuncSetAttribute(
-      color_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (ce != cudaSuccess) return (int)ce;
-  if (M <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  color_fwd_kernel<<<G, THREADS, smem, st>>>(a);
-  ce = cudaGetLastError();
-  if (ce != cudaSuccess) return (int)ce;
+  e = color_pass_launch<ColorFwdSeq>(color_fwd_kernel, a, a.k, 0, G, st);
+  if (e || M <= 0) return e;
   const int B = M / N;
   composite_kernel<<<(B * 3 + 255) / 256, 256, 0, st>>>(a.C, wts, B, N, color);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // The per-point pipeline that the SDF training kernels (sdf_pipe.cuh: K4,
-// K2, K5, K3) and the color MLP's backward (color_train.cuh: K9, K7) share.
+// K2, K5, K3) and the color MLP's kernels (color_train.cuh: K8, K6, K9,
+// K7) share.
 //
 // A block of 8 warps owns a 64-point tile at a time and runs the tile's
 // fixed sequence of products A [64 x K] @ W [K x N], given as a type Seq

@@ -5,7 +5,7 @@
 //
 // The pipeline itself (the weight ring over a product sequence type,
 // mma.sync register epilogues, A operands in shared memory) is pipe.cuh's,
-// shared with the color MLP's backward (color_train.cuh).  The sequences
+// shared with the color MLP's kernels (color_train.cuh).  The sequences
 // here: FwdSeq, the forward, the last layer included, and the reverse
 // chain, 2 L - 1 products at L linears, 17 at 8x256; BwdSeq, the forward
 // to layer L-2, the reverse chain, Phase A and Phase B, 4 L - 3 products,

@@ -1,26 +1,23 @@
 // Shared pieces of the fused training kernels for Hopper (sm_90a): K2-K9.
-// The color forward kernels K6/K8 (color_train.cuh) run their products on
-// tile_gemm here; the per-point passes of K2-K5 (sdf_pipe.cuh) and of the
-// color backward K7/K9 (color_train.cuh) on the pipeline of pipe.cuh; the
-// weight gradients of K3, K5, K7 and K9 on atb_kernel here.
+// Their per-point passes run on the pipeline of pipe.cuh (K2-K5 through
+// sdf_pipe.cuh, the color kernels K6-K9 through color_train.cuh); this
+// file holds the constants, the packed layer table, the activations and
+// the positional encoding they share, and the weight gradients of K3, K5,
+// K7 and K9 (atb_kernel, reduce_kernel).
 //
 // Arithmetic contract (the TPU kernels'): every product rounds both
 // operands to bf16 and accumulates in f32; everything else is f32.
 //
-// A block of 8 warps owns a 64-point tile at a time.  Every product of
-// tile_gemm is A [64 x K] @ W [K x N]: A is a bf16 tile in shared memory
-// (load_tile), W a bf16 block of the packed weights (fmov_pose_torch/ops/
-// packing.py), streamed from device memory in 32-row chunks, and the
-// product runs on tensor cores (wmma bf16 16x16x16, f32 accumulators;
-// warp w owns column tiles w, w+8, w+16 for all four row tiles).  An
-// epilogue functor sees each element (row, column, value) once, through a
-// per-warp 16x16 f32 scratch.
+// A block of 8 warps owns a 64-point tile at a time.  Weights are bf16
+// blocks of the packed weights (fmov_pose_torch/ops/packing.py): product
+// l's forward block [kp x np] and its reverse block [kr x kp], rows padded
+// to multiples of 32, columns to multiples of 16.
 //
 // Weight gradients are one product per layer over all points, A^T B with
 // A [rows x ni] and B [rows x nj] bf16 arrays the per-point kernels wrote:
-// atb_kernel splits the rows into KS parts, each block writes a 64x64 f32
-// partial, and reduce_kernel adds the parts (and the per-block bias sums)
-// in a fixed order.
+// atb_kernel (wmma bf16 16x16x16) splits the rows into KS parts, each
+// block writes a 64x64 f32 partial, and reduce_kernel adds the parts (and
+// the per-block bias sums) in a fixed order.
 
 #pragma once
 
@@ -128,91 +125,6 @@ __device__ __forceinline__ void pe_eval(int kind, float f, float xs, float& v,
     v = c;
     j = -f * s;
     j2 = -(f * f) * c;
-  }
-}
-
-// dst [TILE_M x K] (shared, row stride lds) <- the first k_valid columns
-// of TILE_M rows of src (row stride ld), zero-filled up to K.  All of
-// k_valid, K, ld, lds are multiples of 8.  src may have been written
-// earlier in this kernel by this block, so it is read with plain loads.
-__device__ __forceinline__ void load_tile(bf16* dst, int lds, const bf16* src,
-                                          int ld, int k_valid, int K) {
-  const int vpr = K / 8;
-  for (int i = threadIdx.x; i < TILE_M * vpr; i += THREADS) {
-    const int r = i / vpr, c = (i % vpr) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (c < k_valid) v = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * lds + c) = v;
-  }
-}
-
-// acc = A [TILE_M x K] (shared, row stride lda) @ W [K x N] (device, row
-// stride N, streamed through wbuf [KCHUNK x ldb]), then epi(r, n, acc) for
-// every element.  K % KCHUNK == 0, N % 16 == 0, N <= MAX_N.  Its first barrier comes
-// before any product, so the block may still be writing A (load_tile)
-// on entry.
-template <class Epi>
-__device__ __forceinline__ void tile_gemm(const bf16* A, int lda,
-                                          const bf16* __restrict__ W, int K,
-                                          int N, bf16* wbuf, int ldb,
-                                          float* scr, Epi epi) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int ncol = N / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][COLT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < COLT; ++jj) wmma::fill_fragment(acc[i][jj], 0.f);
-
-  const int vpr = N / 8;  // 16-byte vectors per weight row
-  for (int k0 = 0; k0 < K; k0 += KCHUNK) {
-    __syncthreads();  // wbuf free
-    for (int i = tid; i < KCHUNK * vpr; i += THREADS) {
-      const int r = i / vpr, c = i % vpr;
-      reinterpret_cast<uint4*>(wbuf + r * ldb)[c] =
-          reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * N)[c];
-    }
-    __syncthreads();
-    if (warp < ncol) {
-#pragma unroll
-      for (int ks = 0; ks < KCHUNK; ks += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wmma::load_matrix_sync(fa[i], A + i * 16 * lda + k0 + ks, lda);
-#pragma unroll
-        for (int jj = 0; jj < COLT; ++jj) {
-          const int j = warp + jj * WARPS;
-          if (j < ncol) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, wbuf + ks * ldb + j * 16, ldb);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][jj], fa[i], fb, acc[i][jj]);
-          }
-        }
-      }
-    }
-  }
-
-  // Other warps may still be in the K loop; this reads only the warp's
-  // own scratch and writes device memory.
-#pragma unroll
-  for (int jj = 0; jj < COLT; ++jj) {
-    const int j = warp + jj * WARPS;
-    if (j >= ncol) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::store_matrix_sync(scr, acc[i][jj], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int e = lane * 8 + t;
-        epi(i * 16 + (e >> 4), j * 16 + (e & 15), scr[e]);
-      }
-      __syncwarp();
-    }
   }
 }
 

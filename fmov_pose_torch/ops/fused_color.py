@@ -30,18 +30,18 @@ only the order of the f32 sums.  Geometry is row layout ([M, 3] each), not
 f32 (``_dot``/``_dot_acc`` of the JAX module); everything else is f32.
 
 On an H100 the MLP is ~0.54 MFLOP per sample forward and ~1.6 backward,
-so all four kernels are bound by their products.  The forward kernels
-K8/K6 keep the first design: a block keeps one 64-sample operand tile in
-shared memory and streams each layer's weights, as K1 does, each layer's
-input staged in device memory.  The backward kernels K9/K7 run their
+so all four kernels are bound by their products.  All four run their
 per-point pass on the pipeline of the SDF training kernels
-(``csrc/pipe.cuh``): the weights of their 2 L products stream through a
+(``csrc/pipe.cuh``): the weights of the tile's products stream through a
 cp.async ring ahead of the tensor cores, the products run on mma.sync with
-the epilogues in registers, each product's A operand stays in shared
-memory, and the ReLU masks are bits in shared memory; each layer's input
-X_l and output cotangent ZB_l still go to the workspace (``_workspace``),
-for the weight gradients, which are one product per layer over all
-samples, split over K and reduced in a fixed order.  K8's per-ray
+the epilogues in registers, and each product's A operand stays in shared
+memory.  The forward kernels K8/K6 walk the L products of the forward and
+write nothing but their output (K8: the per-sample rgb C, for the
+composite); the backward kernels K9/K7 recompute the forward through the
+same tile code, keep the ReLU masks as bits in shared memory, and write
+each layer's input X_l and output cotangent ZB_l to the workspace
+(``_workspace``) for the weight gradients, which are one product per layer
+over all samples, split over K and reduced in a fixed order.  K8's per-ray
 composite is a second, small launch (a ray's samples may span two tiles).
 """
 
@@ -206,13 +206,14 @@ def _check(pk, sdf_out, pts, dirs, normals, weights):
 
 
 def _workspace(pk, M_pad, dev, backward, G=0, KS=0, composite=False):
-    """X_0..X_{L-1}; backward: ZB_0..ZB_{L-1}, DBPART, DWPART; K8
-    (``composite``): the per-sample rgb C."""
+    """The table ``color_core_setup`` and its callers read.  Backward:
+    X_0..X_{L-1}, ZB_0..ZB_{L-1}, DBPART, DWPART; K8's forward
+    (``composite``): only the per-sample rgb C; K6's forward: nothing."""
     ws_ = packing.Workspace()
     t = pk.table
-    for l in range(pk.n_lin):
-        ws_.add(f"X{l}", M_pad, t[l, 0], torch.bfloat16)
     if backward:
+        for l in range(pk.n_lin):
+            ws_.add(f"X{l}", M_pad, t[l, 0], torch.bfloat16)
         for l in range(pk.n_lin):
             ws_.add(f"ZB{l}", M_pad, t[l, 1], torch.bfloat16)
         ws_.add("DBPART", G, int(t[:, 1].sum()), torch.float32)

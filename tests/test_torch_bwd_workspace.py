@@ -137,6 +137,13 @@ def test_build_line_names_the_per_point_kernels():
     assert chip_smoke._kernel_name(
         "_ZN10fmov_train12_GLOBAL__N_123color_sample_bwd_kernelENS0_10SampleArgsE") \
         == "color_sample_bwd_kernel"
+    assert chip_smoke._kernel_name(
+        "_ZN10fmov_train12_GLOBAL__N_116color_fwd_kernelENS0_9ColorArgsE") \
+        == "color_fwd_kernel"
+    assert chip_smoke._kernel_name(
+        "_ZN10fmov_train12_GLOBAL__N_123color_sample_fwd_kernelENS0_10SampleArgsE") \
+        == "color_sample_fwd_kernel"
     assert set(chip_smoke.PER_POINT) == {"sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel",
                                           "sdf_bwd_kernel", "sdf_bwd_flat_kernel",
+                                          "color_fwd_kernel", "color_sample_fwd_kernel",
                                           "color_bwd_kernel", "color_sample_bwd_kernel"}

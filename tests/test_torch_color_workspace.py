@@ -1,15 +1,19 @@
-"""The workspace of K9 and K7, the color MLP's backward
+"""The workspace of the color MLP's kernels
 (``fmov_pose_torch/ops/fused_color.py``, ``_workspace``), and the packed
-layer table their per-point pass walks (``ColorBwdSeq`` in
-``ops/csrc/color_train.cuh``).
+layer table their per-point pass walks (``ColorFwdSeq`` and
+``ColorBwdSeq`` in ``ops/csrc/color_train.cuh``).
 
-The kernels read the workspace through a pointer table in the order of
-``color_core_setup``: X_0..X_{L-1}, ZB_0..ZB_{L-1} (bf16, row-major, the
-operands of the weight-gradient product ``atb_kernel`` reads), DBPART,
-then DWPART, which K9 takes at index 2 L + 1 and K7 after ZB and DBPART.
-The ReLU masks stay in shared memory, so the table holds only what the
-weight gradients need.  The kernels themselves run only on the card (the
-``cuda``-marked tests of ``test_torch_fused_color.py`` and
+The kernels read the workspace through a pointer table.  The backward K9
+and K7 read it in the order of ``color_core_setup``: X_0..X_{L-1},
+ZB_0..ZB_{L-1} (bf16, row-major, the operands of the weight-gradient
+product ``atb_kernel`` reads), DBPART, then DWPART, which K9 takes at
+index 2 L + 1 and K7 after ZB and DBPART.  The ReLU masks stay in shared
+memory, so the table holds only what the weight gradients need.  The
+forward K8 and K6 keep every layer's input in shared memory:
+``color_core_setup`` reads no pointer for a forward, K8's table is only
+the per-sample rgb C that its composite reads (index 0), and K6's is
+empty.  The kernels themselves run only on the card (the ``cuda``-marked
+tests of ``test_torch_fused_color.py`` and
 ``test_torch_fused_color_sample.py``).
 """
 
@@ -33,8 +37,11 @@ def _pack(cfg):
     return fused_color.RayPack(ws, bs, cfg)
 
 
-@pytest.mark.parametrize("cfg,M", [(FULL, 65536), (RAGGED, 1000), (RAGGED, 64)],
-                         ids=["full-65536", "ragged-1000", "ragged-64"])
+SIZES = pytest.mark.parametrize("cfg,M", [(FULL, 65536), (RAGGED, 1000), (RAGGED, 64)],
+                                ids=["full-65536", "ragged-1000", "ragged-64"])
+
+
+@SIZES
 def test_color_bwd_workspace_table(cfg, M):
     pk = _pack(cfg)
     t = pk.table.tolist()
@@ -83,3 +90,25 @@ def test_color_bwd_workspace_pointer_order():
         arr = ws_.arrays[name]
         assert arr.shape == (rows, width) and arr.dtype == dtype
         assert arr.data_ptr() == int(addr)
+
+
+@SIZES
+def test_color_fwd_workspace_tables(cfg, M):
+    """K8's forward table is only C [M_pad x 4] f32 at index 0, where
+    ``color_setup`` reads it after ``color_core_setup`` read nothing; K6's
+    is empty.  Neither holds X_0..X_{L-1}: at the full width that was
+    65,536 x (320 + 4 x 256) bf16 elements, 176 MB, that the first
+    design's forward wrote and read back."""
+    pk = _pack(cfg)
+    M_pad = packing.round_up(M, packing.TILE_M)
+    k8 = fused_color._workspace(pk, M_pad, torch.device("cpu"), False, composite=True)
+    assert k8.specs == [("C", M_pad, 4, torch.float32)]
+    assert len(k8.table) == 1 and int(k8.table[0]) == k8.arrays["C"].data_ptr()
+    assert k8.arrays["C"].shape == (M_pad, 4)
+    k6 = fused_color._workspace(pk, M_pad, torch.device("cpu"), False)
+    assert k6.specs == [] and len(k6.table) == 0 and k6.arrays == {}
+    if cfg is FULL:
+        t = pk.table.tolist()
+        assert sum(r[0] for r in t) == 320 + 4 * 256
+        assert 65536 * 2 * sum(r[0] for r in t) == 176_160_768
+        assert k8.buffer.numel() == 65536 * 4 * 4
