@@ -11,12 +11,17 @@ Phases, each printing lines as it ends:
                  each, all started together (K1 sdf_fwd.cu, K2/K3
                  sdf_flat.cu, K4 sdf_fwd_grad.cu, K5 sdf_bwd.cu, K6/K7
                  color_sample.cu, K8/K9 color_ray.cu), and print ptxas's
-                 registers and spills (by name for the eight per-point
-                 kernels on the pipeline: K4's, K2's, K5's, K3's, K8's,
-                 K6's, K9's and K7's)
+                 registers and spills (by name for the nine per-point
+                 kernels on the pipeline: K1's, K4's, K2's, K5's, K3's,
+                 K8's, K6's, K9's and K7's)
   3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
+                 and through the pre-packed launch the up-sampler takes
                  against its plain PyTorch version at the full width of
                  confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
+                 (the first two also bitwise equal over two launches), and
+                 at a small width with the skip at the last linear;
+                 CUDA-event times of the entry, the pre-packed launch and
+                 the plain version
   4. train-kernels -- K4, K5, K8 and K9 through their entries against their
                  plain versions at the full width of
                  confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
@@ -170,9 +175,10 @@ def phase_build():
     _line("build", all_seconds=f"{total:.2f}")
 
 
-# the per-point kernels on the pipeline (K4, K2, K5, K3, K8, K6, K9, K7),
-# whose registers and spills the build line names
-PER_POINT = ("sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel", "sdf_bwd_kernel",
+# the per-point kernels on the pipeline (K1, K4, K2, K5, K3, K8, K6, K9,
+# K7), whose registers and spills the build line names
+PER_POINT = ("sdf_fwd_kernel", "sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel",
+             "sdf_bwd_kernel",
              "sdf_bwd_flat_kernel", "color_fwd_kernel", "color_sample_fwd_kernel",
              "color_bwd_kernel", "color_sample_bwd_kernel")
 
@@ -223,11 +229,16 @@ def model_cfg(conf, section):
 
 
 def phase_kernels(dev):
-    """K1 through the entries the up-sampler calls (``sdf_only_fused`` /
-    ``sdf_apply_fused``: weight materialisation, packing, launch) against
-    the plain version on the same weights; times the entry, the bare
-    launch on pre-packed weights, and the plain version with its
-    materialisation."""
+    """K1 through its entries (``sdf_only_fused`` / ``sdf_apply_fused``:
+    weight materialisation, packing, launch) and through the launch on a
+    pack built once (``FwdPack``, ``launch``: the up-sampler's route, which
+    must give the entry's bits) against the plain version on the same
+    weights, at the slice-1 conf's full width; at the up-sampler's M =
+    32,768 and 8,192 also bitwise run to run.  Times the entry, the
+    pre-packed launch, and the plain version with its materialisation.
+    Then a small width with the skip concat at the last linear
+    (``skip_in = (n_layers,)``, which K1 takes and K2-K5 do not) at a
+    ragged M = 1,000."""
     import numpy as np
     import torch
     from fmov_pose_torch import convert
@@ -256,13 +267,18 @@ def phase_kernels(dev):
                 _require(fused_sdf.LAUNCHES == before + 1,
                          f"{entry.__name__} did not launch K1 once")
                 err = fused_sdf.tolerance_check(plain(), got)
-                packed = fused_sdf.pack(*fused_sdf.materialize(params, cfg), cfg,
-                                        want_feature)
+                pk = fused_sdf.FwdPack(params, cfg, want_feature)
+                same_route = bool(torch.equal(fused_sdf.launch(pk, x), got))
+                _require(same_route, f"K1 on a pack built once and {entry.__name__} "
+                                     f"differ at M={M}")
+                if M != 1000:
+                    _same_twice("kernels", f"sdf_fwd_{entry.__name__}", M,
+                                lambda: (fused_sdf.launch(pk, x),))
                 entry_ms = _median_ms(lambda: entry(params, cfg, x))
-                kernel_ms = _median_ms(
-                    lambda: fused_sdf.launch(packed, x, float(cfg["scale"])))
+                kernel_ms = _median_ms(lambda: fused_sdf.launch(pk, x))
                 plain_ms = _median_ms(plain)
                 _line("kernels", name="sdf_fwd", entry=entry.__name__, M=M,
+                      prepacked_equals_entry=same_route,
                       ok=err["ok"], errors=json.dumps(err, sort_keys=True),
                       tol=(f"sdf median<={fused_sdf.SDF_MEDIAN_TOL} "
                            f"max<={fused_sdf.SDF_MAX_TOL}; feature/max|f| "
@@ -276,6 +292,22 @@ def phase_kernels(dev):
                 if M == 32768 and not want_feature:
                     main = {"max_abs_err": err["sdf_max"], "ms": entry_ms,
                             "plain_ms": plain_ms, **_bound(*_sdf_work(cfg, M, "K1"))}
+        # the skip concat at the last linear, at a small width
+        small = dict(cfg, d_out=33, d_hidden=64, n_layers=4, skip_in=(4,), multires=4,
+                     scale=0.8)
+        sp = convert.to_torch(convert.to_numpy(
+            nets.init_sdf(np.random.default_rng(SEED + 1), small)), dev)
+        x = (torch.rand((1000, 3), generator=gen, device=dev) * 2 - 1) * 0.9
+        for want_feature in (False, True):
+            pk = fused_sdf.FwdPack(sp, small, want_feature)
+            got = fused_sdf.launch(pk, x)
+            err = fused_sdf.tolerance_check(
+                fused_sdf.sdf_forward_plain(pk.ws, pk.bs, x, small, want_feature), got)
+            _line("kernels", name="sdf_fwd", width="4x64_skip_at_last_linear", M=1000,
+                  want_feature=want_feature, ok=err["ok"],
+                  errors=json.dumps(err, sort_keys=True).replace(" ", ""))
+            _require(err["ok"], f"K1 with the skip at the last linear disagrees with "
+                                f"the plain version: {err}")
     return main
 
 

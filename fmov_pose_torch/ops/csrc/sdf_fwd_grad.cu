@@ -31,7 +31,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     sdf_fwd_grad_kernel(const __grid_constant__ SdfArgs s, float* out,
                         int n_out, float* sdf, float* grad) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem m = fwd_smem_carve(s, smem);
+  const FwdSmem m = fwd_smem_carve<FwdSeq>(s, smem);
   const float* DIN = m.DIN;
   WRing<FwdSeq> R = ring_start<FwdSeq>(s, m.ring);
 
@@ -85,8 +85,8 @@ int fmov_sdf_fwd_grad(const float* x, int M, int M_pad, float scale,
   s.w = static_cast<const bf16*>(w);
   s.bias = bias;
   s.wlast = wlast;
-  return sdf_fwd_launch(sdf_fwd_grad_kernel, s, ptrs, G, (cudaStream_t)stream, out,
-                        n_out, sdf, grad);
+  return sdf_fwd_launch<FwdSeq>(sdf_fwd_grad_kernel, s, ptrs, G, (cudaStream_t)stream,
+                                out, n_out, sdf, grad);
 }
 
 }  // extern "C"

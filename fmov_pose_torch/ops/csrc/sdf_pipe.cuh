@@ -1,18 +1,21 @@
-// The per-point pipeline of the SDF training kernels: K4 (sdf_fwd_grad.cu)
-// and K2 (sdf_flat.cu), the forward with its gradient chain, run
+// The per-point pipeline of the SDF kernels: K1 (sdf_fwd.cu), the
+// gradient-free forward, runs sdf_fwd_tile; K4 (sdf_fwd_grad.cu) and K2
+// (sdf_flat.cu), the forward with its gradient chain, run
 // sdf_fwd_grad_tile; K5 (sdf_bwd.cu) and K3 (sdf_flat.cu), the second-order
 // backward, run sdf_bwd_tile.
 //
 // The pipeline itself (the weight ring over a product sequence type,
 // mma.sync register epilogues, A operands in shared memory) is pipe.cuh's,
 // shared with the color MLP's kernels (color_train.cuh).  The sequences
-// here: FwdSeq, the forward, the last layer included, and the reverse
-// chain, 2 L - 1 products at L linears, 17 at 8x256; BwdSeq, the forward
-// to layer L-2, the reverse chain, Phase A and Phase B, 4 L - 3 products,
-// 33 at 8x256.  The f32 arrays that only the owning block reads back (SIG,
-// DS, ZC) are stored in fragment order (frag4).  The backward's layers also
-// write the bf16 operands of its weight-gradient product (X, D, FB, ZB)
-// row-major to the workspace; the forward's write only SIG there.
+// here: FwdOnlySeq, the forward alone, L products at L linears, 9 at
+// 8x256; FwdSeq, the forward, the last layer included, and the reverse
+// chain, 2 L - 1 products, 17 at 8x256; BwdSeq, the forward to layer L-2,
+// the reverse chain, Phase A and Phase B, 4 L - 3 products, 33 at 8x256.
+// The f32 arrays that only the owning block reads back (SIG, DS, ZC) are
+// stored in fragment order (frag4).  The backward's layers also write the
+// bf16 operands of its weight-gradient product (X, D, FB, ZB) row-major to
+// the workspace; the forward with the gradient chain writes only SIG
+// there, and K1 writes nothing per point but its output rows.
 //
 // What bounds them now (NVIDIA H100 80GB HBM3, PERF.md): nothing
 // overlaps.  The epilogues (for K5/K3 ~5 GB of f32 and bf16 per-point
@@ -29,14 +32,18 @@ namespace fmov_train {
 
 // The product sequences of a tile: product p's weight block (offset, K,
 // N).  The ring issues them in this order and the tile consumes them in
-// the same order, product for product and chunk for chunk.  kOperands:
-// the layers also store the weight-gradient product's operands (X_l, D_l,
-// DS_l) in the workspace, which only the backward needs (a compile-time
-// flag: the backward kernels sit at the register limit).
+// the same order, product for product and chunk for chunk.  Two
+// compile-time flags gate the stores only some sequences need (the
+// backward kernels sit at the register limit): kChain, a gradient chain
+// follows the forward, so the forward layers store sig_l (SIG) and the
+// encoding stage zeroes its d_inputs (DIN); kOperands, the layers also
+// store the weight-gradient product's operands (X_l, D_l, DS_l) in the
+// workspace, which only the backward needs.
 //
 // K5/K3: p < L-1: forward l = p; then the reverse chain l = L-2..0; Phase
 // A l = 0..L-2; Phase B l = L-1..0.
 struct BwdSeq {
+  static constexpr bool kChain = true;
   static constexpr bool kOperands = true;
   static __device__ __forceinline__ int count(const SdfArgs& s) { return 4 * s.n_lin - 3; }
   static __device__ __forceinline__ void product(const SdfArgs& s, int p, int& off,
@@ -67,6 +74,7 @@ struct BwdSeq {
 // K4/K2: p < L: forward l = p, the last layer included; then the reverse
 // chain l = L-2..0.
 struct FwdSeq {
+  static constexpr bool kChain = true;
   static constexpr bool kOperands = false;
   static __device__ __forceinline__ int count(const SdfArgs& s) { return 2 * s.n_lin - 1; }
   static __device__ __forceinline__ void product(const SdfArgs& s, int p, int& off,
@@ -76,6 +84,19 @@ struct FwdSeq {
     off = rev ? Ly.r_off : Ly.w_off;
     K = rev ? Ly.kr : Ly.kp;
     N = rev ? Ly.kp : Ly.np;
+  }
+};
+
+// K1: p < L: forward l = p, the last layer included; a forward-only table.
+struct FwdOnlySeq {
+  static constexpr bool kChain = false;
+  static constexpr bool kOperands = false;
+  static __device__ __forceinline__ int count(const SdfArgs& s) { return s.n_lin; }
+  static __device__ __forceinline__ void product(const SdfArgs& s, int p, int& off,
+                                                 int& K, int& N) {
+    off = s.L[p].w_off;
+    K = s.L[p].kp;
+    N = s.L[p].np;
   }
 };
 
@@ -249,11 +270,11 @@ __device__ __forceinline__ void add_pe(float* P, int pe_pad, const Frag& f, int 
   }
 }
 
-// Forward layer l < L-1: z = X_l W_l + b_l (A = X_l); stores sig_l (in
-// fragment order) and X_{l+1} into An.  With Seq::kOperands (the
-// backward), X_{l+1} also goes to the workspace, and at l = L-2, which
-// has no last-layer product after it, D_{L-2} = bf16(wlast sig) takes
-// X_{L-1}'s place in An (and goes to the workspace).
+// Forward layer l < L-1: z = X_l W_l + b_l (A = X_l); stores X_{l+1} into
+// An and, with Seq::kChain, sig_l (in fragment order).  With
+// Seq::kOperands (the backward), X_{l+1} also goes to the workspace, and
+// at l = L-2, which has no last-layer product after it, D_{L-2} =
+// bf16(wlast sig) takes X_{L-1}'s place in An (and goes to the workspace).
 template <class Seq>
 __device__ __forceinline__ void forward_layer(const SdfArgs& s, int l, int row0,
                                               const bf16* A, bf16* An, WRing<Seq>& R) {
@@ -281,7 +302,8 @@ __device__ __forceinline__ void forward_layer(const SdfArgs& s, int l, int row0,
               act_pair(v[1] + in.a.y, sp[1], sig[1]);
               act_pair(v[2] + in.a.x, sp[2], sig[2]);
               act_pair(v[3] + in.a.y, sp[3], sig[3]);
-              *frag4(s.SIG[l], Ly.np, row0, f) = make_float4(sig[0], sig[1], sig[2], sig[3]);
+              if (Seq::kChain)
+                *frag4(s.SIG[l], Ly.np, row0, f) = make_float4(sig[0], sig[1], sig[2], sig[3]);
               if (ops)
                 st_frag_bf16(X, kp_next, f, sp[0] * cx, sp[1] * cx, sp[2] * cx, sp[3] * cx);
               if (pre_last) {
@@ -587,23 +609,26 @@ inline int sdf_bwd_launch(Kernel kernel, BwdArgs& a, int n_bias,
 }
 
 // ---------------------------------------------------------------------------
-// The forward with its gradient chain (K4, K2)
+// The forward: alone (K1), and with its gradient chain (K4, K2)
 // ---------------------------------------------------------------------------
 
 // The shared memory of a forward block, in this order.
 struct FwdSmem {
   bf16* A;     // 2 x [TILE_M x lda]: product p's A operand in A + (p % 2)
   bf16* ring;  // RING x [KCHUNK x ldb]
-  float* DIN;  // [TILE_M x pe_pad]
+  float* DIN;  // [TILE_M x pe_pad] (Seq::kChain; else null)
   bf16* PES;   // [TILE_M x pe_pad]: X_S's PE half, PE / sqrt2
 };
 
+template <class Seq>
 inline size_t fwd_smem_bytes(const SdfArgs& s) {
   return 2 * align128((size_t)TILE_M * s.lda * 2) +
          align128((size_t)RING * KCHUNK * s.ldb * 2) +
-         align128((size_t)TILE_M * s.pe_pad * 4) + align128((size_t)TILE_M * s.pe_pad * 2);
+         (Seq::kChain ? align128((size_t)TILE_M * s.pe_pad * 4) : 0) +
+         align128((size_t)TILE_M * s.pe_pad * 2);
 }
 
+template <class Seq>
 __device__ __forceinline__ FwdSmem fwd_smem_carve(const SdfArgs& s, unsigned char* smem) {
   FwdSmem m;
   size_t off = 0;
@@ -614,14 +639,16 @@ __device__ __forceinline__ FwdSmem fwd_smem_carve(const SdfArgs& s, unsigned cha
   };
   m.A = reinterpret_cast<bf16*>(take(2 * (size_t)TILE_M * s.lda * 2));
   m.ring = reinterpret_cast<bf16*>(take((size_t)RING * KCHUNK * s.ldb * 2));
-  m.DIN = reinterpret_cast<float*>(take((size_t)TILE_M * s.pe_pad * 4));
+  m.DIN = Seq::kChain ? reinterpret_cast<float*>(take((size_t)TILE_M * s.pe_pad * 4))
+                      : nullptr;
   m.PES = reinterpret_cast<bf16*>(take((size_t)TILE_M * s.pe_pad * 2));
   return m;
 }
 
 // The tile's encoding into X_0 (in A, product 0's operand) and the PE half
-// of X_S (PES): computed from x (rays kernel; rows past M encode x = 0),
-// or read from xe_in (flat kernel).  Zeroes DIN.
+// of X_S (PES): computed from x (rays kernels; rows past M encode x = 0),
+// or read from xe_in (flat kernel).  Zeroes DIN (Seq::kChain).
+template <class Seq>
 __device__ __forceinline__ void fwd_pe_stage(const SdfArgs& s, int row0,
                                              const FwdSmem& m) {
   const int total = TILE_M * s.pe_pad;
@@ -663,24 +690,40 @@ __device__ __forceinline__ void fwd_pe_stage(const SdfArgs& s, int row0,
       }
       m.A[r * s.lda + c] = __float2bfloat16(v);
       m.PES[i] = __float2bfloat16(v * INV_SQRT2);
-      m.DIN[i] = 0.f;
+      if (Seq::kChain) m.DIN[i] = 0.f;
     }
   }
   finish_a(s, m.A, s.pe_pad, nullptr, s.L[0].kp);
 }
 
-// The last layer: z = X_{L-1} W_{L-1} + b (A = X_{L-1}); out = [z0 /
-// scale, z1..] for the real rows and columns (and sdf = out[:, 0] when
-// set), stored as scalars: out's row stride (4 n_out bytes) need not be
-// 8-byte aligned.  Then each warp writes D_{L-2} = bf16(wlast sig_{L-2}),
-// the first reverse product's operand, into An for its column tiles of
-// np(L-2): An held X_{L-2}, which no warp reads once all have passed this
-// product's first barrier.
-__device__ __forceinline__ void last_layer(const SdfArgs& s, int row0, const bf16* A,
-                                           bf16* An, WRing<FwdSeq>& R, float* out,
-                                           int n_out, float* sdf) {
+// The tile's encoding and the forward l = 0..L-2 (X_{l+1} into the next
+// A, and sig_l into SIG with Seq::kChain): products 0..L-2, the last
+// layer's operand X_{L-1} in A + ((L-1) % 2) on return.
+template <class Seq>
+__device__ __forceinline__ void forward_hidden(const SdfArgs& s, int row0, const FwdSmem& m,
+                                               WRing<Seq>& R) {
   const int last = s.n_lin - 1;
-  const Layer& Ly = s.L[last];
+  const size_t a_elems = (size_t)TILE_M * s.lda;
+  auto buf = [&](int q) { return m.A + (q & 1) * a_elems; };
+  __syncthreads();  // DIN, PES, A free
+  fwd_pe_stage<Seq>(s, row0, m);
+  for (int l = 0; l < last; ++l) {
+    forward_layer(s, l, row0, buf(l), buf(l + 1), R);
+    if (l + 1 == s.skip)
+      finish_a(s, buf(l + 1), s.hoff, m.PES, s.L[l + 1].kp);
+    else
+      finish_a(s, buf(l + 1), s.L[l].np, nullptr, s.L[l + 1].kp);
+  }
+}
+
+// The last layer's product: z = X_{L-1} W_{L-1} + b (A = X_{L-1}); out =
+// [z0 / scale, z1..] for the real rows and columns (and sdf = out[:, 0]
+// when set), stored as scalars: out's row stride (4 n_out bytes) need not
+// be 8-byte aligned.
+template <class Seq>
+__device__ __forceinline__ void last_out(const SdfArgs& s, int row0, const bf16* A,
+                                         WRing<Seq>& R, float* out, int n_out, float* sdf) {
+  const Layer& Ly = s.L[s.n_lin - 1];
   const float* b = s.bias + Ly.b_off;
   pipe_gemm(s, R, A, s.lda, Ly.kp, Ly.np, nullptr, 0,
             [&](const Frag& f) { return make_float2(b[f.n], b[f.n + 1]); },
@@ -701,6 +744,17 @@ __device__ __forceinline__ void last_layer(const SdfArgs& s, int row0, const bf1
                 if (c1) o[1] = v[2 * half + 1] + bn.y;
               }
             });
+}
+
+// The last layer (last_out), then each warp writes D_{L-2} = bf16(wlast
+// sig_{L-2}), the first reverse product's operand, into An for its column
+// tiles of np(L-2): An held X_{L-2}, which no warp reads once all have
+// passed this product's first barrier.
+__device__ __forceinline__ void last_layer(const SdfArgs& s, int row0, const bf16* A,
+                                           bf16* An, WRing<FwdSeq>& R, float* out,
+                                           int n_out, float* sdf) {
+  const int last = s.n_lin - 1;
+  last_out(s, row0, A, R, out, n_out, sdf);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int npd = s.L[last - 1].np;
@@ -742,18 +796,9 @@ __device__ __forceinline__ void sdf_fwd_grad_tile(const SdfArgs& s, int row0,
                                                   float* out, int n_out, float* sdf) {
   const int last = s.n_lin - 1;
   const size_t a_elems = (size_t)TILE_M * s.lda;
-  int p = 0;
+  int p = last;
   auto buf = [&](int q) { return m.A + (q & 1) * a_elems; };
-  __syncthreads();  // DIN, PES, A free
-  fwd_pe_stage(s, row0, m);
-
-  for (int l = 0; l < last; ++l, ++p) {
-    forward_layer(s, l, row0, buf(p), buf(p + 1), R);
-    if (l + 1 == s.skip)
-      finish_a(s, buf(p + 1), s.hoff, m.PES, s.L[l + 1].kp);
-    else
-      finish_a(s, buf(p + 1), s.L[l].np, nullptr, s.L[l + 1].kp);
-  }
+  forward_hidden(s, row0, m, R);
   last_layer(s, row0, buf(p), buf(p + 1), R, out, n_out, sdf);
   finish_a(s, buf(p + 1), s.L[last - 1].np, nullptr, s.L[last - 1].kr);  // D_{L-2}
   ++p;
@@ -764,14 +809,26 @@ __device__ __forceinline__ void sdf_fwd_grad_tile(const SdfArgs& s, int row0,
   __syncthreads();
 }
 
-// Host side of a forward launch: takes SIG_0..SIG_{L-2} from the pointer
-// table (fused_sdf.py fwd_workspace_specs) and launches `kernel` (one
-// block per SM at most) with (s, args...).  Returns a cudaError_t.
-template <class Kernel, class... Args>
+// Per tile, K1: the L products of FwdOnlySeq, product p's A operand in A
+// + (p % 2): the encoding stage, the forward l = 0..L-2 (X_{l+1} into the
+// next A, nothing to the workspace), then the last layer's out rows.
+__device__ __forceinline__ void sdf_fwd_tile(const SdfArgs& s, int row0, const FwdSmem& m,
+                                             WRing<FwdOnlySeq>& R, float* out, int n_out) {
+  const int last = s.n_lin - 1;
+  forward_hidden(s, row0, m, R);
+  last_out(s, row0, m.A + (last & 1) * (size_t)TILE_M * s.lda, R, out, n_out, nullptr);
+}
+
+// Host side of a forward launch: with Seq::kChain takes SIG_0..SIG_{L-2}
+// from the pointer table (fused_sdf.py fwd_workspace_specs; K1 has none)
+// and launches `kernel` (one block per SM at most) with (s, args...).
+// Returns a cudaError_t.
+template <class Seq, class Kernel, class... Args>
 inline int sdf_fwd_launch(Kernel kernel, SdfArgs& s, const unsigned long long* ptrs,
                           int G, cudaStream_t st, Args... args) {
-  for (int l = 0; l < s.n_lin - 1; ++l) s.SIG[l] = reinterpret_cast<float*>(ptrs[l]);
-  const size_t smem = fwd_smem_bytes(s);
+  if (Seq::kChain)
+    for (int l = 0; l < s.n_lin - 1; ++l) s.SIG[l] = reinterpret_cast<float*>(ptrs[l]);
+  const size_t smem = fwd_smem_bytes<Seq>(s);
   cudaError_t ce = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;

@@ -1,9 +1,10 @@
-// The SDF pieces the per-point training kernels share: the SdfArgs, the
-// layer table's checks and the notation.  K4 (sdf_fwd_grad.cu) and K2
-// (sdf_flat.cu) run sdf_fwd_grad_tile, K5 (sdf_bwd.cu) and K3 (sdf_flat.cu)
-// sdf_bwd_tile, both in sdf_pipe.cuh (a cp.async weight ring, mma.sync
-// register epilogues, A operands in shared memory).  Each pair differs
-// only in its input and output stages.  The rays kernels K4/K5 take x [M x
+// The SDF pieces the per-point kernels share: the SdfArgs, the layer
+// table's checks and the notation.  K1 (sdf_fwd.cu) runs sdf_fwd_tile, K4
+// (sdf_fwd_grad.cu) and K2 (sdf_flat.cu) sdf_fwd_grad_tile, K5 (sdf_bwd.cu)
+// and K3 (sdf_flat.cu) sdf_bwd_tile, all in sdf_pipe.cuh (a cp.async
+// weight ring, mma.sync register epilogues, A operands in shared memory).
+// Each pair of the training kernels differs only in its input and output
+// stages.  The rays kernels K4/K5 take x [M x
 // 3] and run the positional encoding and its derivatives per tile; the
 // flat kernels K2/K3 take the encoding xe [M x pe_dim] (and K3 the
 // cotangent gbar of the d_inputs) as given and return d_inputs / xebar [M
@@ -34,20 +35,26 @@ struct SdfArgs {
   const float* gbar_in;  // [M x pe_dim] cotangent of d_inputs (K3)
   const bf16* w;         // packed blocks
   const float* bias;     // packed biases
-  const float* wlast;    // W_{L-1}[:, 0], padded to np(L-2)
+  const float* wlast;    // W_{L-1}[:, 0], padded to np(L-2) (not K1)
   bf16* X[MAX_LIN];      // layer inputs, row stride kp(l) (backward)
   bf16* D[MAX_LIN];      // D_l, row stride np(l), l < L-1 (backward)
   float* SIG[MAX_LIN];   // sig_l, width np(l), l < L-1
   float* DS[MAX_LIN];    // d_l (backward, 1 <= l <= L-2), width np(l-1)
 };
 
-// Fills the shared fields; returns a cudaError_t.
+// Fills the shared fields; returns a cudaError_t.  reverse: the kernel
+// runs the gradient chain, whose table has reverse blocks and whose skip
+// layer is a hidden one (the chain starts from the last layer's column 0
+// against the hidden width); else (K1) the table is forward-only and the
+// skip may be the last linear (fused_sdf.py supported, the JAX entry's
+// contract).
 inline int sdf_setup(SdfArgs& s, const int* meta, int n_lin, int skip,
                      int multires, int M, int M_pad, float scale, int* max_k,
-                     int* max_n, int* n_bias) {
-  int e = read_layers(meta, n_lin, s.L, max_k, max_n, n_bias);
+                     int* max_n, int* n_bias, bool reverse = true) {
+  int e = read_layers(meta, n_lin, s.L, max_k, max_n, n_bias, reverse);
   if (e) return e;
-  if (skip < 1 || skip > n_lin - 2 || multires < 1 || M_pad % TILE_M ||
+  const int max_skip = reverse ? n_lin - 2 : n_lin - 1;
+  if (skip < 1 || skip > max_skip || multires < 1 || M_pad % TILE_M ||
       M > M_pad || (M > 0 && M_pad - M >= TILE_M))
     return (int)cudaErrorInvalidValue;
   s.n_lin = n_lin;

@@ -1,5 +1,5 @@
-// Shared pieces of the fused training kernels for Hopper (sm_90a): K2-K9.
-// Their per-point passes run on the pipeline of pipe.cuh (K2-K5 through
+// Shared pieces of the per-point kernels for Hopper (sm_90a): K1-K9.
+// Their per-point passes run on the pipeline of pipe.cuh (K1-K5 through
 // sdf_pipe.cuh, the color kernels K6-K9 through color_train.cuh); this
 // file holds the constants, the packed layer table, the activations and
 // the positional encoding they share, and the weight gradients of K3, K5,
@@ -11,7 +11,8 @@
 // A block of 8 warps owns a 64-point tile at a time.  Weights are bf16
 // blocks of the packed weights (fmov_pose_torch/ops/packing.py): product
 // l's forward block [kp x np] and its reverse block [kr x kp], rows padded
-// to multiples of 32, columns to multiples of 16.
+// to multiples of 32, columns to multiples of 16.  A forward-only table
+// (K1's) has no reverse blocks: kr and r_off are 0.
 //
 // Weight gradients are one product per layer over all points, A^T B with
 // A [rows x ni] and B [rows x nj] bf16 arrays the per-point kernels wrote:
@@ -43,8 +44,8 @@ constexpr int META = 8;
 constexpr float INV_SQRT2 = 0.70710678118654752f;
 
 // One packed layer (packing.py): forward block [kp x np] at w_off, reverse
-// block [kr x kp] at r_off, biases at b_off, real output width n, padded
-// input width in_w.
+// block [kr x kp] at r_off (kr = r_off = 0 in a forward-only table),
+// biases at b_off, real output width n, padded input width in_w.
 struct Layer {
   int kp, np, n, w_off, b_off, kr, r_off, in_w;
 };
@@ -55,9 +56,12 @@ __host__ __device__ constexpr size_t align128(size_t b) {
   return (b + 127) / 128 * 128;
 }
 
-// Reads and checks the layer table; returns a cudaError_t.
+// Reads and checks the layer table; returns a cudaError_t.  reverse: the
+// table holds the reverse blocks, and the ring's chunks are as wide as the
+// widest block of either kind (max_n); else it holds none (kr = r_off =
+// 0), and max_n is the widest forward block.
 inline int read_layers(const int* meta, int n_lin, Layer* out, int* max_k,
-                       int* max_n, int* n_bias) {
+                       int* max_n, int* n_bias, bool reverse = true) {
   if (n_lin < 1 || n_lin > MAX_LIN) return (int)cudaErrorInvalidValue;
   *max_k = *max_n = 16;
   *n_bias = 0;
@@ -72,12 +76,14 @@ inline int read_layers(const int* meta, int n_lin, Layer* out, int* max_k,
     L.kr = m[5];
     L.r_off = m[6];
     L.in_w = m[7];
-    if (L.kp % KCHUNK || L.kr % KCHUNK || L.np % 16 || L.in_w % 16 ||
-        L.in_w > L.kp || L.np > L.kr || L.np > MAX_N || L.kp > MAX_N ||
-        L.n > L.np || L.w_off % 8 || L.r_off % 8 || L.b_off != *n_bias)
+    const bool bad_rev = reverse ? (L.kr % KCHUNK || L.np > L.kr || L.r_off % 8)
+                                 : (L.kr != 0 || L.r_off != 0);
+    if (L.kp % KCHUNK || L.np % 16 || L.in_w % 16 || L.in_w > L.kp ||
+        L.np > MAX_N || L.kp > MAX_N || L.n > L.np || L.w_off % 8 ||
+        L.b_off != *n_bias || bad_rev)
       return (int)cudaErrorInvalidValue;
     *max_k = imax(*max_k, imax(L.kp, L.kr));
-    *max_n = imax(*max_n, imax(L.np, L.kp));
+    *max_n = imax(*max_n, reverse ? imax(L.np, L.kp) : L.np);
     *n_bias += L.np;
   }
   return 0;

@@ -1,8 +1,9 @@
-"""Fused SDF kernels: K1 (gradient-free forward), K4 (forward + d(sdf)/dx)
-and K5 (K4's second-order backward), with their plain versions and entries.
+"""Fused SDF kernels: K1 (gradient-free forward), K4 and K2 (forward +
+d(sdf)/dx, rays and flat) and K5 and K3 (their second-order backward), with
+their plain versions and entries.
 
-K4 and K5 are described below ``sdf_forward`` (the rays path of the
-training step); this header describes K1.
+K2-K5 are described below ``sdf_apply_fused`` (the training step's SDF);
+this header describes K1.
 
 K1 replaces the Pallas kernel ``fmov_pose_tpu/ops/fused_sdf.py:_make_fwd_kernel``
 (launched by ``_sdf_forward_impl``; entries ``sdf_only_fused`` and
@@ -12,27 +13,38 @@ skip concat /sqrt(2), and sdf/scale (plus the 256 features when asked).
 Its arithmetic is the TPU kernel's: f32 inputs, biases and outputs, and
 every product of bf16-rounded operands accumulated in f32.
 
-What bounds it on an H100: about 1.05 MFLOP per point against 12 bytes in
-and 4 (or 1,028) bytes out.  The training step's up-sampler queries
-57,344 points (32,768 + 3 x 8,192) per step, ~60 GFLOP, so the kernel is
-compute- and shared-memory-bound, never bandwidth-bound.  Its design
-keeps a 64-point tile's activations in shared memory across all layers,
-streams each layer's weights (1 MB in bf16, too big for shared memory)
-through a 32-row buffer, and runs the products on tensor cores (wmma bf16
-with f32 accumulation).  See the source's header for the layout.
+What bounds it on an H100: about 0.92 MFLOP of products per point for the
+sdf alone against 12 bytes in and 4 out.  The training step's up-sampler
+queries 57,344 points (32,768 + 3 x 8,192) per step, ~53 GFLOP, so the
+products bound it, never the bytes.  It runs on the per-point pipeline of
+K2-K9 (``csrc/sdf_pipe.cuh``): one block per SM loops over 64-point
+tiles, the weights (1 MB in bf16, too big for shared memory) stream
+through a cp.async ring across layers and tiles, the products run on
+mma.sync with their epilogues in registers, and a tile's activations stay
+in shared memory.  See the source's header.
 
 Beside it:
 
+* ``FwdPack`` — K1's weights for one set of parameters, built once: the
+  dense f32 weights (the weight norm materialised; the plain version's)
+  and, on CUDA, ``pack_forward``'s blocks and layer table (those of
+  ``packing.pack_train`` without the reverse blocks), the last layer cut
+  to its column 0 for the sdf alone.  The up-sampler builds one per
+  render and queries it four times.
+* ``launch`` — one kernel launch on a pack; the only place that counts
+  ``LAUNCHES`` (kernel launches so far), inside the profiler range
+  ``PROFILE_K1``.
+* ``sdf_forward`` — K1 on a pack: a CUDA tensor launches the kernel (or
+  raises); a CPU tensor takes the plain version on the pack's weights, the
+  port's counterpart of the JAX package's interpret mode.
 * ``sdf_forward_plain`` — the same arithmetic in PyTorch (operands rounded
   with ``.bfloat16().float()`` and multiplied in f32: a bf16 ``matmul``
   would also round its output).  The CPU tests hold it against the JAX
   kernel in interpret mode; ``chip_smoke.py`` holds the kernel against it.
-* ``sdf_only_fused`` / ``sdf_apply_fused`` — a CUDA tensor launches the
-  kernel (or raises); a CPU tensor takes the plain version, the port's
-  counterpart of the JAX package's interpret mode.  Their backward
+* ``sdf_only_fused`` / ``sdf_apply_fused`` — the JAX entries' counterparts:
+  a pack of the given parameters, then ``sdf_forward``.  Their backward
   differentiates the plain f32 ``nets`` functions, as the JAX custom_vjp
   does; the TPU kernel has no backward kernel, so neither has this one.
-* ``LAUNCHES`` — kernel launches so far, counted where the kernel launches.
 """
 
 from __future__ import annotations
@@ -48,11 +60,11 @@ from fmov_pose_torch import convert
 from fmov_pose_torch.core.embedder import positional_encode
 from fmov_pose_torch.fields import nets
 from fmov_pose_torch.ops import packing
-# K padding of the packed weights (csrc/sdf_fwd.cu KCHUNK), the widest
-# layer a kernel takes (8 warps x 3 column tiles), the most linears
-from fmov_pose_torch.ops.packing import KCHUNK, MAX_COLS, MAX_LIN, round_up
+from fmov_pose_torch.ops.packing import round_up
 
 LAUNCHES = 0
+# the profiler range around K1's launches (``profile_step.py`` reads it)
+PROFILE_K1 = "fmov::K1_sdf_fwd"
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -65,7 +77,7 @@ def supported(cfg) -> bool:
     """The configurations the kernel takes (``ops/fused_sdf.py:supported``
     of the JAX package without its backend test: here the tensor's device
     picks kernel or plain version).  The skip layer must have a layer
-    before it: ``pack`` lays its input out as [h | xe]."""
+    before it (its input is laid out as [h | xe]); it may be the last."""
     skips = tuple(cfg.get("skip_in", (4,)))
     return (cfg.get("d_in", 3) == 3 and cfg.get("multires", 0) > 0
             and len(skips) == 1 and 0 < skips[0] <= cfg["n_layers"])
@@ -152,121 +164,68 @@ def leaf_rule(ref: dict, got: dict) -> dict:
     return res
 
 
-def pack(ws, bs, cfg, want_feature: bool):
-    """Zero-padded bf16 W^T blocks and f32 biases in one buffer each, plus
-    the kernel's int32 layer table.
+class FwdPack:
+    """K1's weights for one set of SDF parameters, built once and launched
+    on many times: the dense f32 weights and biases (``ws``, ``bs``; the
+    plain version's) and, on CUDA, the forward-only packed blocks, biases
+    and layer table (``w_buf``, ``b_buf``, ``meta``).  ``want_feature``
+    False packs only column 0 of the last layer (N = 1, padded to 16)."""
 
-    Layer l's block is [Kp, Np]: Np = N rounded up to 16, Kp its input
-    width rounded up to KCHUNK.  The inputs are laid out padded: the
-    encoding is ``pe_pad`` wide, and the skip layer reads
-    [h (Np of the layer before) | xe (pe_pad)], so its rows are re-mapped.
-    Without the feature, only column 0 of the last layer is packed."""
-    skip = _skip(cfg)
-    n_lin = len(ws)
-    pe_dim = ws[0].shape[0]
-    pe_pad = round_up(pe_dim, 16)
-    if n_lin > MAX_LIN:
-        raise ValueError(f"{n_lin} linears; the kernel takes at most {MAX_LIN}")
-    dev = ws[0].device
-    blocks, metas = [], [n_lin, skip, cfg["multires"]]
-    w_off = b_off = 0
-    b_parts = []
-    np_prev = None
-    for l in range(n_lin):
-        w = ws[l] if (want_feature or l < n_lin - 1) else ws[l][:, :1]
-        b = bs[l] if (want_feature or l < n_lin - 1) else bs[l][:1]
-        k, n = w.shape
-        n_pad = round_up(n, 16)
-        if n_pad > MAX_COLS:
-            raise ValueError(f"layer {l} is {n} wide; the kernel takes <= {MAX_COLS}")
-        if l == 0:
-            in_w = pe_pad
-            rows = [(0, 0, k)]
-        elif l == skip:
-            in_w = np_prev + pe_pad
-            n_h = ws[l - 1].shape[1]
-            rows = [(0, 0, n_h), (n_h, np_prev, k - n_h)]
-        else:
-            in_w = np_prev
-            rows = [(0, 0, k)]
-        k_pad = round_up(in_w, KCHUNK)
-        block = torch.zeros((k_pad, n_pad), dtype=torch.bfloat16, device=dev)
-        for src, dst, cnt in rows:
-            block[dst:dst + cnt, :n] = w[src:src + cnt].to(torch.bfloat16)
-        blocks.append(block.reshape(-1))
-        b_pad = torch.zeros(n_pad, dtype=torch.float32, device=dev)
-        b_pad[:n] = b
-        b_parts.append(b_pad)
-        metas += [k_pad, n_pad, n, w_off, b_off]
-        w_off += k_pad * n_pad
-        b_off += n_pad
-        np_prev = n_pad
-    return (torch.cat(blocks), torch.cat(b_parts),
-            np.asarray(metas, dtype=np.int32))
+    def __init__(self, params, cfg, want_feature: bool):
+        if not supported(cfg):
+            raise ValueError(f"SDF config not supported by the kernel: {cfg}")
+        self.cfg, self.want_feature = cfg, want_feature
+        self.ws, self.bs = materialize(params, cfg)
+        self.device = self.ws[0].device
+        self.n_lin = len(self.ws)
+        self.skip = _skip(cfg)
+        self.multires = cfg["multires"]
+        self.scale = float(cfg.get("scale", 1.0))
+        if self.device.type == "cuda":
+            self.w_buf, self.b_buf, self.meta = pack_forward(
+                self.ws, self.bs, cfg, want_feature)
+            self.n_out = int(packing.layer_table(self.meta)[-1, 2])
 
 
-def _lib():
-    from fmov_pose_torch.ops import build
-    lib = build.library("sdf_fwd")
-    if not getattr(lib, "_fmov_typed", False):
-        lib.fmov_sdf_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p]
-        lib.fmov_sdf_fwd.restype = ctypes.c_int
-        lib.fmov_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.fmov_cuda_error_string.restype = ctypes.c_char_p
-        lib._fmov_typed = True
-    return lib
+def pack_forward(ws, bs, cfg, want_feature: bool):
+    """K1's packed weights of dense ``ws``/``bs``: the forward-only blocks,
+    biases and layer table of ``packing.pack_train`` (``reverse=False``);
+    without the feature, only column 0 of the last layer."""
+    ws, bs = list(ws), list(bs)
+    if not want_feature:
+        ws[-1], bs[-1] = ws[-1][:, :1], bs[-1][:1]
+    in_ws, row_maps = _input_layout(ws, cfg)
+    return packing.pack_train(ws, bs, in_ws, row_maps, reverse=False)
 
 
-def sdf_forward_cuda(ws, bs, x, cfg, want_feature: bool) -> torch.Tensor:
-    """Pack the weights and launch the kernel on x's device and stream;
-    raises on anything it does not take or on a refused launch."""
-    if not supported(cfg):
-        raise ValueError(f"SDF config not supported by the kernel: {cfg}")
-    if any(w.device != x.device for w in ws):
-        raise ValueError("weights and points on different devices")
-    return launch(pack(ws, bs, cfg, want_feature), x.contiguous(),
-                  float(cfg.get("scale", 1.0)))
-
-
-def launch(packed, x, scale: float) -> torch.Tensor:
-    """One kernel launch on pre-packed weights (``pack``) and a CUDA
-    float32 [M, 3] ``x``; the only place that counts LAUNCHES."""
+def launch(pk: FwdPack, x: torch.Tensor) -> torch.Tensor:
+    """K1 on a CUDA pack and a CUDA float32 [M, 3] ``x`` -> [M, 1] or
+    [M, d_out]; the only place that counts LAUNCHES."""
     global LAUNCHES
-    w_buf, b_buf, meta = packed
-    if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 2
-            and x.shape[1] == 3 and x.is_contiguous()):
-        raise ValueError(f"x must be a contiguous CUDA float32 [M, 3] tensor, "
-                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if (w_buf.device != x.device or b_buf.device != x.device
-            or w_buf.dtype != torch.bfloat16 or b_buf.dtype != torch.float32
-            or w_buf.data_ptr() % 16):
-        raise ValueError("packed weights must be bf16 / f32 buffers on x's "
-                         "device, 16-byte aligned")
-    n_out = int(meta[3 + 5 * (int(meta[0]) - 1) + 2])
-    out = torch.empty((x.shape[0], n_out), dtype=torch.float32, device=x.device)
+    M = x.shape[0]
+    _check_cuda_rows("x", x, 3, M, x.device)
+    if pk.device != x.device:
+        raise ValueError(f"K1's pack is on {pk.device}, the points on {x.device}")
+    M_pad = round_up(max(M, 1), packing.TILE_M)
+    out = torch.empty((M, pk.n_out), dtype=torch.float32, device=x.device)
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), torch.profiler.record_function(PROFILE_K1):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fmov_sdf_fwd(
-            x.data_ptr(), x.shape[0], scale, w_buf.data_ptr(), b_buf.data_ptr(),
-            meta.ctypes.data_as(ctypes.c_void_p), int(meta.size),
-            out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"sdf_fwd kernel launch failed: {lib.fmov_cuda_error_string(err).decode()}"
-            f" (cudaError {err}, M={x.shape[0]})")
+            x.data_ptr(), M, M_pad, pk.scale, pk.w_buf.data_ptr(), pk.b_buf.data_ptr(),
+            pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin, pk.skip, pk.multires,
+            _grid(x.device, M_pad // packing.TILE_M), out.data_ptr(), pk.n_out, stream)
+    _raise_on(lib, err, "sdf_fwd", M)
     LAUNCHES += 1
     return out
 
 
-def sdf_forward(ws, bs, x, cfg, want_feature: bool) -> torch.Tensor:
-    """Kernel for a CUDA tensor, plain version for a CPU tensor."""
+def sdf_forward(pk: FwdPack, x: torch.Tensor) -> torch.Tensor:
+    """K1 on the pack for a CUDA tensor, the plain version on the pack's
+    weights for a CPU tensor."""
     if x.is_cuda:
-        return sdf_forward_cuda(ws, bs, x, cfg, want_feature)
-    return sdf_forward_plain(ws, bs, x, cfg, want_feature)
+        return launch(pk, x.contiguous())
+    return sdf_forward_plain(pk.ws, pk.bs, x, pk.cfg, pk.want_feature)
 
 
 def _cfg_key(cfg):
@@ -283,10 +242,10 @@ class _SdfForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg_key, want_feature, names, x, *leaves):
         cfg = dict(cfg_key)
-        ws, bs = materialize(convert.unflatten(zip(names, leaves)), cfg)
         ctx.cfg, ctx.names, ctx.want_feature = cfg, names, want_feature
         ctx.save_for_backward(x, *leaves)
-        return sdf_forward(ws, bs, x, cfg, want_feature)
+        return sdf_forward(FwdPack(convert.unflatten(zip(names, leaves)), cfg,
+                                   want_feature), x)
 
     @staticmethod
     def backward(ctx, ct):
@@ -558,7 +517,7 @@ def sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg):
     return xsbar * scale, dws, dbs
 
 
-def _rays_layout(ws, cfg):
+def _input_layout(ws, cfg):
     """Padded input widths and row maps of the SDF layers (the skip
     layer reads [h (np of the layer before) | pe (pe_pad)])."""
     skip = _skip(cfg)
@@ -587,7 +546,7 @@ class RaysPack:
     def __init__(self, ws, bs, cfg):
         if not supported_rays(cfg, 1):
             raise ValueError(f"SDF config not supported by the kernels: {cfg}")
-        self.in_ws, self.row_maps = _rays_layout(ws, cfg)
+        self.in_ws, self.row_maps = _input_layout(ws, cfg)
         self.w_buf, self.b_buf, self.meta = packing.pack_train(
             ws, bs, self.in_ws, self.row_maps)
         self.table = packing.layer_table(self.meta)
@@ -629,6 +588,16 @@ _FWD_GRAD_FLAT_ARGS = _FWD_GRAD_ARGS[:15] + [_VP, _VP]
 _BWD_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CF, _VP, _VP, _VP, _VP, _CI, _CI,
              _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP]
 _BWD_FLAT_ARGS = _BWD_ARGS[1:]
+
+
+# (x, M, M_pad, scale, w, b, meta, n_lin, skip, multires, G, out, n_out,
+#  stream)
+_FWD_ARGS = [_VP, _CI, _CI, _CF, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP, _CI, _VP]
+
+
+def _lib():
+    from fmov_pose_torch.ops import build
+    return _typed(build.library("sdf_fwd"), {"fmov_sdf_fwd": _FWD_ARGS})
 
 
 def _rays_lib():

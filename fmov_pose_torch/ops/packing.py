@@ -1,4 +1,4 @@
-"""Weight and workspace layouts of the fused training kernels (K4, K5, K8, K9).
+"""Weight and workspace layouts of the per-point kernels (K1-K9).
 
 The kernels (``csrc/train_common.cuh``) run every product of a 64-point
 tile as ``A [64, K] @ W [K, N]`` with A a bf16 tile in shared memory and W
@@ -11,7 +11,9 @@ packed twice:
   whose rows are re-mapped), and kp is in_w rounded up to 32; np is the
   output width rounded up to 16.
 * reverse block ``R_l [kr, kp]`` = F_l^T with its rows rounded up to 32
-  (kr), for the products with a cotangent on the layer's output.
+  (kr), for the products with a cotangent on the layer's output.  A
+  forward-only pack (``reverse=False``, K1's, which has no such product)
+  leaves them out and writes kr = r_off = 0.
 
 Biases are f32, zero-padded to np.  ``meta`` is the int32 layer table the
 kernels read: per layer ``kp, np, n, w_off, b_off, kr, r_off, in_w``.
@@ -42,8 +44,9 @@ def input_rows(k: int, row_map) -> list:
     return row_map if row_map is not None else [(0, 0, k)]
 
 
-def pack_train(ws, bs, in_ws, row_maps):
-    """Forward and reverse bf16 blocks, f32 biases and the layer table.
+def pack_train(ws, bs, in_ws, row_maps, reverse: bool = True):
+    """Forward and (with ``reverse``) reverse bf16 blocks, f32 biases and
+    the layer table.
 
     ws[l]: dense W^T [in, out] f32; in_ws[l]: padded input width;
     row_maps[l]: None (rows map one to one) or [(src, dst, count)]."""
@@ -57,17 +60,22 @@ def pack_train(ws, bs, in_ws, row_maps):
         k, n = ws[l].shape
         in_w = in_ws[l]
         kp, np_ = round_up(in_w, KCHUNK), round_up(n, 16)
-        kr = round_up(np_, KCHUNK)
+        kr = round_up(np_, KCHUNK) if reverse else 0
         if np_ > MAX_COLS or kp > MAX_COLS:
             raise ValueError(f"layer {l} is {k}x{n}; the kernels take <= {MAX_COLS}")
         fwd = torch.zeros((kp, np_), dtype=torch.float32, device=dev)
         for src, dst, cnt in input_rows(k, row_maps[l]):
             fwd[dst:dst + cnt, :n] = ws[l][src:src + cnt]
-        rev = torch.zeros((kr, kp), dtype=torch.float32, device=dev)
-        rev[:np_] = fwd.T
-        w_off, r_off = off, off + kp * np_
-        off = r_off + kr * kp
-        blocks += [fwd.reshape(-1), rev.reshape(-1)]
+        w_off = off
+        off += kp * np_
+        blocks.append(fwd.reshape(-1))
+        r_off = 0
+        if reverse:
+            rev = torch.zeros((kr, kp), dtype=torch.float32, device=dev)
+            rev[:np_] = fwd.T
+            r_off = off
+            off += kr * kp
+            blocks.append(rev.reshape(-1))
         b_pad = torch.zeros(np_, dtype=torch.float32, device=dev)
         b_pad[:n] = bs[l]
         b_parts.append(b_pad)

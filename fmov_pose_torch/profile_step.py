@@ -30,10 +30,10 @@ K4/K5 and the per-sample K6/K7, the background blocking K8/K9).
   share describes the profiled run; the ``ab`` step times are the
   unprofiled ones.
 * ``top``: the ops with the most device self time per step.
-* ``kernels``: the ``fmov::K2..K9`` profiler ranges around the launches of
-  the fused training kernels (their helper launches included), each
-  with its device time per step, its share of the busy time and its rank
-  among the ops of ``top``.
+* ``kernels``: the ``fmov::K1..K9`` profiler ranges around the launches of
+  the port's kernels (their helper launches included; with the default
+  conf the up-sampler's four K1 launches), each with its device time per
+  step, its share of the busy time and its rank among the ops of ``top``.
 * ``split``: each range's device time per step by kernel name (e.g. K9's
   per-point ``color_bwd_kernel``, its ``atb_kernel`` and its
   ``reduce_kernel``), the kernels tied to the range through the

@@ -4,10 +4,12 @@ Same numerics as the JAX module: sigmoid-CDF alpha
 ``(prev_cdf - next_cdf + 1e-5)/(prev_cdf + 1e-5)`` clipped to [0, 1], cos
 annealing, the 1e-7 cumprod epsilon and the ``inv_s = 64 * 2**i``
 up-sampling schedule.  The SDF-guided up-sampler runs under
-``torch.no_grad()`` and queries the SDF through the fused kernel
+``torch.no_grad()`` and queries the SDF through the fused kernel K1
 (``ops/fused_sdf.py``) when the config asks for it, exactly where the JAX
-``_sdf_only_fn`` does; with an occupancy grid (``render/occupancy.py``) one
-grid gather replaces it.  ``render_core`` is the row form only (``[M, 3]``
+``_sdf_only_fn`` does; its weights are materialised and packed once per
+``render`` (``fused_sdf.FwdPack``), and the coarse query and every
+``cat_z_vals`` query launch on that pack.  With an occupancy grid
+(``render/occupancy.py``) one grid gather replaces the up-sampler.  ``render_core`` is the row form only (``[M, 3]``
 geometry); the JAX package's channel-plane layouts exist for the TPU's
 lane padding and are not ported.
 
@@ -63,15 +65,17 @@ def make_render_cfg(conf: Dict[str, Any]) -> RenderCfg:
     )
 
 
-def _sdf_only_fn(model_cfg):
-    """The fused SDF forward for gradient-free evaluation when the config
+def _sdf_only_fn(model_cfg, sdf_params):
+    """x [M, 3] -> sdf [M, 1] for gradient-free evaluation on ``sdf_params``:
+    K1 on one pack of the weights (built here, once) when the config
     enables it and the kernel supports it, else the f32 reference."""
     sdf_cfg = model_cfg["sdf"]
     if sdf_cfg.get("use_fused", False) or sdf_cfg.get("use_fused_train", False):
         from fmov_pose_torch.ops import fused_sdf
         if fused_sdf.supported(sdf_cfg):
-            return lambda params, x: fused_sdf.sdf_only_fused(params, sdf_cfg, x)
-    return lambda params, x: nets.sdf_only(params, sdf_cfg, x)
+            pk = fused_sdf.FwdPack(sdf_params, sdf_cfg, False)
+            return lambda x: fused_sdf.sdf_forward(pk, x)
+    return lambda x: nets.sdf_only(sdf_params, sdf_cfg, x)
 
 
 def _transmittance_weights(alpha: torch.Tensor) -> torch.Tensor:
@@ -115,14 +119,15 @@ def up_sample(params, model_cfg, rays_o, rays_d, z_vals, sdf, n_importance, inv_
     return sample_pdf(z_vals, weights, n_importance)
 
 
-def cat_z_vals(params, model_cfg, rays_o, rays_d, z_vals, new_z_vals, sdf, last: bool):
-    """Merge new samples into z_vals, querying the SDF at them unless last."""
+def cat_z_vals(sdf_fn, rays_o, rays_d, z_vals, new_z_vals, sdf, last: bool):
+    """Merge new samples into z_vals, querying the SDF at them with the
+    caller's ``sdf_fn`` (``_sdf_only_fn``) unless last."""
     batch_size, n_samples = z_vals.shape
     _, n_importance = new_z_vals.shape
     if last:
         return merge_sorted(z_vals, new_z_vals), sdf
     pts = rays_o[:, None, :] + rays_d[:, None, :] * new_z_vals[..., :, None]
-    new_sdf = _sdf_only_fn(model_cfg)(params["sdf"], pts.reshape(-1, 3))
+    new_sdf = sdf_fn(pts.reshape(-1, 3))
     new_sdf = new_sdf.reshape(batch_size, n_importance)
     return merge_sorted(z_vals, new_z_vals, sdf, new_sdf)
 
@@ -338,16 +343,16 @@ def render(generator, params, model_cfg, rays_o, rays_d, near, far,
         with torch.no_grad():
             z_vals = z_vals.detach()
             ro, rd = rays_o.detach(), rays_d.detach()
-            sdf_fn = _sdf_only_fn(model_cfg)
+            sdf_fn = _sdf_only_fn(model_cfg, params["sdf"])
             pts = ro[:, None, :] + rd[:, None, :] * z_vals[..., :, None]
-            sdf = sdf_fn(params["sdf"], pts.reshape(-1, 3))
+            sdf = sdf_fn(pts.reshape(-1, 3))
             sdf = sdf.reshape(batch_size, cfg.n_samples)
             for i in range(cfg.up_sample_steps):
                 new_z = up_sample(
                     params, model_cfg, ro, rd, z_vals, sdf,
                     cfg.n_importance // cfg.up_sample_steps, 64.0 * 2 ** i)
                 z_vals, sdf = cat_z_vals(
-                    params, model_cfg, ro, rd, z_vals, new_z, sdf,
+                    sdf_fn, ro, rd, z_vals, new_z, sdf,
                     last=(i + 1 == cfg.up_sample_steps))
         n_samples_total = cfg.n_samples + cfg.n_importance
 

@@ -1,7 +1,7 @@
 """The workspace of K5 and K3, the second-order SDF backward
 (``fmov_pose_torch/ops/fused_sdf.py``, ``bwd_workspace_specs``), and the
 build line of ``chip_smoke.py`` that reports the per-point kernels on the
-pipeline (K4, K2, K5, K3, and the color backward's K9 and K7).
+pipeline (K1, K4, K2, K5, K3, and the color MLP's K8, K6, K9 and K7).
 
 The kernels read the workspace through a pointer table in the order of
 ``sdf_bwd_launch`` (``ops/csrc/sdf_pipe.cuh``): AB_l ([FB_l; X_l]),
@@ -143,7 +143,25 @@ def test_build_line_names_the_per_point_kernels():
     assert chip_smoke._kernel_name(
         "_ZN10fmov_train12_GLOBAL__N_123color_sample_fwd_kernelENS0_10SampleArgsE") \
         == "color_sample_fwd_kernel"
-    assert set(chip_smoke.PER_POINT) == {"sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel",
+    assert set(chip_smoke.PER_POINT) == {"sdf_fwd_kernel",
+                                          "sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel",
                                           "sdf_bwd_kernel", "sdf_bwd_flat_kernel",
                                           "color_fwd_kernel", "color_sample_fwd_kernel",
                                           "color_bwd_kernel", "color_sample_bwd_kernel"}
+
+
+K1_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN10fmov_train12_GLOBAL__N_114sdf_fwd_kernelENS_7SdfArgsEPfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN10fmov_train12_GLOBAL__N_114sdf_fwd_kernelENS_7SdfArgsEPfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_build_line_names_k1():
+    """K1's per-point kernel is read by its own name (``sdf_fwd_kernel``,
+    not a prefix of K4's ``sdf_fwd_grad_kernel``) and is one of the
+    kernels the line names."""
+    assert chip_smoke._ptxas_entries(K1_PTXAS_LOG) == {
+        "sdf_fwd_kernel": {"registers": 168, "spill_stores": 0, "spill_loads": 0}}
+    assert "sdf_fwd_kernel" in chip_smoke.PER_POINT

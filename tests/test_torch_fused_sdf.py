@@ -19,10 +19,14 @@ reaches 1.9e-3 (and 7e-3 between either side and an f64 network without
 bf16), so a bound of 1e-3 on the maximum would fail on rounding flips
 alone; the median bound is what catches a layout or rounding fault.
 
-``pack`` lays the weights out for the CUDA kernel (zero padding, the skip
-layer's re-mapped rows); ``_emulate_kernel`` runs that layout with the
-kernel's algorithm in PyTorch, so the layout is checked here too.  The
-kernel itself runs only on the card: its test is marked ``cuda``.
+``pack_forward`` lays the weights out for the CUDA kernel (the per-point
+pipeline's forward-only layer table: zero padding, the skip layer's
+re-mapped rows, the last layer cut to its column 0 for the sdf alone);
+``_emulate_kernel`` runs that layout with the kernel's algorithm in
+PyTorch, so the layout is checked here too, with the skip layer also at
+the last linear (``skip_in = (n_layers,)``, which K1 takes and the
+training kernels do not).  The kernel itself runs only on the card: its
+test is marked ``cuda``.
 """
 
 import math
@@ -36,7 +40,7 @@ import torch
 from fmov_pose_tpu.fields import nets as jn
 from fmov_pose_torch import convert
 from fmov_pose_torch.core.embedder import positional_encode
-from fmov_pose_torch.ops import fused_sdf
+from fmov_pose_torch.ops import fused_sdf, packing
 
 SMALL = {"d_out": 33, "d_in": 3, "d_hidden": 32, "n_layers": 4,
          "skip_in": (2,), "multires": 4, "bias": 0.5, "scale": 1.0,
@@ -44,7 +48,9 @@ SMALL = {"d_out": 33, "d_in": 3, "d_hidden": 32, "n_layers": 4,
 FULL = {"d_out": 257, "d_in": 3, "d_hidden": 256, "n_layers": 8,
         "skip_in": (4,), "multires": 6, "bias": 0.5, "scale": 1.0,
         "geometric_init": True, "weight_norm": True}
-CFGS = {"small": SMALL, "full": FULL}
+# the skip concat at the last linear
+LAST_SKIP = dict(SMALL, skip_in=(4,))
+CFGS = {"small": SMALL, "full": FULL, "small-last-skip": LAST_SKIP}
 
 
 @pytest.fixture()
@@ -87,63 +93,75 @@ def test_plain_matches_jax_kernel(interp, width, want_feature):
     assert fused_sdf.LAUNCHES == before  # a CPU tensor never launches
 
 
-def _emulate_kernel(w_buf, b_buf, meta, x, scale):
-    """csrc/sdf_fwd.cu's algorithm on the packed buffers, in PyTorch."""
-    n_lin, skip, multires = (int(v) for v in meta[:3])
-    layers = meta[3:].reshape(n_lin, 5)
+def _emulate_kernel(w_buf, b_buf, meta, x, cfg):
+    """csrc/sdf_fwd.cu's algorithm (sdf_pipe.cuh sdf_fwd_tile) on the packed
+    buffers, in PyTorch: the A operand is a zero-padded bf16 buffer of the
+    next layer's kp columns, the skip layer's PE half comes from PES."""
+    table = packing.layer_table(meta).tolist()
+    skip, multires, scale = fused_sdf._skip(cfg), cfg["multires"], cfg["scale"]
     pe_dim = 3 * (1 + 2 * multires)
-    pe_pad = (pe_dim + 15) // 16 * 16
-    lda = max(pe_pad, int(layers[:, :2].max())) + 8
+    pe_pad = table[0][7]
     M = x.shape[0]
     bf = lambda t: t.to(torch.bfloat16).to(torch.float32)  # noqa: E731
     xe = torch.zeros(M, pe_pad)
     xe[:, :pe_dim] = positional_encode(x * scale, multires)
-    act = [torch.zeros(M, lda), torch.zeros(M, lda)]
-    act[0][:, :pe_pad] = bf(xe)
-    inv_sqrt2 = 1.0 / math.sqrt(2.0)
-    for l, (kp, np_, n, w_off, b_off) in enumerate(layers.tolist()):
-        inp = act[l & 1]
-        if l == skip and l > 0:
-            off = int(layers[l - 1, 1])
-            inp[:, off:off + pe_pad] = bf(xe * inv_sqrt2)
+    pes = bf(xe * (1.0 / math.sqrt(2.0)))
+    A = torch.zeros(M, table[0][0])
+    A[:, :pe_pad] = bf(xe)
+    for l, (kp, np_, n, w_off, b_off, kr, r_off, in_w) in enumerate(table):
         W = w_buf[w_off:w_off + kp * np_].view(kp, np_).float()
-        z = inp[:, :kp] @ W + b_buf[b_off:b_off + np_]
-        if l < n_lin - 1:
-            h = fused_sdf.act_pair(z)[0]
-            if l + 1 == skip:
-                h = h * inv_sqrt2
-            act[(l + 1) & 1][:, :np_] = bf(h)
-        else:
+        z = A @ W + b_buf[b_off:b_off + np_]
+        if l == len(table) - 1:
             out = z[:, :n].clone()
             out[:, 0] = out[:, 0] / scale
             return out
+        h = fused_sdf.act_pair(z)[0] * (1.0 / math.sqrt(2.0) if l + 1 == skip else 1.0)
+        A = torch.zeros(M, table[l + 1][0])
+        A[:, :np_] = bf(h)
+        if l + 1 == skip:
+            A[:, np_:np_ + pe_pad] = pes
 
 
-@pytest.mark.parametrize("width", ["small", "full"])
+@pytest.mark.parametrize("width", ["small", "full", "small-last-skip"])
 @pytest.mark.parametrize("want_feature", [False, True])
 def test_packed_layout_matches_plain(width, want_feature):
     cfg = dict(CFGS[width], scale=0.8)
     _, pt = _params(cfg, 2)
     x = torch.from_numpy(_points(130, 3))
     ws, bs = fused_sdf.materialize(pt, cfg)
-    w_buf, b_buf, meta = fused_sdf.pack(ws, bs, cfg, want_feature)
+    w_buf, b_buf, meta = fused_sdf.pack_forward(ws, bs, cfg, want_feature)
     assert w_buf.dtype == torch.bfloat16 and meta.dtype == np.int32
+    table = packing.layer_table(meta)
+    # forward-only: no reverse blocks, the forward blocks back to back
+    assert (table[:, 5] == 0).all() and (table[:, 6] == 0).all()
+    assert table[0, 3] == 0 and (table[1:, 3] == np.cumsum(table[:-1, 0] * table[:-1, 1])).all()
+    assert w_buf.numel() == int((table[:, 0] * table[:, 1]).sum())
+    assert table[-1, 2] == (cfg["d_out"] if want_feature else 1)
     plain = fused_sdf.sdf_forward_plain(ws, bs, x, cfg, want_feature)
-    emu = _emulate_kernel(w_buf, b_buf, meta, x, cfg["scale"])
+    emu = _emulate_kernel(w_buf, b_buf, meta, x, cfg)
     assert emu.shape == plain.shape
     np.testing.assert_allclose(emu.numpy(), plain.numpy(), rtol=0, atol=1e-5)
 
 
 def test_full_width_layout():
-    """The paddings the kernel is built around: 39 -> 48 (64 rows with the
-    K chunk), 217 -> 224, skip input 224 + 48 -> 288 rows, 257 -> 272."""
+    """The pipeline's forward-only table at 8x256: the encoding 39 -> 48
+    wide (kp 64 with the K chunk), 217 -> 224, the skip input 224 + 48 =
+    272 (kp 288), the last layer 257 -> 272 with the features and 1 -> 16
+    without; no reverse blocks.  K1's ring chunks are 280 (272 + 8) wide
+    with the features, where the training kernels' are 296 (288 + 8)."""
     _, pt = _params(FULL, 0)
     ws, bs = fused_sdf.materialize(pt, FULL)
-    _, _, meta = fused_sdf.pack(ws, bs, FULL, True)
-    layers = meta[3:].reshape(9, 5)
-    assert layers[:, 0].tolist() == [64, 256, 256, 256, 288, 256, 256, 256, 256]
-    assert layers[:, 1].tolist() == [256, 256, 256, 224, 256, 256, 256, 256, 272]
-    assert layers[:, 2].tolist() == [256, 256, 256, 217, 256, 256, 256, 256, 257]
+    for want_feature in (True, False):
+        table = packing.layer_table(fused_sdf.pack_forward(ws, bs, FULL, want_feature)[2])
+        assert table[:, 0].tolist() == [64, 256, 256, 256, 288, 256, 256, 256, 256]
+        assert table[:, 1].tolist() == [256, 256, 256, 224, 256, 256, 256, 256,
+                                        272 if want_feature else 16]
+        assert table[:, 2].tolist() == [256, 256, 256, 217, 256, 256, 256, 256,
+                                        257 if want_feature else 1]
+        assert table[:, 7].tolist() == [48, 256, 256, 256, 272, 256, 256, 256, 256]
+        assert table[:, 5].tolist() == [0] * 9 and table[:, 6].tolist() == [0] * 9
+        assert table[:, 4].tolist() == np.concatenate([[0], np.cumsum(table[:-1, 1])]).tolist()
+        assert int(table[:, 1].max()) + 8 == (280 if want_feature else 264)
 
 
 @pytest.mark.parametrize("want_feature", [False, True])
@@ -176,12 +194,16 @@ def test_backward_is_the_f32_reference(want_feature):
 
 def test_supported_and_device_checks():
     assert fused_sdf.supported(FULL)
+    assert fused_sdf.supported(LAST_SKIP)
     assert not fused_sdf.supported(dict(FULL, multires=0))
     assert not fused_sdf.supported(dict(FULL, skip_in=(2, 4)))
-    _, pt = _params(SMALL, 0)
-    ws, bs = fused_sdf.materialize(pt, SMALL)
+    assert not fused_sdf.supported(dict(FULL, skip_in=(9,)))
     with pytest.raises(ValueError):
-        fused_sdf.sdf_forward_cuda(ws, bs, torch.zeros(4, 3), SMALL, False)
+        fused_sdf.FwdPack(_params(SMALL, 0)[1], dict(SMALL, skip_in=(0,)), False)
+    pk = fused_sdf.FwdPack(_params(SMALL, 0)[1], SMALL, False)
+    assert not hasattr(pk, "w_buf")  # a CPU pack holds the f32 weights only
+    with pytest.raises(ValueError):
+        fused_sdf.launch(pk, torch.zeros(4, 3))
 
 
 @pytest.mark.cuda
@@ -194,10 +216,10 @@ def test_kernel_matches_plain_on_cuda(M, want_feature):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     _, pt = _params(FULL, 0)
-    ws, bs = fused_sdf.materialize(convert.to_torch(convert.to_numpy(pt), dev), FULL)
+    pk = fused_sdf.FwdPack(convert.to_torch(convert.to_numpy(pt), dev), FULL, want_feature)
     x = torch.from_numpy(_points(M, 7)).to(dev)
     before = fused_sdf.LAUNCHES
-    got = fused_sdf.sdf_forward_cuda(ws, bs, x, FULL, want_feature)
+    got = fused_sdf.launch(pk, x)
     torch.cuda.synchronize()
     assert fused_sdf.LAUNCHES == before + 1
-    _check(fused_sdf.sdf_forward_plain(ws, bs, x, FULL, want_feature).cpu(), got.cpu())
+    _check(fused_sdf.sdf_forward_plain(pk.ws, pk.bs, x, FULL, want_feature).cpu(), got.cpu())

@@ -177,6 +177,45 @@ def test_render_and_losses(world, case):
                       for (n, l), g in zip(items, grads)])
 
 
+@pytest.mark.parametrize("case", CASES[1:], indirect=True)
+def test_render_packs_k1_once(world, case, monkeypatch):
+    """One ``render`` with use_fused materialises the SDF's weights and
+    builds K1's pack once for its four SDF queries (the coarse samples and
+    three up-sampling steps), and places the samples as the JAX render
+    does: the points at the rendered z-values and the depth, within K1's
+    bf16 placement (rtol 1e-3, as the losses above, and atol 1e-4 of the
+    unit sphere's coordinates; 1.6e-4 at most, rel 5.8e-4, on the CPU)."""
+    from fmov_pose_torch.ops import packing
+    dev, _ = case
+    sc, params_j, _ = world
+    jcfg, tcfg = _model_cfgs(True)
+    data = _ray_batch(sc, np.random.default_rng(3))
+    calls = {"materialize": 0, "pack_train": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(fused_sdf, "materialize",
+                        counted("materialize", fused_sdf.materialize))
+    monkeypatch.setattr(packing, "pack_train", counted("pack_train", packing.pack_train))
+    rays_o, rays_d = torch.from_numpy(data[:, :3]), torch.from_numpy(data[:, 3:6])
+    near, far = trays.near_far_from_sphere(rays_o, rays_d)
+    out_j = jneus.render(jax.random.key(9), params_j, jcfg, *(
+        jnp.asarray(t.numpy()) for t in (rays_o, rays_d, near, far)))
+    launches = fused_sdf.LAUNCHES
+    with torch.no_grad():
+        out_t = tneus.render(None, convert.to_torch(_np_tree(params_j), dev), tcfg,
+                             *(t.to(dev) for t in (rays_o, rays_d, near, far)))
+    assert calls == {"materialize": 1, "pack_train": 1 if dev.type == "cuda" else 0}
+    assert fused_sdf.LAUNCHES - launches == (4 if dev.type == "cuda" else 0)
+    for key in ("pts", "depth_fine"):
+        np.testing.assert_allclose(_cpu(out_t[key]), np.asarray(out_j[key]),
+                                   rtol=1e-3, atol=1e-4, err_msg=key)
+
+
 def _jax_pixels(key, bbox, img_id):
     """Replay the pixel draw of the JAX run_one (step.py:445 then :416-422
     then rays.py:85-98)."""
