@@ -15,13 +15,14 @@ Phases, each printing lines as it ends:
                  kernels on the pipeline: K1's, K4's, K2's, K5's, K3's,
                  K8's, K6's, K9's and K7's)
   3. kernels  -- K1 through its entries sdf_only_fused / sdf_apply_fused
-                 and through the pre-packed launch the up-sampler takes
-                 against its plain PyTorch version at the full width of
-                 confs/ho3d_global_womask.conf, M = 32,768 / 8,192 / 1,000
-                 (the first two also bitwise equal over two launches), and
-                 at a small width with the skip at the last linear;
-                 CUDA-event times of the entry, the pre-packed launch and
-                 the plain version
+                 and through the pre-packed launch the up-sampler and the
+                 mesh take against its plain PyTorch version at the full
+                 width of confs/ho3d_global_womask.conf, M = 262,144 (a
+                 mesh chunk, 64^3) / 32,768 / 8,192 / 1,000 (all but the
+                 last also bitwise equal over two launches), and at a
+                 small width with the skip at the last linear; CUDA-event
+                 times of the entry, the pre-packed launch and the plain
+                 version
   4. train-kernels -- K4, K5, K8 and K9 through their entries against their
                  plain versions at the full width of
                  confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
@@ -69,6 +70,19 @@ Phases, each printing lines as it ends:
                  once per step and no other kernel, the background
                  network's parameters moved, a refreshed grid; the batch
                  check before and after, the nerf.* leaves included
+ 11. mesh     -- the CLI's final mesh on slice 1's Runner after its 50
+                 steps: validate_mesh(resolution=512, use_norml_color=True),
+                 the 512^3 grid through K1 in chunks of 262,144 points on
+                 one pack (K1 launched exactly 512 times, no other kernel),
+                 a non-empty mesh inside the bounds that read_ply reads back
+                 as written; the seconds of the grid, the copies back, the
+                 marching cubes, the normals and the write
+ 12. resume   -- a second Runner on the exp dir of slice 1 and of slice 3
+                 with is_continue: every checkpoint leaf (parameters, Adam
+                 moments, segment bank and its Adam, pose buffers), the
+                 generator's state and the host counters bitwise the first
+                 Runner's; one fixed batch's loss bitwise equal through both;
+                 5 more steps with finite losses on the path's kernels
 Then one JSON line of kernel results (each with its launches in its
 path's run, its time, its plain version's, and its bound on the card),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
@@ -104,6 +118,9 @@ N_OUTSIDE = 32
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # rows: max |err| and median |err| relative to max|ref| (K1's rule)
 ROW_MEDIAN_TOL, ROW_MAX_TOL = 1e-5, 1e-2
+# the mesh: the CLI's final resolution, evaluated in chunks of 64^3 points
+MESH_RES, MESH_CHUNK = 512, 64 ** 3
+RESUME_STEPS = 5
 
 
 def _require(cond, msg):
@@ -248,9 +265,9 @@ def phase_kernels(dev):
     params = convert.to_torch(convert.to_numpy(
         nets.init_sdf(np.random.default_rng(SEED), cfg)), dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    main = None
+    main, mesh_chunk = None, None
     with torch.no_grad():  # as the up-sampler calls K1
-        for M in (32768, 8192, 1000):
+        for M in (MESH_CHUNK, 32768, 8192, 1000):
             # points where the up-sampler queries them: inside the unit sphere
             x = (torch.rand((M, 3), generator=gen, device=dev) * 2 - 1) * 0.9
             for want_feature in (False, True):
@@ -292,6 +309,10 @@ def phase_kernels(dev):
                 if M == 32768 and not want_feature:
                     main = {"max_abs_err": err["sdf_max"], "ms": entry_ms,
                             "plain_ms": plain_ms, **_bound(*_sdf_work(cfg, M, "K1"))}
+                if M == MESH_CHUNK and not want_feature:
+                    mesh_chunk = {"M": M, "max_abs_err": err["sdf_max"], "ms": entry_ms,
+                                  "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                                  **_bound(*_sdf_work(cfg, M, "K1"))}
         # the skip concat at the last linear, at a small width
         small = dict(cfg, d_out=33, d_hidden=64, n_layers=4, skip_in=(4,), multires=4,
                      scale=0.8)
@@ -308,6 +329,7 @@ def phase_kernels(dev):
                   errors=json.dumps(err, sort_keys=True).replace(" ", ""))
             _require(err["ok"], f"K1 with the skip at the last linear disagrees with "
                                 f"the plain version: {err}")
+    main["mesh_chunk"] = mesh_chunk
     return main
 
 
@@ -828,7 +850,7 @@ def phase_slice(dev, smi, scene, tmp):
              f"K1 launched {counts['K1']} times in {STEPS} steps")
     _require(all(v == 0 for k, v in counts.items() if k != "K1"),
              f"kernels other than K1 launched on the slice-1 path: {counts}")
-    return counts["K1"]
+    return counts["K1"], runner
 
 
 def _counters():
@@ -1025,7 +1047,7 @@ def phase_slice3(dev, smi, scene, tmp):
              f"lazy segment inits: {initialized} at segment "
              f"{runner.current_pose_mlp_index}")
     _check_batch(runner, scene, dev, "after_training", phase="slice3", n_rays=rays)
-    return counts
+    return counts, runner
 
 
 def phase_slice4(dev, smi, scene, tmp):
@@ -1085,6 +1107,131 @@ def phase_slice4(dev, smi, scene, tmp):
     return counts
 
 
+def phase_mesh(runner):
+    """The CLI's final mesh on slice 1's trained Runner: the 512^3 grid
+    through K1 on one pack, 262,144 points a launch; marching cubes on the
+    host; normal colors; the PLY file, read back."""
+    import numpy as np
+    from fmov_pose_torch.pipeline import meshio
+    written = {}
+    write_ply = meshio.write_ply
+
+    def recorded(path, vertices, faces, vertex_colors=None, binary=True):
+        written.update(vertices=vertices, faces=faces, colors=vertex_colors)
+        return write_ply(path, vertices, faces, vertex_colors=vertex_colors,
+                         binary=binary)
+
+    meshio.write_ply = recorded
+    try:
+        _zero_counters()
+        t0 = time.perf_counter()
+        path = runner.validate_mesh(resolution=MESH_RES, use_norml_color=True)
+        total = time.perf_counter() - t0
+        counts = _counters()
+    finally:
+        meshio.write_ply = write_ply
+    verts, faces = meshio.read_ply(path)
+    sec = runner.mesh_seconds
+    lo, hi = runner.dataset.object_bbox_min, runner.dataset.object_bbox_max
+    _line("mesh", resolution=MESH_RES, chunk=MESH_CHUNK, launches=json.dumps(counts)
+          .replace(" ", ""), vertices=len(verts), triangles=len(faces),
+          file_mib=f"{os.path.getsize(path) / 2**20:.1f}", total_s=f"{total:.3f}",
+          **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
+    expected = -(-MESH_RES ** 3 // MESH_CHUNK)
+    _require(counts["K1"] == expected, f"the {MESH_RES}^3 mesh launched K1 "
+                                       f"{counts['K1']} times, not {expected}")
+    _require(all(v == 0 for k, v in counts.items() if k != "K1"),
+             f"kernels other than K1 launched for the mesh: {counts}")
+    _require(len(verts) > 0 and len(faces) > 0, "the mesh is empty")
+    _require(np.array_equal(verts, written["vertices"])
+             and np.array_equal(faces, written["faces"]),
+             "read_ply does not return the mesh that was written")
+    _require(bool((verts >= lo - 1e-6).all() and (verts <= hi + 1e-6).all()),
+             "mesh vertices outside the object's bounds")
+    colors = written["colors"]
+    _require(colors is not None and colors.shape == verts.shape
+             and bool(np.isfinite(colors).all()), "normal colors missing or not finite")
+    return counts["K1"]
+
+
+def _resume_one(phase, first, conf, exp, scene, dev, n_rays=None, overrides=()):
+    """A Runner built with is_continue on ``first``'s exp dir restores it
+    bitwise, gives one fixed batch's loss bitwise, and trains on."""
+    import numpy as np
+    import torch
+    from fmov_pose_torch.train import step as step_mod
+    from fmov_pose_torch.train.runner import Runner
+    t0 = time.perf_counter()
+    second = Runner(conf, mode="train", case="orbit_smoke", exp_dir=exp, seed=SEED,
+                    device=dev, scene=scene, is_continue=True)
+    load_s = time.perf_counter() - t0
+    second.end_iter, second.warm_up_end = STEPS + RESUME_STEPS, 0.0
+    for key, value in overrides:
+        if key != "mesh_warmup_step":  # restored from the checkpoint
+            setattr(second, key, value)
+        second.conf.put(f"train.{key}", value)
+    leaves_a, leaves_b = first.state_leaves(), second.state_leaves()
+    differ = [n for (n, a), (_, b) in zip(leaves_a, leaves_b)
+              if a.dtype != b.dtype or not np.array_equal(a, b)]
+    meta_a, meta_b = first._host_meta(), second._host_meta()
+    meta_differ = [k for k in meta_a
+                   if (meta_a[k] is None) != (meta_b[k] is None)
+                   or (meta_a[k] is not None and not np.array_equal(meta_a[k], meta_b[k]))]
+    same_gen = bool(torch.equal(first.state.generator.get_state(),
+                                second.state.generator.get_state()))
+    cfg = dataclasses.replace(first.step_cfg, model_cfg=dict(
+        first.step_cfg.model_cfg,
+        renderer=first.step_cfg.model_cfg["renderer"]._replace(perturb=0.0)))
+    data = _ray_batch(first, scene, dev, n_rays)
+    losses = []
+    with torch.no_grad():
+        for r in (first, second):
+            loss, _ = step_mod._render_and_losses(
+                cfg, None, r.state.params, r.state.pose_static, data,
+                step_mod.StepScalars(lr=0.0, cos_anneal=1.0))
+            losses.append(loss)
+    same_loss = bool(torch.equal(losses[0], losses[1]))
+    _line("resume", slice=phase, checkpoint=os.path.basename(
+        sorted(os.listdir(os.path.join(second.base_exp_dir, "checkpoints")))[-1]),
+          leaves=len(leaves_a), leaves_differ=json.dumps(differ).replace(" ", ""),
+          host_meta_differ=json.dumps(meta_differ).replace(" ", ""),
+          generator_state_equal=same_gen, iter_step=second.iter_step,
+          loss_first=f"{float(losses[0]):.8f}", loss_resumed=f"{float(losses[1]):.8f}",
+          loss_bitwise_equal=same_loss, load_s=f"{load_s:.2f}")
+    _require(len(leaves_a) == len(leaves_b) and not differ,
+             f"{phase}: the resumed state differs in {differ}")
+    _require(not meta_differ and same_gen,
+             f"{phase}: host meta {meta_differ} or the generator differs")
+    _require(same_loss, f"{phase}: one batch's loss differs after the resume")
+    _zero_counters()
+    second.train()
+    counts = _counters()
+    losses = np.asarray(second.history["loss"])
+    _line("resume", slice=phase, steps=len(losses), iter_step=second.iter_step,
+          losses=json.dumps([round(float(v), 6) for v in losses]).replace(" ", ""),
+          launches=json.dumps(counts).replace(" ", ""))
+    _require(len(losses) == RESUME_STEPS and bool(np.isfinite(losses).all())
+             and second.iter_step == STEPS + RESUME_STEPS,
+             f"{phase}: the resumed run's losses {losses}")
+    return counts
+
+
+def phase_resume(scene, dev, tmp, runner1, runner3):
+    """Slice 1 (gf pose, K1) and slice 3 (segment bank, segment Adam,
+    progressive counters, K2/K3) resumed from the checkpoints their runs
+    wrote at the end."""
+    counts1 = _resume_one("slice1", runner1, CONF, os.path.join(tmp, "exp1"), scene, dev)
+    _require(counts1["K1"] == 4 * RESUME_STEPS
+             and all(v == 0 for k, v in counts1.items() if k != "K1"),
+             f"the resumed slice-1 steps launched {counts1}")
+    counts3 = _resume_one("slice3", runner3, VIRTUAL_CONF, os.path.join(tmp, "exp3"),
+                          scene, dev, n_rays=2 * runner3.batch_size,
+                          overrides=tuple(SLICE3_SCHEDULE.items()))
+    _require(counts3["K2"] == counts3["K3"] == RESUME_STEPS
+             and all(v == 0 for k, v in counts3.items() if k not in ("K2", "K3")),
+             f"the resumed slice-3 steps launched {counts3}")
+
+
 KERNEL_PHASES = {"kernels": phase_kernels, "train-kernels": phase_train_kernels,
                  "flat-kernels": phase_flat_kernels, "color-kernels": phase_color_kernels}
 
@@ -1117,16 +1264,19 @@ def main(argv):
     _line("scene", scene="orbit_8x480x640", seconds=f"{time.perf_counter() - t0:.1f}",
           match_pairs=len(scene.loftr_flows) // 2)
     with tempfile.TemporaryDirectory() as tmp:
-        k1_launches = phase_slice(dev, smi, scene, tmp)
+        k1_launches, runner1 = phase_slice(dev, smi, scene, tmp)
         counts = phase_slice2(dev, smi, scene, tmp)
-        counts3 = phase_slice3(dev, smi, scene, tmp)
+        counts3, runner3 = phase_slice3(dev, smi, scene, tmp)
         counts4 = phase_slice4(dev, smi, scene, tmp)
+        mesh_launches = phase_mesh(runner1)
+        phase_resume(scene, dev, tmp, runner1, runner3)
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
     csrc = "fmov_pose_torch/ops/csrc/"
     kernels = [{"name": "sdf_fwd", "route": "cuda", "source": csrc + "sdf_fwd.cu",
                 "replaces": "fmov_pose_tpu/ops/fused_sdf.py:326",
-                "launches": k1_launches, **k1}]
+                "launches": {f"slice1_{STEPS}_steps": k1_launches,
+                             f"mesh_{MESH_RES}": mesh_launches}, **k1}]
     for key, name, src, replaces, launches, res in (
             ("K2", "sdf_fwd_grad_flat", "sdf_flat.cu", "fused_sdf.py:343", counts3, flat_k),
             ("K3", "sdf_bwd_flat", "sdf_flat.cu", "fused_sdf.py:437", counts3, flat_k),

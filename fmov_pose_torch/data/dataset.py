@@ -28,7 +28,7 @@ import numpy as np
 from scipy import linalg
 
 __all__ = ["Dataset", "load_K_Rt_from_P", "apply_2d_transform", "mask_init_pose",
-           "filter_matches", "add_flow_pair", "mask_bboxes"]
+           "filter_matches", "add_flow_pair", "mask_bboxes", "object_bbox"]
 
 
 def load_K_Rt_from_P(P: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -115,15 +115,24 @@ def mask_bboxes(masks_np) -> np.ndarray:
     return boxes
 
 
+def object_bbox(scale_mat: np.ndarray):
+    """The mesh bounds: the cube [-1.01, 1.01]^3 of the normalised frame
+    taken to world coordinates by the inverse of ``scale_mat`` [4, 4]."""
+    inv_scale = np.linalg.inv(scale_mat)
+    bb_min = inv_scale @ np.array([-1.01, -1.01, -1.01, 1.0])[:, None]
+    bb_max = inv_scale @ np.array([1.01, 1.01, 1.01, 1.0])[:, None]
+    return bb_min[:3, 0], bb_max[:3, 0]
+
+
 def _read_pngs(paths) -> np.ndarray:
     import cv2 as cv
     return np.stack([cv.imread(p) for p in paths]).astype(np.float32) / 256.0
 
 
 class Dataset:
-    """The JAX ``Dataset``'s fields that training reads, from
-    ``conf["data_dir"]`` (the object bbox and depth maps, which only mesh
-    export and depth supervision read, are not ported)."""
+    """The JAX ``Dataset``'s fields that training and mesh extraction read
+    (``scale_mats_np``, ``object_bbox_min/max``), from ``conf["data_dir"]``
+    (the depth maps, which only depth supervision reads, are not ported)."""
 
     def __init__(self, conf, exp_dir: Optional[str] = None):
         self.exp_dir = exp_dir
@@ -196,13 +205,16 @@ class Dataset:
             self.gt_poses = self.gt_poses[sl]
         self.n_images = self.images_np.shape[0]
         self.mask_bboxes = mask_bboxes(self.masks_np)
+        self.object_bbox_min, self.object_bbox_max = object_bbox(self.scale_mats_np[0])
 
     # ------------------------------------------------------------------
     def _load_cameras(self, conf, camera_dict):
-        """(intrinsics, poses, gt poses) lists of the configured source."""
+        """(intrinsics, poses, gt poses) lists of the configured source; sets
+        ``scale_mats_np`` (identities but for the full annotation's)."""
         intrinsics, poses, gt = [], [], []
         n = self.n_images
         eye = np.eye(4, dtype=np.float32)
+        self.scale_mats_np = [eye.copy() for _ in range(n)]
         ml_intr = conf.get("ml_camera_intrinsics", "")
         if ml_intr or conf.get_bool("unknown_camera", False):
             if ml_intr:
@@ -239,9 +251,11 @@ class Dataset:
                     intrinsics.append(shared)
         elif camera_dict is not None:
             # full annotation (GT-pose NeuS), indices 0..n-1
+            self.scale_mats_np = [camera_dict[f"scale_mat_{i}"].astype(np.float32)
+                                  for i in range(n)]
             for i in range(n):
                 P = (camera_dict[f"world_mat_{i}"].astype(np.float32)
-                     @ camera_dict[f"scale_mat_{i}"].astype(np.float32))[:3, :4]
+                     @ self.scale_mats_np[i])[:3, :4]
                 intr, pose = load_K_Rt_from_P(P)
                 intrinsics.append(intr)
                 poses.append(pose)

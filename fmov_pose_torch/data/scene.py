@@ -22,7 +22,7 @@ from typing import Dict
 import numpy as np
 
 from fmov_pose_torch.data.dataset import (add_flow_pair, filter_matches, mask_bboxes,
-                                          mask_init_pose)
+                                          mask_init_pose, object_bbox)
 
 SPHERE_RADIUS = 0.5
 
@@ -153,6 +153,10 @@ class Scene:
     W: int
     n_images: int
     max_mask_pose: np.ndarray = None
+    # identities (the scene is already normalised) and the mesh bounds
+    scale_mats_np: list = field(default_factory=list)
+    object_bbox_min: np.ndarray = None
+    object_bbox_max: np.ndarray = None
     index_to_frame: Dict[int, str] = field(default_factory=dict)
     frame_to_index: Dict[str, int] = field(default_factory=dict)
     loftr_flows: Dict[str, tuple] = field(default_factory=dict)
@@ -189,6 +193,8 @@ def make_orbit_scene(n_frames=8, H=480, W=640, span_deg=60.0, cam_dist=2.5,
             xys1, xys2 = filter_matches(xys1, xys2, masks_np[i][..., 0],
                                         masks_np[i + 1][..., 0], H, W)
             add_flow_pair(flows, pairs, names[i], names[i + 1], xys1, xys2)
+    eye = np.eye(4, dtype=np.float32)
+    bbox_min, bbox_max = object_bbox(eye)
     return Scene(
         images_np=images_np, masks_np=masks_np,
         intrinsics_all=intr, intrinsics_all_inv=np.linalg.inv(intr),
@@ -196,6 +202,8 @@ def make_orbit_scene(n_frames=8, H=480, W=640, span_deg=60.0, cam_dist=2.5,
         crop_poses=noisy_poses(poses, noise_deg, seed),
         mask_bboxes=mask_bboxes(masks_np), H=H, W=W, n_images=n_frames,
         max_mask_pose=mask_init_pose(masks_np[0][..., 0], intr[0][:3, :3], crop),
+        scale_mats_np=[eye.copy() for _ in range(n_frames)],
+        object_bbox_min=bbox_min, object_bbox_max=bbox_max,
         index_to_frame=dict(enumerate(names)),
         frame_to_index={n: i for i, n in enumerate(names)},
         loftr_flows=flows, flow_pairs=pairs)

@@ -6,23 +6,28 @@
 (without CUDA it raises): the progressive phase 1 (``ho3d_virtual*.conf``,
 with its ``--flow_interval``, ``--reset_rot_degree`` and
 ``--image_interval`` flags), the phase-2 global conf, or a GT-pose or BARF
-conf.  The two-phase ``--global_conf`` run, which aligns phase 1's poses
-between the phases (``pipeline/align.py``), the eval and export modes and
-their flags raise ``NotImplementedError`` naming their ROADMAP item.
+conf, then the final mesh at ``--final_mesh_resolution`` with normal
+colors.  ``--is_continue`` resumes from the latest checkpoint of the exp
+dir.  ``--mode validate_mesh`` writes the 512^3 mesh of the Runner's
+state (with ``--is_continue``: of the latest checkpoint), scaled by
+``--mesh_scale``.  ``--mcube_threshold`` is parsed and unused, as in the
+JAX CLI.  The two-phase ``--global_conf`` run, which aligns phase 1's
+poses between the phases (``pipeline/align.py``), the other eval and
+export modes and their flags raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 import argparse
 import logging
 
-# flags of the eval and export modes: (name, default)
-_EXPORT_FLAGS = (("mcube_threshold", 0.0), ("ori_cam_path", "None"),
-                 ("mesh_scale", 1.0), ("align_dir", None),
-                 ("final_mesh_resolution", 512))
+# flags of the eval and export modes not ported yet: (name, default)
+_EXPORT_FLAGS = (("ori_cam_path", "None"), ("align_dir", None))
 
 
 def main(argv=None, device=None):
-    """Parse ``argv`` and train.  ``device`` overrides ``--gpu`` (a CPU
-    run is asked for by passing ``device="cpu"``)."""
+    """Parse ``argv`` and run the mode; returns the Runner.  ``device``
+    overrides ``--gpu`` (a CPU run is asked for by passing
+    ``device="cpu"``)."""
     logging.basicConfig(
         level=logging.INFO,
         format="[%(filename)s:%(lineno)s - %(funcName)s] %(message)s")
@@ -53,7 +58,7 @@ def main(argv=None, device=None):
     from fmov_pose_torch.device import require_cuda
     from fmov_pose_torch.train.runner import Runner
 
-    if args.mode != "train":
+    if args.mode not in ("train", "validate_mesh"):
         raise NotImplementedError(
             f"--mode {args.mode}: the eval and export modes are not in the "
             "PyTorch port yet (ROADMAP queue 1, item 10)")
@@ -65,8 +70,8 @@ def main(argv=None, device=None):
     for name, default in _EXPORT_FLAGS:
         if getattr(args, name) != default:
             raise NotImplementedError(
-                f"--{name}: mesh extraction and export are not in the PyTorch "
-                "port yet (ROADMAP queue 1, item 10)")
+                f"--{name}: the pose export and alignment modes are not in the "
+                "PyTorch port yet (ROADMAP queue 1, item 10)")
     if device is None:
         device = require_cuda(args.gpu)
     logging.getLogger(__name__).info("device: %s", device)
@@ -80,10 +85,13 @@ def main(argv=None, device=None):
         flow_interval=args.flow_interval,
         reset_rot_degree=args.reset_rot_degree,
         image_interval=args.image_interval, seed=args.seed, device=device)
-    runner.train()
-    logging.getLogger(__name__).info(
-        "final mesh (validate_mesh) skipped: not in the PyTorch port yet "
-        "(ROADMAP queue 1, item 10)")
+    if args.mode == "train":
+        runner.train()
+        runner.validate_mesh(resolution=args.final_mesh_resolution,
+                             use_norml_color=True)
+    else:
+        runner.validate_mesh(resolution=512, use_norml_color=True,
+                             mesh_scale=args.mesh_scale)
     return runner
 
 

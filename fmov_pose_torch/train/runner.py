@@ -25,13 +25,25 @@ The fused training kernels (``train.use_fused_train_kernels``: K2/K3 or
 K4/K5 for the SDF, K8/K9 or K6/K7 for the color), the NeRF++ background
 (``n_outside > 0``, trained with the fields) and the occupancy grid
 (``train.occupancy_sampling``, refreshed after every ``occ_update_freq``-th
-step) are taken as in the JAX Runner.  What the port leaves out raises
-``NotImplementedError`` naming its ROADMAP item: checkpoints, validation
-renders, meshes and exports (the training loop logs where the JAX Runner
-would run them, and draws the host RNG the JAX ``validate_image`` draws),
-the planned and scanned multi-step dispatch (``train.plan_chunk``), the
-pixel-level pose banks (``model.pixel_level``), depth supervision and data
-parallelism.
+step) are taken as in the JAX Runner.
+
+Checkpoints (``save_checkpoint``, ``load_checkpoint``; ``is_continue``
+resumes from the latest) are the JAX package's files: the port reads the
+JAX Runner's and writes its own in the same leaf order
+(``train/checkpoint.py``).  The loop saves and extracts meshes
+(``validate_mesh``, on K1 when the conf enables it) where the JAX loop
+does: a mesh every ``val_mesh_freq`` steps, a checkpoint every
+``save_freq``, both at the end of phase 1, a checkpoint at the end.  It
+keeps no per-step tensor: each step writes its metrics into its row of one
+preallocated device buffer, read back once after the loop into
+``history``.
+
+What the port leaves out raises ``NotImplementedError`` naming its ROADMAP
+item: validation renders, pose evaluation and exports (the training loop
+logs where the JAX Runner would render, and draws the host RNG the JAX
+``validate_image`` draws), the planned and scanned multi-step dispatch
+(``train.plan_chunk``), the pixel-level pose banks (``model.pixel_level``),
+depth supervision and data parallelism.
 """
 
 from __future__ import annotations
@@ -48,7 +60,9 @@ from fmov_pose_torch import convert
 from fmov_pose_torch.data import hocon
 from fmov_pose_torch.fields import nets
 from fmov_pose_torch.poses import picture_pose as pp
-from fmov_pose_torch.render import neus
+from fmov_pose_torch.pipeline import meshio
+from fmov_pose_torch.render import geometry, neus
+from fmov_pose_torch.train import checkpoint as ckpt
 from fmov_pose_torch.train import optim, step as step_mod
 
 LOG = logging.getLogger(__name__)
@@ -64,6 +78,39 @@ def rotation_error_deg(rel_R: np.ndarray) -> float:
     return float(np.arccos(max(min(d, 1.0), -1.0)) * 180.0 / np.pi)
 
 
+class StepTimer:
+    """Per-step device-timeline ms from a fixed ring of CUDA events: the
+    event ending step n takes the slot of the one that ended step n - RING,
+    whose step time is read first.  The host runs at most a few steps ahead
+    of the device (its launch queue is bounded), so that read waits for
+    nothing."""
+    RING = 64
+
+    def __init__(self, n_steps: int):
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(self.RING)]
+        self.ms = np.zeros(n_steps)
+        self.n = 0
+        self.events[0].record()
+
+    def _read(self, k):
+        """Step k's time (1-based): from event k-1 to event k."""
+        end = self.events[k % self.RING]
+        end.synchronize()
+        self.ms[k - 1] = self.events[(k - 1) % self.RING].elapsed_time(end)
+
+    def tick(self):
+        self.n += 1
+        if self.n >= self.RING:
+            self._read(self.n - self.RING + 1)
+        self.events[self.n % self.RING].record()
+
+    def finish(self):
+        """The times of the steps recorded, as a list."""
+        for k in range(max(1, self.n - self.RING + 2), self.n + 1):
+            self._read(k)
+        return self.ms[:self.n].tolist()
+
+
 class Runner:
     def __init__(self, conf_path, mode="train", case="CASE_NAME",
                  dataset="DTU", is_continue=False, start_at=-1,
@@ -74,11 +121,11 @@ class Runner:
         """``device``: where the state and the step run; None is the CUDA
         device (raises without one), the CPU only when asked for by name.
         ``scene``: an in-memory dataset used instead of the conf's
-        data_dir."""
-        if not mode.startswith("train"):
+        data_dir.  ``is_continue``: resume from the latest checkpoint under
+        <exp>/checkpoints, or start afresh with a warning when there is
+        none, as the JAX Runner does."""
+        if not (mode.startswith("train") or mode == "validate_mesh"):
             _unsupported(f"mode {mode!r}", "item 10 (eval and export)")
-        if is_continue:
-            _unsupported("--is_continue (checkpoints)", "item 1")
         if gradient_analysis:
             _unsupported("--gradient_analysis", "item 10")
         if device is None:
@@ -88,6 +135,8 @@ class Runner:
         self.mode = mode
         self.conf_path = conf_path
         self.device = torch.device(device)
+        # the host RNG is not checkpointed: a resumed Runner restarts it from
+        # the seed, as the JAX Runner does
         self.rng = np.random.default_rng(seed)
 
         conf = hocon.parse_file(conf_path, {"CASE_NAME": case,
@@ -241,7 +290,18 @@ class Runner:
         self._init_device_buffers()
         self._init_state(noise_poses, seed)
         self._build_steps()
-        self.file_backup()
+
+        if is_continue:
+            ckpt_dir = os.path.join(self.base_exp_dir, "checkpoints")
+            latest = ckpt.latest_checkpoint(ckpt_dir)
+            if latest is not None:
+                self.load_checkpoint(latest)
+            else:
+                LOG.warning("--is_continue: no checkpoint under %s, starting from "
+                            "scratch (check --global_conf: it changes the exp dir)",
+                            ckpt_dir)
+        if mode.startswith("train"):
+            self.file_backup()
 
         n_override = conf.get_int("dataset.n_images", self.dataset.n_images)
         self.dataset.n_images = min(n_override, self.dataset.n_images)
@@ -643,68 +703,257 @@ class Runner:
 
     def train(self):
         """Train to ``end_iter``, or until phase 1 has admitted every frame
-        (with a global conf).  Fills ``self.history`` (every metric of
-        every step, read back once at the end) and, on CUDA,
-        ``self.step_ms`` (per-step times from events between steps)."""
-        res_step = self.end_iter - self.iter_step
+        (with a global conf: then its mesh and checkpoint).  Fills
+        ``self.history`` (every metric of every step, read back once at the
+        end) and, on CUDA, ``self.step_ms`` (per-step times from events
+        between steps)."""
+        res_step = max(self.end_iter - self.iter_step, 0)
         self._init_perms()
-        on_cuda = self.device.type == "cuda"
-        events = []
-        log = []
+        names = step_mod.METRIC_NAMES
+        rows = torch.empty((res_step, len(names)), dtype=torch.float32,
+                           device=self.device)
+        timer = StepTimer(res_step) if self.device.type == "cuda" else None
         t_start = time.perf_counter()
         rays_per_step = self.batch_size * (2 if self.maintain_shape else 1)
-        rays_done = 0
-        if on_cuda:
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
+        done = 0
+        phase1_done = False
         for _ in range(res_step):
             packed, use_flow, pixels_pair, _ = self._plan_step()
             metrics = self._dispatch(packed, use_flow, pixels_pair)
+            torch.stack([metrics[k] for k in names], out=rows[done])
+            done += 1
             self.iter_step += 1
-            rays_done += rays_per_step
-            log.append(metrics)
             if (self.occupancy_sampling
                     and self.iter_step % self.occ_update_freq == 0):
                 self.update_occ_grid()
-            if on_cuda:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[-1].record()
+            if timer is not None:
+                timer.tick()
 
             if self.iter_step % self.report_freq == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = dict(zip(names, rows[done - 1].tolist()))  # the one sync
                 dt = time.perf_counter() - t_start
                 LOG.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f "
                          "rays/s=%.0f dir=%s",
                          self.iter_step, m["loss"], m["color_loss"],
                          m["eikonal_loss"], m["psnr"],
-                         rays_done / max(dt, 1e-9), self.base_exp_dir)
+                         done * rays_per_step / max(dt, 1e-9), self.base_exp_dir)
             if self.iter_step % self.val_freq == 0:
                 # the JAX Runner's validate_image draws its frame here
                 idx = int(self.rng.integers(self.current_image))
                 LOG.info("validate_image(%d) skipped: not in the port yet "
                          "(ROADMAP queue 1, item 10)", idx)
             self._progressive_update()
+            if self.iter_step % self.val_mesh_freq == 0:
+                try:
+                    self.validate_mesh()
+                except Exception as e:  # keep training, as the JAX loop does
+                    LOG.warning("validate_mesh failed: %s", e, exc_info=True)
             self._maybe_regen_perms()
+            if self.iter_step % self.save_freq == 0 and self.iter_step > 0:
+                self.save_checkpoint()
             if ("_wo_global_conf" not in self.base_exp_dir
                     and self.pro_iteration == -1
                     and self.current_image == self.dataset.n_images):
-                LOG.info("all %d frames admitted: phase 1 ends (its mesh and "
-                         "checkpoint are ROADMAP queue 1, items 1 and 10)",
-                         self.current_image)
+                phase1_done = True
                 break
 
-        if on_cuda:
-            torch.cuda.synchronize(self.device)
-            self.step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        if timer is not None:
+            self.step_ms = timer.finish()
         self.train_seconds = time.perf_counter() - t_start
-        if log:
-            stacked = {k: torch.stack([m[k] for m in log]).cpu().tolist()
-                       for k in log[0]}
-            for k, v in stacked.items():
-                self.history.setdefault(k, []).extend(v)
-        LOG.info("trained %d steps (%d flow) in %.1f s (checkpoints and "
-                 "validation are not in the port yet)", len(log), self.flow_steps,
+        if done:
+            cols = rows[:done].cpu().numpy()
+            for j, k in enumerate(names):
+                self.history.setdefault(k, []).extend(cols[:, j].tolist())
+        LOG.info("trained %d steps (%d flow) in %.1f s", done, self.flow_steps,
                  self.train_seconds)
+        if phase1_done:
+            LOG.info("all %d frames admitted: phase 1 ends", self.current_image)
+            self.validate_mesh()
+        self.save_checkpoint()
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def _host_meta(self):
+        return {"iter_step": self.iter_step, "current_image": self.current_image,
+                "current_pose_mlp_index": self.current_pose_mlp_index,
+                "pro_iteration": self.pro_iteration, "prev_pose": self.prev_pose,
+                "seg_progress": self.seg_progress, "seg_frozen": self.seg_frozen,
+                "mesh_warmup_step": self.mesh_warmup_step}
+
+    def state_leaves(self):
+        """The training state as the JAX package's checkpoint leaves:
+        [(name, numpy array)] in its ``TrainState`` flatten order (params
+        by sorted key; the flat Adam's step, mu, nu; the segment bank,
+        static before train, with the JAX bank's ``progress`` [S] that the
+        port does not keep, written as zeros; the segment Adam; the pose
+        buffers by key; the PRNG key as uint32[2]; the state's step)."""
+        st = self.state
+
+        def arr(t, dtype=np.float32):
+            return np.array(t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                            else t, dtype=dtype)
+
+        out = [(f"params.{n}", arr(t)) for n, t in convert.flatten(st.params)]
+        out += [("opt.step", arr(st.opt.step, np.int32)), ("opt.mu", arr(st.opt.mu)),
+                ("opt.nu", arr(st.opt.nu))]
+        if st.bank_flat is not None:
+            bs = st.bank_static
+            out += [("pose_bank.static.b", arr(bs["b"])),
+                    ("pose_bank.static.init_c2w", arr(bs["init_c2w"])),
+                    ("pose_bank.static.initialized", arr(bs["initialized"], bool)),
+                    ("pose_bank.static.progress", np.zeros(self.n_segments, np.float32))]
+            out += [(f"pose_bank.train.{n}", arr(t))
+                    for n, t in convert.flatten(st.bank_layout.views(st.bank_flat))]
+            po = st.pose_opt
+            out += [("pose_opt.step", arr(po.step, np.int32)), ("pose_opt.mu", arr(po.mu)),
+                    ("pose_opt.nu", arr(po.nu))]
+        out += [(f"pose_static.{k}", arr(st.pose_static[k])) for k in sorted(st.pose_static)]
+        seed = st.generator.initial_seed()
+        out += [("key", np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)),
+                ("iter_step", arr(st.iter_step, np.int32))]
+        return out
+
+    def save_checkpoint(self):
+        """<exp>/checkpoints/ckpt_{current_image:06d}_{iter_step:06d}.ckpt:
+        the state's leaves, the JAX Runner's host meta, and the device
+        generator's state (so a resumed port run continues its stream)."""
+        meta = self._host_meta()
+        meta["generator_state"] = self.state.generator.get_state().numpy().copy()
+        meta["generator_device"] = self.device.type
+        path = os.path.join(self.base_exp_dir, "checkpoints",
+                            f"ckpt_{self.current_image:06d}_{self.iter_step:06d}.ckpt")
+        ckpt.save_checkpoint(path, [a for _, a in self.state_leaves()], meta)
+        LOG.info("checkpoint saved: %s", path)
+        return path
+
+    def _read_leaves(self, leaves):
+        """{name: array} of a checkpoint's leaves, held to this Runner's
+        state by position, shape and dtype kind; raises on any mismatch.
+        A pre-flat-Adam JAX file (``optim.ensure_flat_adam``: moments as
+        params-shaped trees) has each moment as one leaf per parameter
+        leaf; they are raveled as ``ravel_pytree`` does."""
+        tree_shapes = {"opt.mu": self.state.layout.shapes,
+                       "opt.nu": self.state.layout.shapes}
+        if self.state.bank_layout is not None:
+            tree_shapes.update({"pose_opt.mu": self.state.bank_layout.shapes,
+                                "pose_opt.nu": self.state.bank_layout.shapes})
+        out, i = {}, 0
+        for name, ref in self.state_leaves():
+            if i >= len(leaves):
+                raise ValueError(f"checkpoint has {len(leaves)} leaves; this Runner's "
+                                 f"state needs more (missing {name})")
+            leaf = np.asarray(leaves[i])
+            shapes = tree_shapes.get(name)
+            if shapes and leaf.shape != ref.shape and leaf.shape == tuple(shapes[0]):
+                parts = [np.asarray(p) for p in leaves[i:i + len(shapes)]]
+                if [p.shape for p in parts] != [tuple(s) for s in shapes]:
+                    raise ValueError(f"checkpoint leaf {name}: neither flat {ref.shape} "
+                                     f"nor the pre-flat-Adam tree of {len(shapes)} leaves")
+                leaf = np.concatenate([p.reshape(-1) for p in parts])
+                i += len(shapes)
+            else:
+                i += 1
+            if leaf.shape != ref.shape or leaf.dtype.kind != ref.dtype.kind:
+                raise ValueError(f"checkpoint leaf {name}: {leaf.dtype}{list(leaf.shape)}, "
+                                 f"this Runner's state has {ref.dtype}{list(ref.shape)}")
+            out[name] = leaf
+        if i != len(leaves):
+            raise ValueError(f"checkpoint has {len(leaves)} leaves, this Runner's state "
+                             f"{i}: another conf or pose mode")
+        return out
+
+    def load_checkpoint(self, path):
+        """Restore the state and the host counters from ``path``, a JAX
+        package's checkpoint or the port's.  The leaves map onto the state
+        by name and shape (``_read_leaves``).  The device generator: a port
+        file restores its state; a JAX file's PRNG key (uint32[2]) cannot
+        reproduce JAX's stream in PyTorch, so the generator is seeded from
+        it deterministically, (key[0] << 32) | key[1]."""
+        leaves, meta, fmt = ckpt.load_checkpoint(path)
+        v = self._read_leaves(leaves)
+        st, dev = self.state, self.device
+
+        def tensor(a, dtype=torch.float32):
+            return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+        def joined(prefix):
+            return np.concatenate([a.reshape(-1) for n, a in v.items()
+                                   if n.startswith(prefix)])
+
+        with torch.no_grad():
+            st.flat.copy_(tensor(joined("params.")))
+            st.opt = optim.AdamState(step=int(v["opt.step"]), mu=tensor(v["opt.mu"]),
+                                     nu=tensor(v["opt.nu"]))
+            if st.bank_flat is not None:
+                st.bank_flat.copy_(tensor(joined("pose_bank.train.")))
+                st.bank_static["b"] = tensor(v["pose_bank.static.b"])
+                st.bank_static["init_c2w"] = tensor(v["pose_bank.static.init_c2w"])
+                st.bank_static["initialized"] = np.array(
+                    v["pose_bank.static.initialized"], bool)
+                st.pose_opt = optim.SegAdamState(
+                    step=tensor(v["pose_opt.step"], torch.int32),
+                    mu=tensor(v["pose_opt.mu"]), nu=tensor(v["pose_opt.nu"]))
+            for k in st.pose_static:
+                st.pose_static[k] = tensor(v[f"pose_static.{k}"])
+        st.iter_step = int(v["iter_step"])
+        if fmt == ckpt.FORMAT:
+            if meta["generator_device"] != dev.type:
+                raise ValueError(f"{path} holds a {meta['generator_device']} generator's "
+                                 f"state; this Runner runs on {dev.type}")
+            st.generator.set_state(torch.from_numpy(np.array(meta["generator_state"])))
+        else:
+            key = v["key"].astype(np.uint64)
+            st.generator.manual_seed(int((key[0] << np.uint64(32)) | key[1]))
+        self.iter_step = int(meta["iter_step"])
+        self.current_image = int(meta["current_image"])
+        self.current_pose_mlp_index = int(meta["current_pose_mlp_index"])
+        self.pro_iteration = int(meta["pro_iteration"])
+        self.prev_pose = meta["prev_pose"]
+        self.seg_progress = np.asarray(meta["seg_progress"])
+        self.seg_frozen = np.asarray(meta["seg_frozen"])
+        self.mesh_warmup_step = int(meta.get("mesh_warmup_step", 0))
+        LOG.info("restored %s (%s; iter %d, image %d)", path, fmt, self.iter_step,
+                 self.current_image)
+
+    # ------------------------------------------------------------------
+    # meshes
+    # ------------------------------------------------------------------
+    def validate_mesh(self, world_space=False, resolution=64, threshold=0.0,
+                      use_norml_color=False, mesh_scale=1.0):
+        """The zero level set of the SDF inside the object's bounds, as
+        <exp>/meshes/{current_image:08d}_{step:08d}_{res}_{mode}.ply; with
+        ``use_norml_color`` colored by its normals.  Returns the path;
+        ``self.mesh_seconds`` holds the time of each stage."""
+        seconds = {}
+        bound_min = np.asarray(self.dataset.object_bbox_min) * mesh_scale
+        bound_max = np.asarray(self.dataset.object_bbox_max) * mesh_scale
+        params = self.state.params
+        query = geometry.make_sdf_query(params, self.model_cfg)
+        vertices, triangles = geometry.extract_geometry(
+            bound_min, bound_max, resolution, threshold, query, self.device,
+            seconds=seconds)
+        os.makedirs(os.path.join(self.base_exp_dir, "meshes"), exist_ok=True)
+        if world_space and len(self.dataset.scale_mats_np):
+            sm = self.dataset.scale_mats_np[0]
+            vertices = vertices * sm[0, 0] + sm[:3, 3][None]
+        colors = None
+        t0 = time.perf_counter()
+        if use_norml_color and len(vertices):
+            colors = geometry.normal_colors(params, self.model_cfg, vertices, self.device)
+        seconds["normals"] = time.perf_counter() - t0
+        step_tag = self.iter_step - (self.iter_step % self.val_mesh_freq)
+        name = f"{self.current_image:08d}_{step_tag:08d}_{resolution}_{self.mode}.ply"
+        path = os.path.join(self.base_exp_dir, "meshes", name)
+        t0 = time.perf_counter()
+        meshio.write_ply(path, vertices, triangles, vertex_colors=colors)
+        seconds["write"] = time.perf_counter() - t0
+        self.mesh_seconds = seconds
+        LOG.info("mesh saved: %s (%d verts)", path, len(vertices))
+        if len(vertices) == 0:
+            LOG.warning("extracted mesh is EMPTY: the SDF has no zero crossing "
+                        "inside the bound yet (undertrained or diverged field)")
+        return path
 
     # ------------------------------------------------------------------
     def file_backup(self):

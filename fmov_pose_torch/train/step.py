@@ -172,6 +172,11 @@ def pose_of_frame(cfg: StepConfig, params, pose_bank, pose_static, cam_id: int):
         f"pose_mode {cfg.pose_mode!r}: seg_pixel is ROADMAP queue 1, item 8")
 
 
+# the metrics of every step, in the order of the Runner's history columns
+METRIC_NAMES = ("loss", "color_loss", "eikonal_loss", "mask_loss", "flow_loss",
+                "unit_sphere_loss", "depth_loss", "psnr", "s_val", "cdf", "weight_max")
+
+
 def _render_and_losses(cfg: StepConfig, generator, params, pose_static, data,
                        scalars: StepScalars, flow_ctx=None, pose_bank=None):
     """Render a ray batch and assemble the objective: color, eikonal,

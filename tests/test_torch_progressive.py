@@ -131,6 +131,11 @@ def test_progressive_cpu_run_reaches_all_frames(seq_root, tmp_path, fused, monke
     # mesh warm-up 10 + 5 frames x 15 steps, then the early return
     assert runner.current_image == N and runner.pro_iteration == -1
     assert runner.current_pose_mlp_index == N - 1 and steps == 85
+    # phase 1's end: its mesh, then its checkpoint, then the return
+    assert os.listdir(os.path.join(runner.base_exp_dir, "meshes")) == [
+        f"{N:08d}_00000000_64_train.ply"]
+    assert os.listdir(os.path.join(runner.base_exp_dir, "checkpoints")) == [
+        f"ckpt_{N:06d}_000085.ckpt"]
     assert bool(runner.state.bank_static["initialized"].all())
     assert runner.flow_steps > 0
     assert np.all(np.isfinite(runner.history["loss"]))
@@ -187,6 +192,11 @@ def test_dataset_matches_jax(seq_root, name):
     assert (dt.H, dt.W, dt.n_images) == (dj.H, dj.W, dj.n_images)
     assert dt.index_to_frame == dj.index_to_frame
     assert dt.avai_ann_frame == dj.avai_ann_frame
+    assert len(dt.scale_mats_np) == len(dj.scale_mats_np)
+    for a, b in zip(dt.scale_mats_np, dj.scale_mats_np):
+        np.testing.assert_array_equal(a, b)
+    for key in ("object_bbox_min", "object_bbox_max"):
+        np.testing.assert_array_equal(getattr(dt, key), getattr(dj, key), err_msg=key)
     for key in ("intrinsics_all", "intrinsics_all_inv", "pose_all", "gt_poses"):
         np.testing.assert_allclose(getattr(dt, key), getattr(dj, key), rtol=1e-4,
                                    atol=1e-4, err_msg=key)
@@ -275,7 +285,8 @@ def test_cli_trains_progressive_conf(seq_root, tmp_path):
     from fmov_pose_torch import exp_runner
     conf = _virtual_conf(seq_root, tmp_path, end_iter=30)
     runner = exp_runner.main(["--mode", "train", "--conf", conf, "--case", "SYN_ori",
-                              "--flow_interval", "2", "--reset_rot_degree", "45"],
+                              "--flow_interval", "2", "--reset_rot_degree", "45",
+                              "--final_mesh_resolution", "16"],
                              device="cpu")
     assert runner.base_exp_dir.endswith("_wo_global_conf_m2_r45")
     assert (runner.flow_interval, runner.reset_rot_threshold) == (2, 45.0)

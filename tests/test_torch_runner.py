@@ -1,6 +1,7 @@
 """The port's parameter conversion, in-memory scene, runner CLI and import
 hygiene (no JAX)."""
 
+import gc
 import glob
 import os
 import subprocess
@@ -202,7 +203,8 @@ def test_cli_trains_phase2_gf_conf(tmp_path):
     conf.write_text(CONF.format(exp_dir=tmp_path / "exp", data_dir=data_dir))
     before = fused_sdf.LAUNCHES
     runner = exp_runner.main(["--mode", "train", "--conf", str(conf),
-                              "--case", "SYN"], device="cpu")
+                              "--case", "SYN", "--final_mesh_resolution", "16"],
+                             device="cpu")
     assert runner.iter_step == 40 and runner.pose_mode == "gf"
     assert runner.model_cfg["sdf"]["use_fused"]
     # a CPU run takes K1's plain version: no launch
@@ -217,15 +219,113 @@ def test_cli_trains_phase2_gf_conf(tmp_path):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--mode", "validate_mesh"], "item 10"),
+    (["--mode", "validate_poses"], "item 10"),
     (["--mode", "train", "--global_conf", "x.conf"], "item 9"),
-    (["--mode", "train", "--mesh_scale", "2.0"], "item 10"),
+    (["--mode", "render_poses"], "item 10"),
     (["--mode", "train", "--align_dir", "out"], "item 10"),
 ])
 def test_cli_unported_modes_raise(args, match):
     from fmov_pose_torch import exp_runner
     with pytest.raises(NotImplementedError, match=match):
         exp_runner.main(args + ["--conf", "unused.conf"])
+
+
+def _tiny_conf(tmp_path, end_iter, name="tiny.conf", exp="exp"):
+    """CONF on a 3-frame 32x40 sequence, trained for ``end_iter`` steps."""
+    data_dir = os.path.join(str(tmp_path), "SYN")
+    if not os.path.isdir(data_dir):
+        _write_sequence(tmp_path, 3, 32, 40, seed=1)
+    conf = tmp_path / name
+    conf.write_text(CONF.format(exp_dir=tmp_path / exp, data_dir=data_dir)
+                    .replace("end_iter = 40", f"end_iter = {end_iter}"))
+    return str(conf)
+
+
+def test_cli_train_writes_final_mesh(tmp_path):
+    """--mode train ends in the mesh at --final_mesh_resolution with normal
+    colors, after the last checkpoint."""
+    from fmov_pose_torch import exp_runner
+    from fmov_pose_torch.pipeline import meshio
+    runner = exp_runner.main(["--mode", "train", "--conf", _tiny_conf(tmp_path, 3),
+                              "--final_mesh_resolution", "24"], device="cpu")
+    meshes = os.listdir(os.path.join(runner.base_exp_dir, "meshes"))
+    assert meshes == ["00000003_00000000_24_train.ply"]
+    verts, faces = meshio.read_ply(os.path.join(runner.base_exp_dir, "meshes", meshes[0]))
+    assert len(verts) > 0 and len(faces) > 0
+    assert verts.min() >= -1.01 and verts.max() <= 1.01
+    with open(os.path.join(runner.base_exp_dir, "meshes", meshes[0]), "rb") as f:
+        assert b"property uchar red" in f.read(400)
+    assert os.listdir(os.path.join(runner.base_exp_dir, "checkpoints")) == [
+        "ckpt_000003_000003.ckpt"]
+
+
+def test_cli_is_continue_resumes_at_the_saved_step(tmp_path):
+    """A second run with --is_continue starts at the first run's saved
+    iter_step, trains to the new end_iter and saves again; without a
+    checkpoint it starts afresh."""
+    from fmov_pose_torch import exp_runner
+    first = exp_runner.main(["--mode", "train", "--conf", _tiny_conf(tmp_path, 4),
+                             "--final_mesh_resolution", "8"], device="cpu")
+    assert first.iter_step == 4
+    resumed = exp_runner.main(["--mode", "train", "--conf",
+                               _tiny_conf(tmp_path, 6, "longer.conf"), "--is_continue",
+                               "--final_mesh_resolution", "8"], device="cpu")
+    assert resumed.base_exp_dir == first.base_exp_dir
+    assert resumed.iter_step == 6 and len(resumed.history["loss"]) == 2
+    assert resumed.state.opt.step == 6
+    assert sorted(os.listdir(os.path.join(resumed.base_exp_dir, "checkpoints"))) == [
+        "ckpt_000003_000004.ckpt", "ckpt_000003_000006.ckpt"]
+    fresh = exp_runner.main(["--mode", "train", "--conf",
+                             _tiny_conf(tmp_path, 2, "fresh.conf", exp="fresh"),
+                             "--is_continue", "--final_mesh_resolution", "8"], device="cpu")
+    assert fresh.iter_step == 2 and len(fresh.history["loss"]) == 2
+
+
+def test_cli_validate_mesh_mode(tmp_path, monkeypatch):
+    """--mode validate_mesh extracts the 512^3 normal-colored mesh of the
+    resumed state, scaled by --mesh_scale, and trains nothing."""
+    from fmov_pose_torch import exp_runner
+    from fmov_pose_torch.train.runner import Runner
+    exp_runner.main(["--mode", "train", "--conf", _tiny_conf(tmp_path, 3),
+                     "--final_mesh_resolution", "8"], device="cpu")
+    calls = []
+    monkeypatch.setattr(Runner, "validate_mesh",
+                        lambda self, **kw: calls.append((self.iter_step, self.mode, kw)))
+    runner = exp_runner.main(["--mode", "validate_mesh", "--conf", _tiny_conf(tmp_path, 3),
+                              "--is_continue", "--mesh_scale", "1.5",
+                              "--mcube_threshold", "0.2"], device="cpu")
+    assert calls == [(3, "validate_mesh", {"resolution": 512, "use_norml_color": True,
+                                           "mesh_scale": 1.5})]
+    assert runner.history == {}
+
+
+def _live_tensors():
+    gc.collect()
+    return sum(1 for o in gc.get_objects() if issubclass(type(o), torch.Tensor))
+
+
+def test_train_keeps_no_per_step_tensor(tmp_path):
+    """The loop writes each step's metrics into its row of one buffer: the
+    number of live tensors is the same after 8, 16 and 24 steps, and the
+    history has every step's metrics."""
+    from fmov_pose_torch.train import step as step_mod
+    from fmov_pose_torch.train.runner import Runner
+    runner = Runner(_tiny_conf(tmp_path, 24), device="cpu")
+    counts = {}
+    regen = runner._maybe_regen_perms
+
+    def counted():
+        regen()
+        if runner.iter_step % 8 == 0:
+            counts[runner.iter_step] = _live_tensors()
+
+    runner._maybe_regen_perms = counted
+    runner.train()
+    assert sorted(counts) == [8, 16, 24]
+    assert counts[8] == counts[16] == counts[24], counts
+    assert sorted(runner.history) == sorted(step_mod.METRIC_NAMES)
+    assert all(len(v) == 24 for v in runner.history.values())
+    assert np.all(np.isfinite(runner.history["loss"]))
 
 
 def test_cli_needs_cuda_unless_given_a_device():
