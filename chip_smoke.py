@@ -83,8 +83,24 @@ Phases, each printing lines as it ends:
                  generator's state and the host counters bitwise the first
                  Runner's; one fixed batch's loss bitwise equal through both;
                  5 more steps with finite losses on the path's kernels
+ 13. two_phase -- the CLI's two-phase command (exp_runner.main with
+                 --global_conf, in-process, the cwd a temporary work dir)
+                 on an 8-frame 480x640 orbit written to disk in the HO3D
+                 layout (SYN_ori with crop and matches, SYN, ann/SYN.npz),
+                 copies of the fast virtual and global confs cut in depth
+                 (phase 1 with slice 3's schedule until all 8 frames are
+                 admitted, phase 2 50 steps), the final mesh at 256^3: no
+                 phase-1 error file, every frame admitted before end_iter,
+                 finite aligned poses, 8 world and scale mats in the
+                 phase-2 dataset, phase 2's 50 finite losses and falling
+                 color loss, a non-empty final mesh and the poses file;
+                 K2/K3 once a phase-1 step, K1 once for the 64^3
+                 transition mesh and 64 times for the final one,
+                 K4/K5/K8/K9 once a phase-2 step, K6/K7 never; the
+                 alignment's ATE/RPE, phase 2's poses against the true
+                 orbit, and each stage's seconds
 Then one JSON line of kernel results (each with its launches in its
-path's run, its time, its plain version's, and its bound on the card),
+paths' runs, its time, its plain version's, and its bound on the card),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
 fallback and no switch to the plain version.  Imports nothing of JAX and
 nothing of the JAX package, and checks that at the end.
@@ -94,6 +110,8 @@ import dataclasses
 import json
 import os
 import statistics
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -121,6 +139,14 @@ ROW_MEDIAN_TOL, ROW_MAX_TOL = 1e-5, 1e-2
 # the mesh: the CLI's final resolution, evaluated in chunks of 64^3 points
 MESH_RES, MESH_CHUNK = 512, 64 ** 3
 RESUME_STEPS = 5
+# the two-phase command on an 8-frame 480x640 orbit written to disk, the
+# confs cut in depth only: phase 1 with slice 3's schedule until all frames
+# are admitted (10 + 8 x 8 = 74 steps, well before its end_iter), phase 2 for
+# STEPS; the final mesh at 256^3 (the mesh phase runs the default 512^3)
+TWO_PHASE_FRAMES = 8
+TWO_PHASE_P1 = {"end_iter": 200, "warm_up_end": 0, **SLICE3_SCHEDULE}
+TWO_PHASE_P2 = {"end_iter": STEPS, "warm_up_end": 0}
+TWO_PHASE_MESH_RES = 256
 
 
 def _require(cond, msg):
@@ -1232,6 +1258,191 @@ def phase_resume(scene, dev, tmp, runner1, runner3):
              f"the resumed slice-3 steps launched {counts3}")
 
 
+def _conf_copy(src, dst, edits):
+    """``src`` written to ``dst`` with each ``key = value`` line of ``edits``
+    set (each key must occur once at the start of a line)."""
+    with open(src) as f:
+        text = f.read()
+    for key, value in edits.items():
+        text, n = re.subn(rf"(?m)^(\s*){key}\s*=\s*\S+", rf"\g<1>{key} = {value}", text)
+        _require(n == 1, f"{src}: {n} lines set {key}")
+    with open(dst, "w") as f:
+        f.write(text)
+
+
+def phase_two_phase(dev, smi, tmp):
+    """The two-phase command as a user runs it, in-process through
+    ``exp_runner.main`` with the cwd in a work dir that holds the HO3D
+    layout the confs name, written by the port's ``make_orbit_sequence``:
+    phase 1 on the fast virtual conf (K2/K3) until all frames are
+    admitted, the alignment (the 64^3 mesh on K1, PnP, the
+    normalization, the phase-2 dataset), phase 2 on the fast global conf
+    (K4/K5/K8/K9), the final mesh (K1) and the poses."""
+    import numpy as np
+    import torch
+    from fmov_pose_torch import exp_runner
+    from fmov_pose_torch.data import dataset as dataset_mod
+    from fmov_pose_torch.data.synthetic import make_orbit_sequence
+    from fmov_pose_torch.pipeline import align, evalpose, meshio
+    from fmov_pose_torch.train.runner import Runner
+
+    work = os.path.join(tmp, "two_phase")
+    data = os.path.join(work, "data", "HO3Dv3")
+    t0 = time.perf_counter()
+    gt = make_orbit_sequence(os.path.join(data, "SYN_ori"), n_frames=TWO_PHASE_FRAMES,
+                             H=480, W=640)
+    make_orbit_sequence(os.path.join(data, "SYN"), n_frames=TWO_PHASE_FRAMES, H=480,
+                        W=640, with_matches=False, with_crop=False)
+    os.makedirs(os.path.join(data, "ann"))
+    shutil.copy(os.path.join(data, "SYN", "cameras_sphere.npz"),
+                os.path.join(data, "ann", "SYN.npz"))
+    data_s = time.perf_counter() - t0
+    os.makedirs(os.path.join(work, "confs"))
+    confs = []
+    for src, edits in ((VIRTUAL_CONF, TWO_PHASE_P1), (FAST_CONF, TWO_PHASE_P2)):
+        dst = os.path.join(work, "confs", os.path.basename(src))
+        _conf_copy(src, dst, edits)
+        confs.append("./confs/" + os.path.basename(src))
+    argv = ["--mode", "train", "--conf", confs[0], "--case", "SYN_ori",
+            "--global_conf", confs[1], "--final_mesh_resolution", str(TWO_PHASE_MESH_RES)]
+    _line("two_phase", data=f"SYN_ori+SYN_{TWO_PHASE_FRAMES}x480x640+ann",
+          data_s=f"{data_s:.2f}", argv=repr(" ".join(argv)),
+          edits=",".join(f"{os.path.basename(c)}:{k}={v}" for c, e in
+                         zip(confs, (TWO_PHASE_P1, TWO_PHASE_P2)) for k, v in e.items()))
+
+    # record each stage: its arguments, result, seconds and launches
+    calls = {}
+    saved = [(owner, name, getattr(owner, name)) for owner, name in (
+        (Runner, "train"), (Runner, "validate_mesh"), (Runner, "save_aligned_poses"),
+        (dataset_mod.Dataset, "__init__"), (align, "pnp_pose_from_mesh"),
+        (align, "get_normalization"), (align, "_write_phase2_dataset"))]
+
+    def recorded(name, fn):
+        def run(*a, **kw):
+            c0, t = _counters(), time.perf_counter()
+            out = fn(*a, **kw)
+            c1 = _counters()
+            calls.setdefault(name, []).append({
+                "args": a, "kw": kw, "out": out, "s": time.perf_counter() - t,
+                "launches": {k: c1[k] - c0[k] for k in c1}})
+            return out
+        return run
+
+    for owner, name, fn in saved:
+        setattr(owner, name, recorded(name, fn))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counters()
+        t0 = time.perf_counter()
+        runner2 = exp_runner.main(argv, device=dev)
+        total_s = time.perf_counter() - t0
+        counts = _counters()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        os.chdir(cwd)
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    trains, meshes = calls.get("train", []), calls.get("validate_mesh", [])
+    aligns = calls.get("save_aligned_poses", [])
+
+    p1_dir = os.path.join(work, "exp", "SYN_ori", "ours")
+    err = os.path.join(p1_dir, "error_during_progressive_learning.txt")
+    _require(not os.path.exists(err), "phase 1 raised: " + (
+        open(err).read()[-2000:] if os.path.exists(err) else ""))
+    _require(len(trains) == 2 and len(aligns) == 1 and len(meshes) == 2,
+             f"{len(trains)} trains, {len(aligns)} alignments, {len(meshes)} meshes")
+    p1, p2 = trains
+    r1 = p1["args"][0]
+    _require(r1 is not runner2 and p2["args"][0] is runner2,
+             "the CLI did not reboot into a new Runner for phase 2")
+    transition, final = meshes
+    p1_steps = len(r1.history["loss"])
+    p1_loss = np.asarray(r1.history["loss"])
+    step_launches = {k: p1["launches"][k] - transition["launches"][k]
+                     for k in p1["launches"]}
+    _line("two_phase", stage="phase1", steps=p1_steps, iter_step=r1.iter_step,
+          end_iter=r1.end_iter, current_image=r1.current_image,
+          pro_iteration=r1.pro_iteration, resets=r1.reset_count,
+          flow_steps=r1.flow_steps, loss_first=f"{p1_loss[0]:.5f}",
+          loss_last=f"{p1_loss[-1]:.5f}",
+          median_step_ms=f"{statistics.median(r1.step_ms):.2f}",
+          loop_s=f"{r1.train_seconds:.2f}", seconds=f"{p1['s']:.2f}",
+          launches=json.dumps(step_launches).replace(" ", ""))
+    _require(r1.current_image == TWO_PHASE_FRAMES and r1.pro_iteration == -1
+             and p1_steps < TWO_PHASE_P1["end_iter"],
+             f"phase 1 ended with {r1.current_image} frames admitted after "
+             f"{p1_steps} of {TWO_PHASE_P1['end_iter']} steps")
+    _require(bool(np.isfinite(p1_loss).all()), "non-finite phase-1 losses")
+    _require(step_launches["K2"] == step_launches["K3"] == p1_steps
+             and all(v == 0 for k, v in step_launches.items() if k not in ("K2", "K3")),
+             f"the phase-1 steps launched {step_launches} in {p1_steps} steps")
+
+    ate = aligns[0]["out"]
+    pnp_s = sum(c["s"] for c in calls["pnp_pose_from_mesh"])
+    norm_s = sum(c["s"] for c in calls.get("get_normalization", []))
+    write_s = calls["_write_phase2_dataset"][0]["s"] - norm_s
+    _line("two_phase", stage="transition", mesh=os.path.basename(transition["out"]),
+          mesh_s=f"{transition['s']:.3f}",
+          mesh_launches=json.dumps(transition["launches"]).replace(" ", ""),
+          align_s=f"{aligns[0]['s']:.3f}", pnp_s=f"{pnp_s:.3f}",
+          pnp_frames=len(calls["pnp_pose_from_mesh"]), normalization_s=f"{norm_s:.3f}",
+          writes_s=f"{write_s:.3f}",
+          ate=f"{ate[0]:.5f}" if ate else None, rpe_trans=f"{ate[1]:.5f}" if ate else None,
+          rpe_rot=f"{ate[2]:.5f}" if ate else None)
+    _require(transition["kw"] == {} and transition["launches"]["K1"] == 1
+             and all(v == 0 for k, v in transition["launches"].items() if k != "K1"),
+             f"the transition mesh launched {transition['launches']}")
+    _require(ate is not None and all(np.isfinite(ate)), f"alignment ATE {ate}")
+    gposes = np.load(os.path.join(p1_dir, f"global_poses_{TWO_PHASE_FRAMES}_"
+                                          f"{r1.iter_step}.npy"))
+    _require(gposes.shape == (TWO_PHASE_FRAMES, 4, 4) and bool(np.isfinite(gposes).all()),
+             "the aligned poses are missing or not finite")
+    p2_dir = os.path.join(work, runner2.base_exp_dir)   # paths relative to work
+    noise = np.load(os.path.join(p2_dir, "noise_cameras_sphere.npz"))
+    _require(sorted(noise.files) == sorted(f"{k}_{i}" for i in range(TWO_PHASE_FRAMES)
+                                           for k in ("world_mat", "scale_mat")),
+             f"noise_cameras_sphere.npz holds {sorted(noise.files)}")
+    p2_load = [c for c in calls["__init__"] if c["args"][2:] and c["args"][2] is not None]
+    _require(len(p2_load) == 1, f"{len(p2_load)} phase-2 Dataset loads")
+
+    step_ms = _history_lines("two_phase", runner2, smi, stage="phase2",
+                             launches=json.dumps(p2["launches"]).replace(" ", ""),
+                             dataset_load_s=f"{p2_load[0]['s']:.3f}",
+                             seconds=f"{p2['s']:.2f}")
+    _perf_line("two_phase", runner2, step_ms, peak, smi)
+    _require(runner2.iter_step == STEPS and runner2.dataset.use_crop_init,
+             f"phase 2 at {runner2.iter_step} steps")
+    _require_launches(p2["launches"], ("K4", "K5", "K8", "K9"), "phase-2")
+
+    verts, faces = meshio.read_ply(os.path.join(work, final["out"]))
+    poses_path = os.path.join(p2_dir, f"poses_{runner2.iter_step}.npy")
+    learned = np.load(poses_path, allow_pickle=True).item()
+    est = np.stack([learned[n] for n in gt["names"]])
+    aligned = evalpose.align_ate_c2b_use_a2b(est, gt["poses"])
+    _line("two_phase", stage="final", mesh=os.path.basename(final["out"]),
+          vertices=len(verts), triangles=len(faces), mesh_s=f"{final['s']:.3f}",
+          **{f"mesh_{k}_s": f"{v:.3f}" for k, v in runner2.mesh_seconds.items()},
+          launches=json.dumps(final["launches"]).replace(" ", ""),
+          poses=os.path.basename(poses_path),
+          phase2_ate_vs_orbit=f"{evalpose.compute_ATE(gt['poses'], aligned):.5f}",
+          phase2_rpe_vs_orbit=json.dumps([round(v, 5) for v in evalpose.compute_rpe(
+              gt["poses"], aligned)]).replace(" ", ""),
+          total_s=f"{total_s:.2f}", launches_total=json.dumps(counts).replace(" ", ""))
+    expected = -(-TWO_PHASE_MESH_RES ** 3 // MESH_CHUNK)
+    _require(final["kw"].get("resolution") == TWO_PHASE_MESH_RES
+             and final["launches"]["K1"] == expected
+             and all(v == 0 for k, v in final["launches"].items() if k != "K1"),
+             f"the final mesh launched {final['launches']} (expected K1 {expected})")
+    _require(len(verts) > 0 and len(faces) > 0, "the final mesh is empty")
+    _require(bool(np.isfinite(est).all()), "the learned poses are not finite")
+    _require(counts["K6"] == counts["K7"] == 0 and counts["K1"] == 1 + expected,
+             f"the two-phase run launched {counts}")
+    return {"K1": counts["K1"], "K2": step_launches["K2"], "K3": step_launches["K3"],
+            **{k: p2["launches"][k] for k in ("K4", "K5", "K8", "K9")}}
+
+
 KERNEL_PHASES = {"kernels": phase_kernels, "train-kernels": phase_train_kernels,
                  "flat-kernels": phase_flat_kernels, "color-kernels": phase_color_kernels}
 
@@ -1270,25 +1481,37 @@ def main(argv):
         counts4 = phase_slice4(dev, smi, scene, tmp)
         mesh_launches = phase_mesh(runner1)
         phase_resume(scene, dev, tmp, runner1, runner3)
+        del runner1, runner3
+        two = phase_two_phase(dev, smi, tmp)
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
     csrc = "fmov_pose_torch/ops/csrc/"
     kernels = [{"name": "sdf_fwd", "route": "cuda", "source": csrc + "sdf_fwd.cu",
                 "replaces": "fmov_pose_tpu/ops/fused_sdf.py:326",
                 "launches": {f"slice1_{STEPS}_steps": k1_launches,
-                             f"mesh_{MESH_RES}": mesh_launches}, **k1}]
+                             f"mesh_{MESH_RES}": mesh_launches,
+                             "two_phase": two["K1"]}, **k1}]
+    slice3, slice2 = f"slice3_{STEPS}_steps", f"slice2_{STEPS}_steps"
     for key, name, src, replaces, launches, res in (
-            ("K2", "sdf_fwd_grad_flat", "sdf_flat.cu", "fused_sdf.py:343", counts3, flat_k),
-            ("K3", "sdf_bwd_flat", "sdf_flat.cu", "fused_sdf.py:437", counts3, flat_k),
-            ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699", counts, train_k),
-            ("K5", "sdf_bwd", "sdf_bwd.cu", "fused_sdf.py:761", counts, train_k),
-            ("K6", "color_fwd", "color_sample.cu", "fused_color.py:93", counts4, sample_k),
-            ("K7", "color_bwd", "color_sample.cu", "fused_color.py:108", counts4, sample_k),
-            ("K8", "color_ray_fwd", "color_ray.cu", "fused_color.py:375", counts, train_k),
-            ("K9", "color_ray_bwd", "color_ray.cu", "fused_color.py:407", counts, train_k)):
+            ("K2", "sdf_fwd_grad_flat", "sdf_flat.cu", "fused_sdf.py:343",
+             {slice3: counts3["K2"], "two_phase": two["K2"]}, flat_k),
+            ("K3", "sdf_bwd_flat", "sdf_flat.cu", "fused_sdf.py:437",
+             {slice3: counts3["K3"], "two_phase": two["K3"]}, flat_k),
+            ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699",
+             {slice2: counts["K4"], "two_phase": two["K4"]}, train_k),
+            ("K5", "sdf_bwd", "sdf_bwd.cu", "fused_sdf.py:761",
+             {slice2: counts["K5"], "two_phase": two["K5"]}, train_k),
+            ("K6", "color_fwd", "color_sample.cu", "fused_color.py:93",
+             counts4["K6"], sample_k),
+            ("K7", "color_bwd", "color_sample.cu", "fused_color.py:108",
+             counts4["K7"], sample_k),
+            ("K8", "color_ray_fwd", "color_ray.cu", "fused_color.py:375",
+             {slice2: counts["K8"], "two_phase": two["K8"]}, train_k),
+            ("K9", "color_ray_bwd", "color_ray.cu", "fused_color.py:407",
+             {slice2: counts["K9"], "two_phase": two["K9"]}, train_k)):
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": "fmov_pose_tpu/ops/" + replaces,
-                        "launches": launches[key], **res[name]})
+                        "launches": launches, **res[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

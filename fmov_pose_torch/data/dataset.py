@@ -10,9 +10,9 @@ and a c2w pose; the match filtering (3-sigma outliers, the crop
 transform, the image border, mask membership); the mask-init seed pose
 from frame 0's mask; per-frame mask bboxes for mask-guided sampling.
 
-OpenCV is imported only where PNGs are read, so the GPU machine, which
-has no OpenCV, can import this module (``data/scene.py`` uses its
-functions).  The decomposition is ``scipy.linalg.rq`` with the signs fixed
+OpenCV is imported only where PNGs are read, so that importing the port
+does not load it (``data/scene.py`` uses this module's functions).  The
+decomposition is ``scipy.linalg.rq`` with the signs fixed
 so that K has a positive diagonal, the convention of
 ``cv2.decomposeProjectionMatrix``.  Optional depth maps (``depth_weight``)
 are not ported: the Runner raises for them.

@@ -112,13 +112,14 @@ def noisy_poses(poses, noise_deg=5.0, seed=0):
     return out.astype(np.float32)
 
 
-def exact_matches(K, c2w1, c2w2, mask1, depth1, mask2, rng, n_matches=200):
-    """Frame 1's pixels [n, 2] and their exact projections into frame 2
-    [n, 2] through the analytic geometry, drawn and rounded as
-    ``synthetic.py:_write_matches`` writes them (3 decimals)."""
+def match_rows(K, c2w1, c2w2, mask1, depth1, mask2, rng, n_matches=200):
+    """Exact correspondences through the analytic geometry, drawn as
+    ``synthetic.py:_write_matches`` draws them: rows [n, 4] of frame 1's
+    pixel (x, y) and its projection into frame 2, unrounded; None when
+    frame 1's mask is empty (no draw is made)."""
     ys, xs = np.where(mask1)
     if len(ys) == 0:
-        return np.zeros((0, 2)), np.zeros((0, 2))
+        return None
     sel = rng.choice(len(ys), min(n_matches * 3, len(ys)), replace=False)
     xs, ys = xs[sel], ys[sel]
     pix = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64)
@@ -133,8 +134,16 @@ def exact_matches(K, c2w1, c2w2, mask1, depth1, mask2, rng, n_matches=200):
     keep = (px2 >= 0) & (px2 < W) & (py2 >= 0) & (py2 < H) & (pts_c2[:, 2] > 0)
     xi, yi = np.clip(px2, 0, W - 1).astype(int), np.clip(py2, 0, H - 1).astype(int)
     keep &= mask2[yi, xi]
-    rows = np.round(np.stack([xs[keep], ys[keep], px2[keep], py2[keep]], -1)
-                    [:n_matches], 3)
+    return np.stack([xs[keep], ys[keep], px2[keep], py2[keep]], -1)[:n_matches]
+
+
+def exact_matches(K, c2w1, c2w2, mask1, depth1, mask2, rng, n_matches=200):
+    """Frame 1's pixels [n, 2] and their exact projections into frame 2
+    [n, 2] (``match_rows``), rounded to the 3 decimals of the match files."""
+    rows = match_rows(K, c2w1, c2w2, mask1, depth1, mask2, rng, n_matches)
+    if rows is None:
+        return np.zeros((0, 2)), np.zeros((0, 2))
+    rows = np.round(rows, 3)
     return rows[:, :2], rows[:, 2:]
 
 

@@ -1,33 +1,46 @@
 """Experiment CLI of the PyTorch port, with the flags of ``exp_runner.py``.
 
-    python -m fmov_pose_torch.exp_runner --mode train --conf CONF --case CASE
+    python -m fmov_pose_torch.exp_runner --mode train --conf CONF --case CASE \
+        [--global_conf GLOBAL_CONF]
 
-``--mode train`` runs one phase of a conf on the CUDA device ``--gpu``
-(without CUDA it raises): the progressive phase 1 (``ho3d_virtual*.conf``,
-with its ``--flow_interval``, ``--reset_rot_degree`` and
-``--image_interval`` flags), the phase-2 global conf, or a GT-pose or BARF
-conf, then the final mesh at ``--final_mesh_resolution`` with normal
-colors.  ``--is_continue`` resumes from the latest checkpoint of the exp
-dir.  ``--mode validate_mesh`` writes the 512^3 mesh of the Runner's
-state (with ``--is_continue``: of the latest checkpoint), scaled by
-``--mesh_scale``.  ``--mcube_threshold`` is parsed and unused, as in the
-JAX CLI.  The two-phase ``--global_conf`` run, which aligns phase 1's
-poses between the phases (``pipeline/align.py``), the other eval and
-export modes and their flags raise ``NotImplementedError`` naming their
-ROADMAP item.
+``--mode train`` runs on the CUDA device ``--gpu`` (without CUDA it
+raises).  With ``--global_conf`` it is the two-phase run of the
+reference: phase 1 on ``--conf`` (the progressive ``ho3d_virtual*.conf``;
+an exception there is written to
+``<exp>/error_during_progressive_learning.txt`` and the run goes on, as
+the reference's does), then the pose alignment (``Runner.
+save_aligned_poses``: phase 1's 64^3 mesh, PnP, the normalization)
+writes the phase-2 dataset into ``<exp>/<global conf name>/``, then a
+new Runner on the global conf trains phase 2 there (resuming from its
+checkpoints when they exist), writes the final mesh at
+``--final_mesh_resolution`` with normal colors and the learned poses
+(``poses_<iter>.npy``).  When that directory exists already, phase 1 and
+the alignment are skipped.  Without ``--global_conf`` it runs one phase
+of a conf (phase 1 with its ``--flow_interval``, ``--reset_rot_degree``
+and ``--image_interval`` flags, the phase-2 global conf, a GT-pose or
+BARF conf), then the final mesh.  ``--is_continue`` resumes from the
+latest checkpoint of the exp dir.  ``--mode validate_mesh`` writes the
+512^3 mesh of the Runner's state (with ``--is_continue``: of the latest
+checkpoint), scaled by ``--mesh_scale``; with ``--global_conf``, the
+256^3 mesh of the phase-2 Runner in ``<exp>/<global conf name>/``.
+``--mcube_threshold`` is parsed and unused, as in the JAX CLI.  The other
+eval and export modes and their flags raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 import argparse
 import logging
+import os
+import traceback
 
 # flags of the eval and export modes not ported yet: (name, default)
 _EXPORT_FLAGS = (("ori_cam_path", "None"), ("align_dir", None))
 
 
 def main(argv=None, device=None):
-    """Parse ``argv`` and run the mode; returns the Runner.  ``device``
-    overrides ``--gpu`` (a CPU run is asked for by passing
-    ``device="cpu"``)."""
+    """Parse ``argv`` and run the mode; returns the last Runner (phase 2's
+    in a two-phase run).  ``device`` overrides ``--gpu`` (a CPU run is
+    asked for by passing ``device="cpu"``)."""
     logging.basicConfig(
         level=logging.INFO,
         format="[%(filename)s:%(lineno)s - %(funcName)s] %(message)s")
@@ -62,11 +75,6 @@ def main(argv=None, device=None):
         raise NotImplementedError(
             f"--mode {args.mode}: the eval and export modes are not in the "
             "PyTorch port yet (ROADMAP queue 1, item 10)")
-    if args.global_conf != "None":
-        raise NotImplementedError(
-            "--global_conf: the two-phase run needs the pose alignment between "
-            "the phases, pipeline/align.py (ROADMAP queue 1, item 9); run each "
-            "phase's conf on its own")
     for name, default in _EXPORT_FLAGS:
         if getattr(args, name) != default:
             raise NotImplementedError(
@@ -76,19 +84,64 @@ def main(argv=None, device=None):
         device = require_cuda(args.gpu)
     logging.getLogger(__name__).info("device: %s", device)
 
+    def reboot_runner(case, new_exp_dir):
+        return Runner(
+            args.global_conf, mode="train", case=case, dataset=args.dataset,
+            is_continue=os.path.exists(os.path.join(new_exp_dir, "checkpoints")),
+            start_at=args.start_at, start_img_idx=args.start_img_idx,
+            gradient_analysis=args.gradient_analysis, exp_dir=new_exp_dir,
+            has_global_conf=os.path.exists(new_exp_dir), seed=args.seed,
+            device=device)
+
+    def global_mask_dir_for(case):
+        if "ho3d" in args.global_conf:
+            return f"./data/HO3Dv3/{case}/mask_obj"
+        if "ml" in args.global_conf:
+            return f"./data/ML/{case}/mask_obj"
+        raise NotImplementedError(args.global_conf)
+
     # start_at goes to the Runner, which takes it and, like the reference's,
     # does not use it
     runner = Runner(
         args.conf, args.mode, args.case, args.dataset, args.is_continue,
         args.start_at, args.start_img_idx, args.gradient_analysis,
-        has_global_conf="GT.conf" in args.conf,
+        has_global_conf=args.global_conf != "None" or "GT.conf" in args.conf,
         flow_interval=args.flow_interval,
         reset_rot_degree=args.reset_rot_degree,
         image_interval=args.image_interval, seed=args.seed, device=device)
-    if args.mode == "train":
+    conf_name = os.path.basename(args.global_conf).split(".")[0]
+    if args.mode == "train" and args.global_conf != "None":
+        case = runner.case.split("_")[0]
+        gmask = global_mask_dir_for(case)
+        original_exp_dir = runner.base_exp_dir
+        new_exp_dir = os.path.join(original_exp_dir, conf_name)
+        if not os.path.exists(new_exp_dir):
+            try:
+                runner.train()
+            except Exception as e:  # the reference's behaviour: log and align
+                with open(os.path.join(original_exp_dir,
+                                       "error_during_progressive_learning.txt"),
+                          "w") as f:
+                    f.write(f"Exception occurred: {e}\n")
+                    f.write(traceback.format_exc())
+            runner.save_aligned_poses(
+                save_dataset=True, normalize_trans=True, tgt_dir=new_exp_dir,
+                save_meta=False, global_mask_dir=gmask)
+        runner = reboot_runner(case, new_exp_dir)
+        print("reboot the system for global training" + "-" * 40)
         runner.train()
         runner.validate_mesh(resolution=args.final_mesh_resolution,
                              use_norml_color=True)
+        runner.save_poses_simple()
+    elif args.mode == "train":
+        runner.train()
+        runner.validate_mesh(resolution=args.final_mesh_resolution,
+                             use_norml_color=True)
+    elif args.global_conf != "None":
+        runner = reboot_runner(runner.case.split("_")[0],
+                               os.path.join(runner.base_exp_dir, conf_name))
+        runner.validate_mesh(resolution=256, use_norml_color=True,
+                             mesh_scale=args.mesh_scale)
     else:
         runner.validate_mesh(resolution=512, use_norml_color=True,
                              mesh_scale=args.mesh_scale)

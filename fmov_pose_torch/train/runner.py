@@ -38,6 +38,11 @@ keeps no per-step tensor: each step writes its metrics into its row of one
 preallocated device buffer, read back once after the loop into
 ``history``.
 
+Between the phases of a two-phase run, ``save_aligned_poses`` maps phase
+1's virtual-camera poses to the real camera (phase 1's 64^3 mesh and
+PnP, ``pipeline/align.py``) and writes the phase-2 dataset;
+``save_poses_simple`` writes the learned poses at the end.
+
 What the port leaves out raises ``NotImplementedError`` naming its ROADMAP
 item: validation renders, pose evaluation and exports (the training loop
 logs where the JAX Runner would render, and draws the host RNG the JAX
@@ -954,6 +959,59 @@ class Runner:
             LOG.warning("extracted mesh is EMPTY: the SDF has no zero crossing "
                         "inside the bound yet (undertrained or diverged field)")
         return path
+
+    # ------------------------------------------------------------------
+    # poses out, and the phase transition
+    # ------------------------------------------------------------------
+    def save_poses_simple(self, align_dir=None):
+        """{frame name: c2w [4, 4]} of the admitted frames as
+        <exp>/poses_<iter_step>.npy, or <align_dir>/<case>_poses.npy;
+        returns the path."""
+        poses = self.query_poses(self.current_image)
+        out = {self.dataset.index_to_frame[i]: poses[i]
+               for i in range(self.current_image)}
+        save_path = (os.path.join(align_dir, f"{self.case}_poses.npy")
+                     if align_dir else
+                     os.path.join(self.base_exp_dir, f"poses_{self.iter_step}.npy"))
+        np.save(save_path, out)
+        return save_path
+
+    def save_aligned_poses(self, save_dataset=True, normalize_trans=True,
+                           tgt_dir=None, save_meta=True, global_mask_dir=None):
+        """Phase transition: map the virtual-camera poses to the real camera
+        through phase 1's 64^3 mesh and PnP, and write the phase-2 dataset
+        (``pipeline/align.py``), as the JAX Runner does
+        (`exp_runner.py:1333-1412` of the reference).  Without every frame
+        admitted it backs off 10 frames.  The mesh is the one phase 1
+        wrote at its end, or a new 64^3 one.  The ground truth for the
+        ATE is ./data/HO3Dv3/ann/<case>.npz unless the conf names ML
+        intrinsics.  Returns the alignment's (ATE, RPE trans, RPE rot), or
+        None without a ground truth."""
+        from fmov_pose_torch.pipeline import align
+        if self.current_image != self.dataset.n_images:
+            self.current_image = max(self.current_image - 10, 1)
+        img_names = [self.dataset.index_to_frame[i] for i in range(self.current_image)]
+        poses = self.query_poses(range(self.current_image))
+        Ks = self.dataset.intrinsics_all
+        transform_matrixs = (np.stack([self.dataset.crop_transforms[n] for n in img_names])
+                             if self.dataset.crop else None)
+        step_tag = self.iter_step - (self.iter_step % self.val_mesh_freq)
+        mesh_path = os.path.join(self.base_exp_dir, "meshes",
+                                 f"{self.current_image:08d}_{step_tag:08d}_64_train.ply")
+        if not os.path.exists(mesh_path):
+            mesh_path = self.validate_mesh()
+        case = self.case.split("_")[0]
+        ml_intr = self.conf.get("dataset.ml_camera_intrinsics", "")
+        ori_cam_path = None if ml_intr else f"./data/HO3Dv3/ann/{case}.npz"
+        fn = align.align_poses if self.dataset.crop else align.align_poses_wo_virtual
+        return fn(ori_cam_path, mesh_path, poses, Ks, transform_matrixs,
+                  self.base_exp_dir, img_names, self.iter_step, case,
+                  H=self.dataset.H, W=self.dataset.W,
+                  save_dataset=save_dataset, normalize_trans=normalize_trans,
+                  tgt_dir=tgt_dir, save_meta=save_meta,
+                  global_mask_dir=global_mask_dir,
+                  data_root=os.path.dirname(
+                      os.path.dirname(self.dataset.data_dir.rstrip("/"))))
 
     # ------------------------------------------------------------------
     def file_backup(self):

@@ -220,7 +220,6 @@ def test_cli_trains_phase2_gf_conf(tmp_path):
 
 @pytest.mark.parametrize("args,match", [
     (["--mode", "validate_poses"], "item 10"),
-    (["--mode", "train", "--global_conf", "x.conf"], "item 9"),
     (["--mode", "render_poses"], "item 10"),
     (["--mode", "train", "--align_dir", "out"], "item 10"),
 ])
