@@ -99,6 +99,25 @@ Phases, each printing lines as it ends:
                  K4/K5/K8/K9 once a phase-2 step, K6/K7 never; the
                  alignment's ATE/RPE, phase 2's poses against the true
                  orbit, and each stage's seconds
+ 14. eval     -- the eval and export methods on the two-phase command's
+                 Runners in its work dir, each called directly (uncaught):
+                 on phase 2 (K1 in the up-sampler, K4, K8: the eval render
+                 under no_grad, 512-ray chunks) validate_image at levels 1
+                 (480x640, 600 chunks) and 4, render_poses (8 frames with
+                 their normal maps), interpolate_view (6 frames, an mp4
+                 read back), save_alignment_materials, the textured 64^3
+                 mesh at tex_size 1024 (8,192-ray chunks: K4 and K8 at M =
+                 1,048,576, K1 at 524,288), the gradient report (K4/K5/K8
+                 3 times, K9 once); the CLI's validate_poses on phase 1's
+                 checkpoint (ATE/RPE against the orbit), its
+                 validate_image at level 4 (K2) and save_poses; the
+                 slice-4 conf (n_outside = 32) on phase 2's checkpoint,
+                 validate_image at level 4 (K1, K4, K6).  Each call: its
+                 seconds, launches by kernel and M, chunks, peak memory,
+                 output checks and file sizes.  Then 4 chunks of the eval
+                 render through the kernels against the plain versions
+                 (CPU copies of the state), K4/K8's entries against the
+                 kernels alone at M = 1,048,576, and a profile of 8 chunks
 Then one JSON line of kernel results (each with its launches in its
 paths' runs, its time, its plain version's, and its bound on the card),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
@@ -106,6 +125,7 @@ fallback and no switch to the plain version.  Imports nothing of JAX and
 nothing of the JAX package, and checks that at the end.
 """
 
+import collections
 import dataclasses
 import json
 import os
@@ -154,8 +174,13 @@ def _require(cond, msg):
         raise RuntimeError(msg)
 
 
+T0 = time.perf_counter()
+
+
 def _line(phase, **kw):
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+    """One result line, stamped with the seconds since the script began."""
+    print(f"[{phase}] t={time.perf_counter() - T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
 def _smi():
@@ -473,6 +498,25 @@ def _leaf_check(ref, got):
 
 LEAF_TOL = "rel_L2<1e-2_or_abs_L2<1e-4*global_norm"
 ROW_TOL = f"median/max|ref|<={ROW_MEDIAN_TOL}_max/max|ref|<={ROW_MAX_TOL}"
+# the eval render through the kernels against the plain versions, per
+# output, each ray's max |err| over max|ref|: its median, the share of rays
+# beyond the rows rule's max, and the largest.  A ray's outputs composite
+# 128 samples whose alphas, sigmoids of s * sdf, carry the K4 rows' f32
+# sums in another order and K1's bf16 rounding flips in the up-sampled
+# z-values: on the H100 medians 5.3e-5 to 1.1e-4, at most 0.1% of the
+# rays beyond 1e-2, the largest 1.35e-2 (PERF.md, section 6)
+EVAL_MEDIAN_TOL, EVAL_OUTSIDE_SHARE, EVAL_MAX_TOL = 3e-4, 0.005, 5e-2
+EVAL_TOL = (f"median/max|ref|<={EVAL_MEDIAN_TOL}_share_of_rays_with_max/max|ref|"
+            f">{ROW_MAX_TOL}<={EVAL_OUTSIDE_SHARE}_max/max|ref|<={EVAL_MAX_TOL}")
+# K4's feature columns at the bake chunk: its samples crowd a short
+# segment across the surface, where max|feature| is small, so the bf16
+# operands' rounding (as large on the plain version as on the kernel
+# against an f64 forward) stands out against it: max 1.4e-2 - 2.0e-2 of
+# max|feature| on the H100 (PERF.md, section 6).  The sdf column and the
+# median keep K1's rule; the max and the share bound gross faults
+BAKE_FEAT_MAX_TOL, BAKE_FEAT_SHARE = 5e-2, 1e-3
+BAKE_OUT_TOL = (f"sdf_and_feature_median:K1_rule_feature_max/max|f|<={BAKE_FEAT_MAX_TOL}"
+                f"_share_of_rows_beyond_{ROW_MAX_TOL}<={BAKE_FEAT_SHARE}")
 
 
 def _same_twice(phase, name, M, launch):
@@ -890,6 +934,7 @@ def _counters():
 
 def _zero_counters():
     from fmov_pose_torch.ops import fused_color, fused_sdf
+    fused_sdf.LAUNCH_SIZES.clear()
     fused_sdf.LAUNCHES = fused_sdf.LAUNCHES_K2 = fused_sdf.LAUNCHES_K3 = 0
     fused_sdf.LAUNCHES_K4 = fused_sdf.LAUNCHES_K5 = 0
     fused_color.LAUNCHES_K6 = fused_color.LAUNCHES_K7 = 0
@@ -1439,8 +1484,511 @@ def phase_two_phase(dev, smi, tmp):
     _require(bool(np.isfinite(est).all()), "the learned poses are not finite")
     _require(counts["K6"] == counts["K7"] == 0 and counts["K1"] == 1 + expected,
              f"the two-phase run launched {counts}")
-    return {"K1": counts["K1"], "K2": step_launches["K2"], "K3": step_launches["K3"],
-            **{k: p2["launches"][k] for k in ("K4", "K5", "K8", "K9")}}
+    launches = {"K1": counts["K1"], "K2": step_launches["K2"], "K3": step_launches["K3"],
+                **{k: p2["launches"][k] for k in ("K4", "K5", "K8", "K9")}}
+    return launches, {"runner": runner2, "work": work, "confs": confs}
+
+
+# the eval phase: a chunk of the texture bake (8,192 rays of the fast
+# global conf's 64 + 64 samples), its texture's size, and the rays of the
+# render check
+BAKE_RAYS, BAKE_TEX = 8192, 1024
+BAKE_M = BAKE_RAYS * 128
+EVAL_CHECK_CHUNKS = 4
+
+
+def _sizes_text(sizes):
+    return json.dumps({k: {str(m): n for m, n in sorted(v.items())}
+                       for k, v in sorted(sizes.items())}).replace(" ", "")
+
+
+def _eval_call(name, fn, dev, runner=None, **expect):
+    """``fn()`` timed (host clock to a sync), its launches by kernel and
+    size (the wrappers' ``LAUNCH_SIZES``), its chunks through
+    ``render_rays_chunked``, and the device's peak memory over it;
+    ``expect``: {kernel: launches} it must make (every other kernel
+    none).  Returns (result, launches, sizes)."""
+    import torch
+    from fmov_pose_torch.ops import fused_sdf
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    c0, chunks0 = _counters(), runner.eval_chunks if runner is not None else 0
+    s0 = collections.Counter(fused_sdf.LAUNCH_SIZES)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    c1 = _counters()
+    launches = {k: c1[k] - c0[k] for k in c1}
+    sizes = {}
+    for (k, m), n in (fused_sdf.LAUNCH_SIZES - s0).items():
+        sizes.setdefault(k, {})[m] = n
+    _line("eval", call=name, seconds=f"{seconds:.3f}",
+          chunks=(runner.eval_chunks - chunks0) if runner is not None else None,
+          launches=json.dumps({k: v for k, v in launches.items() if v}).replace(" ", ""),
+          sizes=_sizes_text(sizes),
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f}")
+    _require(all(sum(sizes.get(k, {}).values()) == v for k, v in launches.items()),
+             f"eval {name}: launches {launches} and by size {sizes} disagree")
+    if expect:
+        wrong = {k: v for k, v in launches.items() if v != expect.get(k, 0)}
+        _require(not wrong, f"eval {name}: launches {launches}, expected {expect}")
+    return out, launches, sizes
+
+
+def _files_line(call, paths):
+    """The bytes of each file (of each dir's files, for a dir) a call wrote;
+    none may be empty."""
+    sizes = {}
+    for p in paths:
+        if os.path.isdir(p):
+            sizes[os.path.basename(p) + "/"] = sum(
+                os.path.getsize(os.path.join(p, f)) for f in os.listdir(p))
+        else:
+            sizes[os.path.basename(p)] = os.path.getsize(p)
+    _line("eval", call=call, file_bytes=json.dumps(sizes).replace(" ", ""))
+    _require(all(v > 0 for v in sizes.values()), f"eval {call}: an empty file in {sizes}")
+
+
+def _check_psnr(call, psnr, exp_dir, level, runner):
+    """A finite PSNR and the two PNGs of validate_image, read back."""
+    import cv2 as cv
+    import numpy as np
+    H, W = runner.dataset.H // level, runner.dataset.W // level
+    paths = [max((os.path.join(exp_dir, sub, f) for f in os.listdir(os.path.join(
+        exp_dir, sub))), key=os.path.getmtime) for sub in ("validations_fine", "normals")]
+    tags = [os.path.basename(p) for p in paths]
+    shapes = [cv.imread(p).shape for p in paths]
+    _line("eval", call=call, psnr=f"{psnr:.3f}", images=json.dumps(tags).replace(" ", ""),
+          shapes=json.dumps(shapes).replace(" ", ""))
+    _require(bool(np.isfinite(psnr)), f"eval {call}: PSNR {psnr}")
+    _require(shapes == [(2 * H, W, 3), (H, W, 3)], f"eval {call}: images {shapes}")
+    _files_line(call, paths)
+
+
+def _middle_rays(runner, n_chunks):
+    """n_chunks batches of frame 0's full-resolution rays around its
+    centre (the object's rows), on the Runner's device."""
+    ro, rd, H, W = runner._pose_rays_grid(0, runner.query_pose(0), 1)
+    n, mid = n_chunks * runner.batch_size, (H // 2) * W
+    return ro[mid - n // 2:mid + n // 2], rd[mid - n // 2:mid + n // 2]
+
+
+def _ray_errors(ref, got):
+    """Per output of the eval render, each ray's max |err| over max|ref|:
+    its median and maximum, the share of rays beyond the rows rule's max,
+    and whether ``EVAL_TOL`` holds."""
+    import numpy as np
+    res = {}
+    for k in ("color_fine", "normal", "depth_fine", "weight_sum"):
+        scale = float(np.abs(ref[k]).max())
+        err = np.abs(got[k] - ref[k]).max(-1)
+        r = {"max_ref": scale, "median_rel": float(np.median(err)) / scale,
+             "max_rel": float(err.max()) / scale,
+             "share_outside": float((err > ROW_MAX_TOL * scale).mean())}
+        r["ok"] = bool(np.isfinite(got[k]).all() and r["median_rel"] <= EVAL_MEDIAN_TOL
+                       and r["share_outside"] <= EVAL_OUTSIDE_SHARE
+                       and r["max_rel"] <= EVAL_MAX_TOL)
+        res[k] = r
+    return res
+
+
+def _eval_route_check(runner, cpu_runner, dev):
+    """``render_rays_chunked`` on EVAL_CHECK_CHUNKS chunks of frame 0's
+    middle rows, through the kernels on the card and through their plain
+    versions on CPU copies of the same state, held to ``EVAL_TOL``.  Also
+    printed, for the rule's margin, the readings of two faults made in a
+    copy of the kernels' outputs (never gated): the last 64 rays of the
+    chunk whose last 64 rays hold the most weight (the object, not the
+    background) left at zero (a tail never written), and the same rays
+    given their left neighbours' outputs (a shift by one ray)."""
+    ro, rd = _middle_rays(runner, EVAL_CHECK_CHUNKS)
+    n = len(ro)
+    c0 = _counters()
+    got = runner.render_rays_chunked(ro, rd)
+    c1 = _counters()
+    ref = cpu_runner.render_rays_chunked(ro.cpu(), rd.cpu())
+    res = _ray_errors(ref, got)
+    weight = ref["weight_sum"][:, 0]
+    edge = max(range(runner.batch_size, n + 1, runner.batch_size),
+               key=lambda e: float(weight[e - 64:e].sum()))
+    faults = {}
+    for fault in ("zeroed_tail", "shifted_by_one"):
+        bad = {k: v.copy() for k, v in got.items()}
+        for v in bad.values():
+            v[edge - 64:edge] = 0 if fault == "zeroed_tail" else v[edge - 65:edge - 1]
+        faults[fault] = {k: {m: r[m] for m in ("median_rel", "max_rel", "share_outside",
+                                               "ok")}
+                         for k, r in _ray_errors(ref, bad).items()}
+    _line("eval", check="render_kernels_vs_plain", rays=n, chunks=EVAL_CHECK_CHUNKS,
+          fault_rays=f"{edge - 64}-{edge - 1}",
+          launches=json.dumps({k: c1[k] - c0[k] for k in c1 if c1[k] - c0[k]}).replace(" ", ""),
+          tol=EVAL_TOL, results=json.dumps(res, sort_keys=True).replace(" ", ""),
+          simulated_faults=json.dumps(faults, sort_keys=True).replace(" ", ""))
+    for k, r in res.items():
+        _require(r["ok"], f"the eval render through the kernels disagrees with the "
+                          f"plain versions on {k}: {r}")
+
+
+def _bake_chunk(runner, ply_path):
+    """The first chunk of the texture bake of mesh ``ply_path`` at
+    tex_size BAKE_TEX: BAKE_RAYS ray origins and directions on the card
+    (near 0, far raylen), and raylen."""
+    import torch
+    from fmov_pose_torch.pipeline import meshio, textured
+    vertices, faces = meshio.read_ply(ply_path)
+    normals = textured._vertex_normals(runner, vertices)
+    o, d, _, _, raylen = textured.bake_rays(vertices, faces, normals, BAKE_TEX)
+    _require(len(o) >= BAKE_RAYS, f"the bake has {len(o)} rays, under one chunk")
+    return (torch.as_tensor(o[:BAKE_RAYS], dtype=torch.float32, device=runner.device),
+            torch.as_tensor(d[:BAKE_RAYS], dtype=torch.float32, device=runner.device),
+            float(raylen))
+
+
+def _bake_out_rule(ref, got):
+    """K4's out at the bake chunk against its plain version: the sdf
+    column and the features' median by K1's rule, the features' max and
+    the share of rows beyond 1e-2 of max|feature| by ``BAKE_FEAT_*``."""
+    import torch
+    from fmov_pose_torch.ops import fused_sdf
+    res = fused_sdf.tolerance_check(ref, got)
+    d = (got[:, 1:].double() - ref[:, 1:].double()).abs().amax(1)
+    scale = float(ref[:, 1:].abs().max())
+    res["feat_scale"] = scale
+    res["feat_share_outside"] = float((d > ROW_MAX_TOL * scale).double().mean())
+    res["ok"] = (res["sdf_max"] <= fused_sdf.SDF_MAX_TOL
+                 and res["sdf_median"] <= fused_sdf.SDF_MEDIAN_TOL
+                 and res["feat_median_rel"] <= fused_sdf.FEAT_MEDIAN_TOL
+                 and res["feat_max_rel"] <= BAKE_FEAT_MAX_TOL
+                 and res["feat_share_outside"] <= BAKE_FEAT_SHARE
+                 and bool(torch.isfinite(got).all()))
+    return res
+
+
+def _double(tree):
+    """A parameter tree's tensors in float64."""
+    if isinstance(tree, dict):
+        return {k: _double(v) for k, v in tree.items()}
+    return tree.double()
+
+
+def _same_in_chunks(full, launch, M, step):
+    """The outputs ``full`` of one launch on M rows are bitwise those of
+    ``launch(a, b)`` on rows [a, b) in chunks of ``step``, concatenated."""
+    import torch
+    parts = [launch(a, min(a + step, M)) for a in range(0, M, step)]
+    return all(torch.equal(f, torch.cat(p)) for f, p in zip(full, zip(*parts)))
+
+
+def _bake_size_check(runner, dev, ply_path):
+    """The kernels of the bake's eval render at the bake chunk's sizes,
+    on the phase-2 weights, each against its plain version on the same
+    inputs on the card, on the samples of the first chunk of the bake's
+    rays (near 0 to far raylen, evenly spaced): K1 (the up-sampler's pack,
+    sdf only) at the coarse pass's BAKE_RAYS x 64 and an up-sampling
+    step's x 16 by K1's rule; K4 (``sdf_apply_grad_fused_rays``) at
+    BAKE_RAYS x 128 by ``_bake_out_rule`` and the rows rule on grad; K8
+    (``color_fused_ray``, on K4's outputs and seeded softmax weights) by
+    the rows rule.  Each kernel's launch at the bake's M is also bitwise
+    its launches on chunks of 65,536 rows (512 whole rays), the train
+    step's M.  Printed, not gated: the rule's reading of the kernel's
+    output with one 128-row tile (one ray for K8) zeroed.  Times the
+    entry, the kernel alone on a pack built once, and the plain version
+    (CUDA-event medians), beside the bound.  Returns {kernel: its
+    ``bake_chunk`` entries of the kernels line}."""
+    import torch
+    from fmov_pose_torch.fields import nets
+    from fmov_pose_torch.ops import fused_color, fused_sdf
+    params, cfg = runner.eval_params(), runner.model_cfg
+    r = cfg["renderer"]
+    n_samples = r.n_samples + r.n_importance
+    ro, rd, raylen = _bake_chunk(runner, ply_path)
+    B = ro.shape[0]
+    step_rows = 512 * n_samples
+
+    def samples(z):
+        return (ro[:, None, :] + rd[:, None, :] * z[None, :, None]).reshape(-1, 3)
+
+    def zeroed(t, rows):
+        bad = t.clone()
+        bad[len(t) // 2:len(t) // 2 + rows] = 0
+        return bad
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    reps, checks, out = 5, [], {}
+    with torch.no_grad():
+        pk1 = fused_sdf.FwdPack(params["sdf"], cfg["sdf"], False)
+        step = r.n_importance // r.up_sample_steps
+        for z in (torch.linspace(0, raylen, r.n_samples, device=dev),
+                  (torch.arange(step, device=dev) + 0.5) / step * raylen):
+            x1 = samples(z).contiguous()
+            got, ref = (fused_sdf.sdf_forward(pk1, x1),
+                        fused_sdf.sdf_forward_plain(pk1.ws, pk1.bs, x1, cfg["sdf"], False))
+            err = fused_sdf.tolerance_check(ref, got)
+            err["same_in_chunks"] = _same_in_chunks(
+                (got,), lambda a, b, x1=x1: (fused_sdf.sdf_forward(pk1, x1[a:b]),),
+                len(x1), step_rows)
+            checks.append(("K1", len(x1), "K1_rule", err,
+                           err["ok"] and err["same_in_chunks"], err["sdf_max"],
+                           fused_sdf.tolerance_check(ref, zeroed(got, 128)), (
+                lambda x1=x1: fused_sdf.sdf_forward(fused_sdf.FwdPack(
+                    params["sdf"], cfg["sdf"], False), x1),
+                lambda x1=x1: fused_sdf.sdf_forward(pk1, x1),
+                lambda x1=x1: fused_sdf.sdf_forward_plain(pk1.ws, pk1.bs, x1, cfg["sdf"],
+                                                          False))))
+        x = samples(torch.linspace(0, raylen, n_samples, device=dev)).contiguous()
+        M = len(x)
+        dirs = rd[:, None, :].expand(B, n_samples, 3).reshape(-1, 3).contiguous()
+        weights = torch.softmax(torch.randn((B, n_samples), generator=gen, device=dev), -1)
+        ws, bs = fused_sdf.materialize(params["sdf"], cfg["sdf"])
+        sdf_out, _, grad = fused_sdf.sdf_apply_grad_fused_rays(
+            params["sdf"], cfg["sdf"], x, n_samples)
+        ref_out, ref_grad = fused_sdf.sdf_fwd_grad_plain(ws, bs, x, cfg["sdf"])
+        err = {"out": _bake_out_rule(ref_out, sdf_out), "grad": _rows(ref_grad, grad)}
+        # the 8 rows of the largest feature error, kernel and plain version
+        # each against the f32 network's forward in f64 (no bf16 rounding)
+        worst = (sdf_out[:, 1:] - ref_out[:, 1:]).abs().amax(1).topk(8).indices
+        exact = nets.sdf_apply(_double(params["sdf"]), cfg["sdf"], x[worst].double())
+        scale = float(ref_out[:, 1:].abs().max())
+        err["worst_rows_vs_f64"] = {
+            name: [float(v) / scale for v in (o[worst, 1:].double() - exact[:, 1:]).abs()
+                   .amax(1)] for name, o in (("kernel", sdf_out), ("plain", ref_out))}
+        pk4 = fused_sdf.RaysPack(ws, bs, cfg["sdf"])
+        err["same_in_chunks"] = _same_in_chunks(
+            fused_sdf.launch_fwd_grad(pk4, x),
+            lambda a, b: fused_sdf.launch_fwd_grad(pk4, x[a:b]), M, step_rows)
+        checks.append(("K4", M, f"out:{BAKE_OUT_TOL};grad:{ROW_TOL}", err,
+                       err["out"]["ok"] and err["grad"]["ok"] and err["same_in_chunks"],
+                       max(float((sdf_out - ref_out).abs().max()), err["grad"]["max_abs"]),
+                       _bake_out_rule(ref_out, zeroed(sdf_out, 128)), (
+            lambda: fused_sdf.sdf_apply_grad_fused_rays(params["sdf"], cfg["sdf"], x,
+                                                        n_samples),
+            lambda: fused_sdf.launch_fwd_grad(pk4, x),
+            lambda: fused_sdf.sdf_fwd_grad_plain(ws, bs, x, cfg["sdf"]))))
+        del ref_out, ref_grad
+        cws, cbs = fused_color.materialize(params["color"], cfg["color"])
+        geo = (sdf_out, x, dirs, grad, weights)
+        pk8 = fused_color.RayPack(cws, cbs, cfg["color"])
+        got = fused_color.color_fused_ray(params["color"], cfg["color"], *geo)
+        ref = fused_color.color_ray_fwd_plain(cws, cbs, *geo, cfg["color"])
+        err = _rows(ref, got)
+        err["same_in_chunks"] = _same_in_chunks(
+            (fused_color.launch_fwd(pk8, *geo),),
+            lambda a, b: (fused_color.launch_fwd(
+                pk8, *(t[a:b] for t in geo[:4]),
+                weights[a // n_samples:b // n_samples]),), M, step_rows)
+        checks.append(("K8", M, ROW_TOL, err, err["ok"] and err["same_in_chunks"],
+                       err["max_abs"], _rows(ref, zeroed(got, 1)), (
+            lambda: fused_color.color_fused_ray(params["color"], cfg["color"], *geo),
+            lambda: fused_color.launch_fwd(pk8, *geo),
+            lambda: fused_color.color_ray_fwd_plain(cws, cbs, *geo, cfg["color"]))))
+        for kind, M, tol, err, ok, max_abs, fault, fns in checks:
+            entry, kernel, plain = (_median_ms(f, reps) for f in fns)
+            work = (_color_work(cfg["color"], M, B, False) if kind == "K8"
+                    else _sdf_work(cfg["sdf"], M, kind))
+            bound = _bound(*work)
+            _line("eval", check="kernel_vs_plain_at_bake_size", name=kind, M=M,
+                  raylen=f"{raylen:.5f}", ok=ok,
+                  errors=json.dumps(err, sort_keys=True).replace(" ", ""), tol=tol,
+                  zeroed_tile_fault=json.dumps(fault, sort_keys=True).replace(" ", ""),
+                  entry_ms=f"{entry:.3f}", kernel_only_ms=f"{kernel:.3f}",
+                  wrapper_ms=f"{entry - kernel:.3f}", plain_ms=f"{plain:.3f}",
+                  bound_ms=f"{bound['bound_ms']:.3f}", bound_by=bound["bound_by"])
+            _require(ok, f"{kind} disagrees with its plain version at the bake's "
+                         f"M = {M}: {err}")
+            out.setdefault(kind, []).append({
+                "M": M, "max_abs_err": max_abs, "ms": entry, "kernel_ms": kernel,
+                "plain_ms": plain, "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"]})
+    return out
+
+
+def _profile_chunks(runner, dev, n_chunks=8):
+    """``render_rays_chunked`` on n_chunks chunks of frame 0 under
+    torch.profiler: per chunk, the CUDA-event time, the device busy time
+    (the union of the device intervals) and each kernel range's device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fmov_pose_torch.profile_step import busy_us, range_split
+    ro, rd = _middle_rays(runner, n_chunks)
+    runner.render_rays_chunked(ro, rd)  # warm-up
+    with tempfile.TemporaryDirectory() as d:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            a.record()
+            runner.render_rays_chunked(ro, rd)
+            b.record()
+            b.synchronize()
+        trace = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    busy, n_kernels = busy_us(events)
+    chunk_ms = a.elapsed_time(b) / n_chunks
+    ranges = {r: round(sum(per.values()) / 1e3 / n_chunks, 4)
+              for r, per in sorted(range_split(events).items())}
+    _line("eval", profile="render_rays_chunked", chunks=n_chunks,
+          chunk_ms=f"{chunk_ms:.3f}", device_busy_ms=f"{busy / 1e3 / n_chunks:.3f}",
+          idle_share=f"{1 - busy / 1e3 / n_chunks / chunk_ms:.3f}",
+          kernels_per_chunk=n_kernels / n_chunks,
+          ranges_device_ms=json.dumps(ranges).replace(" ", ""))
+
+
+def phase_eval(dev, smi, tmp, two):
+    """The eval and export methods on the two-phase command's Runners, in
+    its work dir, each called directly (uncaught): the phase-2 Runner
+    (fast global conf: K1 in the up-sampler, K4 and K8) renders
+    validate_image at levels 1 and 4, render_poses, interpolate_view,
+    save_alignment_materials, the textured 64^3 mesh (tex_size 1024: K4
+    and K8 at M = 1,048,576) and the gradient report (K4/K5/K8 three
+    times, K9 once: only the color loss reaches the color network); the
+    CLI's validate_poses on phase 1's checkpoint, then that Runner's
+    validate_image at level 4 (K2) and save_poses; the slice-4
+    conf (n_outside = 32) on phase 2's checkpoint, validate_image at level
+    4 (K1, K4, K6).  Then the eval render through the kernels against the
+    plain versions on CPU copies, K1, K4 and K8 against their plain
+    versions at the bake chunk's sizes, and a profile of 8 chunks.
+    Returns the launches by kernel and the bake-size entries of the
+    kernels line."""
+    import cv2 as cv
+    import numpy as np
+    import torch
+    from fmov_pose_torch import exp_runner
+    from fmov_pose_torch.pipeline import textured
+    from fmov_pose_torch.profile_step import conf_with_outside
+    from fmov_pose_torch.train.runner import Runner
+    r2, work, confs = two["runner"], two["work"], two["confs"]
+    p2_dir = r2.base_exp_dir  # relative to the work dir
+    r = r2.model_cfg["renderer"]
+    per_chunk = r.n_samples + r.n_importance
+    k1_per_chunk = r.up_sample_steps  # the coarse pass and all but the last step
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        _zero_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _line("eval", runner="phase2", conf=confs[1], iter_step=r2.iter_step,
+              batch=r2.batch_size, samples=f"{r.n_samples}+{r.n_importance}",
+              m_per_chunk=r2.batch_size * per_chunk, perturb=r.perturb)
+        for level in (1, 4):
+            n = r2.dataset.H // level * (r2.dataset.W // level)
+            ch = -(-n // r2.batch_size)
+            psnr, _, _ = _eval_call(f"validate_image_level{level}",
+                                    lambda: r2.validate_image(0, resolution_level=level),
+                                    dev, r2, K1=k1_per_chunk * ch, K4=ch, K8=ch)
+            _check_psnr(f"validate_image_level{level}", psnr, p2_dir, level, r2)
+        pose_dir, launches, _ = _eval_call("render_poses", r2.render_poses, dev, r2)
+        _require(launches["K4"] == launches["K8"] > 0
+                 and launches["K1"] == k1_per_chunk * launches["K4"],
+                 f"render_poses launched {launches}")
+        gif = os.path.join(p2_dir, f"poses_{r2.iter_step}.gif")
+        _files_line("render_poses", [pose_dir, os.path.join(p2_dir, "normal_vis")]
+                    + ([gif] if os.path.exists(gif) else []))
+        _require(len(os.listdir(pose_dir)) == len(os.listdir(os.path.join(
+            p2_dir, "normal_vis"))) == TWO_PHASE_FRAMES, "render_poses wrote too few frames")
+        _line("eval", call="render_poses", gif_written=os.path.exists(gif))
+        mp4, launches, _ = _eval_call("interpolate_view_0_7_6",
+                                      lambda: r2.interpolate_view(0, TWO_PHASE_FRAMES - 1,
+                                                                  n_frames=6), dev, r2)
+        cap = cv.VideoCapture(mp4)
+        frames = 0
+        while cap.read()[0]:
+            frames += 1
+        cap.release()
+        _line("eval", call="interpolate_view_0_7_6", mp4_frames=frames)
+        _files_line("interpolate_view_0_7_6", [mp4])
+        _require(frames == 12, f"the video has {frames} frames, not 12")
+        pts_path, _, _ = _eval_call("save_alignment_materials", r2.save_alignment_materials,
+                                    dev, r2)
+        pts = np.load(pts_path)
+        _line("eval", call="save_alignment_materials", points=list(pts.shape))
+        _require(pts.ndim == 2 and pts.shape[1] == 4 and len(pts) > 0
+                 and bool(np.isfinite(pts).all()), f"world points {pts.shape}")
+        _files_line("save_alignment_materials", [pts_path])
+
+        ply = []
+
+        def bake():
+            ply.append(r2.validate_mesh(resolution=64))
+            return textured.textured_mesh(ply[0], r2, tex_size=BAKE_TEX)
+        tex_dir, launches, sizes = _eval_call("validate_textured_mesh_64_tex1024", bake,
+                                              dev, r2)
+        bake_chunks = sizes.get("K4", {}).get(BAKE_M, 0)
+        _require(bake_chunks > 0 and sizes.get("K8", {}).get(BAKE_M, 0) == bake_chunks,
+                 f"the bake did not launch K4 and K8 at M = {BAKE_M}: {sizes}")
+        tex = cv.imread(os.path.join(tex_dir, "material_0.png"))
+        _line("eval", call="validate_textured_mesh_64_tex1024", texture=list(tex.shape),
+              texels_filled=f"{float((tex > 0).any(-1).mean()):.4f}",
+              bake_chunks=bake_chunks)
+        _require(tex.shape == (BAKE_TEX, BAKE_TEX, 3) and (tex > 0).any(),
+                 "an empty texture")
+        _files_line("validate_textured_mesh_64_tex1024",
+                    [os.path.join(tex_dir, f) for f in sorted(os.listdir(tex_dir))])
+        # K9 once: only the color loss reaches the color network
+        report, _, _ = _eval_call("gradient_analysis_report",
+                                  lambda: r2.gradient_analysis_report(0), dev, r2,
+                                  K4=3, K5=3, K8=3, K9=1)
+        _line("eval", call="gradient_analysis_report", report=json.dumps(
+            {k: {n: [float(f"{v:.4g}") for v in t] for n, t in st.items()}
+             for k, st in report.items()}).replace(" ", ""))
+        _require(all(np.isfinite(t).all() for st in report.values() for t in st.values()),
+                 "non-finite gradient statistics")
+
+        argv = ["--mode", "validate_poses", "--conf", confs[0], "--case", "SYN_ori",
+                "--global_conf", confs[1], "--is_continue"]
+        r1, _, _ = _eval_call("cli_validate_poses_phase1",
+                              lambda: exp_runner.main(argv, device=dev), dev)
+        stats = os.path.join(r1.base_exp_dir, "poses", f"stats_{r1.iter_step:06d}.json")
+        with open(stats) as f:
+            st = json.load(f)
+        _line("eval", call="cli_validate_poses_phase1", argv=repr(" ".join(argv)),
+              iter_step=r1.iter_step, current_image=r1.current_image,
+              ate_vs_orbit=f"{st['ate_rmse']:.5f}", rpe_trans=f"{st['rpe_trans']:.5f}",
+              rpe_rot_deg=f"{st['rpe_rot_deg']:.4f}")
+        _require(r1.current_image == TWO_PHASE_FRAMES and np.isfinite(st["ate_rmse"]),
+                 f"phase 1's validate_poses: {st}")
+        _files_line("cli_validate_poses_phase1", [stats])
+        n4 = -(-(r1.dataset.H // 4) * (r1.dataset.W // 4) // r1.batch_size)
+        psnr, _, _ = _eval_call("phase1_validate_image_level4",
+                                lambda: r1.validate_image(resolution_level=4), dev, r1,
+                                K2=n4)
+        _check_psnr("phase1_validate_image_level4", psnr, r1.base_exp_dir, 4, r1)
+        pose_out, _, _ = _eval_call("phase1_save_poses", r1.save_poses, dev)
+        _files_line("phase1_save_poses", [os.path.join(pose_out, f)
+                                          for f in sorted(os.listdir(pose_out))
+                                          if f.endswith(".npy")])
+        del r1
+
+        conf4 = conf_with_outside(confs[1], N_OUTSIDE, "confs")
+        r4 = Runner(conf4, mode="train", case="SYN", exp_dir=p2_dir, has_global_conf=True,
+                    is_continue=True, seed=SEED, device=dev)
+        _require(r4.iter_step == r2.iter_step, "the slice-4 conf did not resume phase 2")
+        ch = -(-(r4.dataset.H // 4) * (r4.dataset.W // 4) // r4.batch_size)
+        psnr, _, _ = _eval_call("slice4_conf_validate_image_level4",
+                                lambda: r4.validate_image(resolution_level=4), dev, r4,
+                                K1=k1_per_chunk * ch, K4=ch, K6=ch)
+        _check_psnr("slice4_conf_validate_image_level4", psnr, p2_dir, 4, r4)
+        del r4
+        counts = _counters()
+        peak = torch.cuda.max_memory_allocated(dev)
+        _line("eval", launches_total=json.dumps(counts).replace(" ", ""),
+              peak_mem_gib=f"{peak / 2**30:.3f}", card=repr(smi))
+
+        # the same state on the CPU (a CUDA generator's checkpoint does not
+        # load there): phase 2's parameters copied into a fresh CPU Runner
+        cpu = Runner(confs[1], mode="eval", case="SYN", exp_dir=p2_dir,
+                     has_global_conf=True, seed=SEED, device="cpu")
+        with torch.no_grad():
+            cpu.state.flat.copy_(r2.state.flat.detach().cpu())
+        cpu.iter_step = r2.iter_step
+        _eval_route_check(r2, cpu, dev)
+        del cpu
+        bake_chunk = _bake_size_check(r2, dev, ply[0])
+        _profile_chunks(r2, dev)
+    finally:
+        os.chdir(cwd)
+    return counts, bake_chunk
 
 
 KERNEL_PHASES = {"kernels": phase_kernels, "train-kernels": phase_train_kernels,
@@ -1482,7 +2030,9 @@ def main(argv):
         mesh_launches = phase_mesh(runner1)
         phase_resume(scene, dev, tmp, runner1, runner3)
         del runner1, runner3
-        two = phase_two_phase(dev, smi, tmp)
+        two, two_state = phase_two_phase(dev, smi, tmp)
+        evals, bake_chunk = phase_eval(dev, smi, tmp, two_state)
+        del two_state
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
     csrc = "fmov_pose_torch/ops/csrc/"
@@ -1490,28 +2040,31 @@ def main(argv):
                 "replaces": "fmov_pose_tpu/ops/fused_sdf.py:326",
                 "launches": {f"slice1_{STEPS}_steps": k1_launches,
                              f"mesh_{MESH_RES}": mesh_launches,
-                             "two_phase": two["K1"]}, **k1}]
+                             "two_phase": two["K1"], "eval": evals["K1"]}, **k1,
+                "bake_chunk": bake_chunk["K1"]}]
     slice3, slice2 = f"slice3_{STEPS}_steps", f"slice2_{STEPS}_steps"
     for key, name, src, replaces, launches, res in (
             ("K2", "sdf_fwd_grad_flat", "sdf_flat.cu", "fused_sdf.py:343",
-             {slice3: counts3["K2"], "two_phase": two["K2"]}, flat_k),
+             {slice3: counts3["K2"], "two_phase": two["K2"], "eval": evals["K2"]}, flat_k),
             ("K3", "sdf_bwd_flat", "sdf_flat.cu", "fused_sdf.py:437",
              {slice3: counts3["K3"], "two_phase": two["K3"]}, flat_k),
             ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699",
-             {slice2: counts["K4"], "two_phase": two["K4"]}, train_k),
+             {slice2: counts["K4"], "two_phase": two["K4"], "eval": evals["K4"]}, train_k),
             ("K5", "sdf_bwd", "sdf_bwd.cu", "fused_sdf.py:761",
-             {slice2: counts["K5"], "two_phase": two["K5"]}, train_k),
+             {slice2: counts["K5"], "two_phase": two["K5"], "eval": evals["K5"]}, train_k),
             ("K6", "color_fwd", "color_sample.cu", "fused_color.py:93",
-             counts4["K6"], sample_k),
+             {f"slice4_{STEPS}_steps": counts4["K6"], "eval": evals["K6"]}, sample_k),
             ("K7", "color_bwd", "color_sample.cu", "fused_color.py:108",
-             counts4["K7"], sample_k),
+             {f"slice4_{STEPS}_steps": counts4["K7"]}, sample_k),
             ("K8", "color_ray_fwd", "color_ray.cu", "fused_color.py:375",
-             {slice2: counts["K8"], "two_phase": two["K8"]}, train_k),
+             {slice2: counts["K8"], "two_phase": two["K8"], "eval": evals["K8"]}, train_k),
             ("K9", "color_ray_bwd", "color_ray.cu", "fused_color.py:407",
-             {slice2: counts["K9"], "two_phase": two["K9"]}, train_k)):
+             {slice2: counts["K9"], "two_phase": two["K9"], "eval": evals["K9"]}, train_k)):
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": "fmov_pose_tpu/ops/" + replaces,
                         "launches": launches, **res[name]})
+        if key in bake_chunk:
+            kernels[-1]["bake_chunk"] = bake_chunk[key]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

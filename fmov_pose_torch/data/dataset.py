@@ -130,9 +130,10 @@ def _read_pngs(paths) -> np.ndarray:
 
 
 class Dataset:
-    """The JAX ``Dataset``'s fields that training and mesh extraction read
-    (``scale_mats_np``, ``object_bbox_min/max``), from ``conf["data_dir"]``
-    (the depth maps, which only depth supervision reads, are not ported)."""
+    """The JAX ``Dataset``'s fields that training, mesh extraction and the
+    eval renders read (``scale_mats_np``, ``object_bbox_min/max``,
+    ``image_at``), from ``conf["data_dir"]`` (the depth maps, which only
+    depth supervision reads, are not ported)."""
 
     def __init__(self, conf, exp_dir: Optional[str] = None):
         self.exp_dir = exp_dir
@@ -206,6 +207,16 @@ class Dataset:
         self.n_images = self.images_np.shape[0]
         self.mask_bboxes = mask_bboxes(self.masks_np)
         self.object_bbox_min, self.object_bbox_max = object_bbox(self.scale_mats_np[0])
+
+    # ------------------------------------------------------------------
+    def image_at(self, idx, resolution_level=1):
+        """Frame ``idx`` as read from its file (BGR uint8, 0-255), resized
+        to 1 / ``resolution_level``: the ground truth of the eval renders."""
+        import cv2 as cv
+        img = cv.imread(self.images_lis[idx])
+        return cv.resize(
+            img, (self.W // resolution_level, self.H // resolution_level)
+        ).clip(0, 255)
 
     # ------------------------------------------------------------------
     def _load_cameras(self, conf, camera_dict):

@@ -1,10 +1,11 @@
-"""Experiment CLI of the PyTorch port, with the flags of ``exp_runner.py``.
+"""Experiment CLI of the PyTorch port, with the flags and modes of
+``exp_runner.py``.
 
-    python -m fmov_pose_torch.exp_runner --mode train --conf CONF --case CASE \
-        [--global_conf GLOBAL_CONF]
+    python -m fmov_pose_torch.exp_runner --mode MODE --conf CONF --case CASE \
+        [--global_conf GLOBAL_CONF] [--is_continue]
 
-``--mode train`` runs on the CUDA device ``--gpu`` (without CUDA it
-raises).  With ``--global_conf`` it is the two-phase run of the
+Every mode runs on the CUDA device ``--gpu`` (without CUDA it raises).
+``--mode train`` with ``--global_conf`` is the two-phase run of the
 reference: phase 1 on ``--conf`` (the progressive ``ho3d_virtual*.conf``;
 an exception there is written to
 ``<exp>/error_during_progressive_learning.txt`` and the run goes on, as
@@ -19,22 +20,30 @@ the alignment are skipped.  Without ``--global_conf`` it runs one phase
 of a conf (phase 1 with its ``--flow_interval``, ``--reset_rot_degree``
 and ``--image_interval`` flags, the phase-2 global conf, a GT-pose or
 BARF conf), then the final mesh.  ``--is_continue`` resumes from the
-latest checkpoint of the exp dir.  ``--mode validate_mesh`` writes the
-512^3 mesh of the Runner's state (with ``--is_continue``: of the latest
-checkpoint), scaled by ``--mesh_scale``; with ``--global_conf``, the
-256^3 mesh of the phase-2 Runner in ``<exp>/<global conf name>/``.
-``--mcube_threshold`` is parsed and unused, as in the JAX CLI.  The other
-eval and export modes and their flags raise ``NotImplementedError``
-naming their ROADMAP item.
+latest checkpoint of the exp dir.
+
+The eval and export modes act on the Runner of ``--conf`` (with
+``--is_continue``: its latest checkpoint), as the JAX CLI's do:
+``validate_mesh`` (the 512^3 mesh scaled by ``--mesh_scale``; with
+``--global_conf``, the 256^3 mesh of the phase-2 Runner in
+``<exp>/<global conf name>/``), ``validate_poses``, ``interpolate_<i>_<j>``
+(60 novel views from frame i to j and back, an mp4), ``validate_all_images``,
+``save_poses``, ``save_poses_simple`` (into ``--align_dir`` when given),
+``save_aligned_poses``, ``render_poses`` (with ``--global_conf`` on the
+phase-2 Runner), ``pure_render_poses`` (without the normal maps),
+``save_alignment_materials`` (into ``--align_dir`` when given),
+``validate_textured_mesh`` (the 64^3 mesh, baked by
+``pipeline/textured.py``) and ``generate_textured_mesh`` (the same on the
+phase-2 Runner).  Any other mode raises ``NotImplementedError``.
+``--gradient_analysis`` logs the per-loss gradient report during
+training.  ``--mcube_threshold`` and ``--ori_cam_path`` are parsed and
+unused, as in the JAX CLI.
 """
 
 import argparse
 import logging
 import os
 import traceback
-
-# flags of the eval and export modes not ported yet: (name, default)
-_EXPORT_FLAGS = (("ori_cam_path", "None"), ("align_dir", None))
 
 
 def main(argv=None, device=None):
@@ -71,15 +80,6 @@ def main(argv=None, device=None):
     from fmov_pose_torch.device import require_cuda
     from fmov_pose_torch.train.runner import Runner
 
-    if args.mode not in ("train", "validate_mesh"):
-        raise NotImplementedError(
-            f"--mode {args.mode}: the eval and export modes are not in the "
-            "PyTorch port yet (ROADMAP queue 1, item 10)")
-    for name, default in _EXPORT_FLAGS:
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name}: the pose export and alignment modes are not in the "
-                "PyTorch port yet (ROADMAP queue 1, item 10)")
     if device is None:
         device = require_cuda(args.gpu)
     logging.getLogger(__name__).info("device: %s", device)
@@ -110,6 +110,11 @@ def main(argv=None, device=None):
         reset_rot_degree=args.reset_rot_degree,
         image_interval=args.image_interval, seed=args.seed, device=device)
     conf_name = os.path.basename(args.global_conf).split(".")[0]
+
+    def phase2_runner():
+        return reboot_runner(runner.case.split("_")[0],
+                             os.path.join(runner.base_exp_dir, conf_name))
+
     if args.mode == "train" and args.global_conf != "None":
         case = runner.case.split("_")[0]
         gmask = global_mask_dir_for(case)
@@ -137,14 +142,42 @@ def main(argv=None, device=None):
         runner.train()
         runner.validate_mesh(resolution=args.final_mesh_resolution,
                              use_norml_color=True)
-    elif args.global_conf != "None":
-        runner = reboot_runner(runner.case.split("_")[0],
-                               os.path.join(runner.base_exp_dir, conf_name))
-        runner.validate_mesh(resolution=256, use_norml_color=True,
-                             mesh_scale=args.mesh_scale)
+    elif args.mode == "validate_mesh":
+        if args.global_conf != "None":
+            runner = phase2_runner()
+            runner.validate_mesh(resolution=256, use_norml_color=True,
+                                 mesh_scale=args.mesh_scale)
+        else:
+            runner.validate_mesh(resolution=512, use_norml_color=True,
+                                 mesh_scale=args.mesh_scale)
+    elif args.mode == "validate_poses":
+        runner.validate_poses()
+    elif args.mode.startswith("interpolate"):
+        _, i0, i1 = args.mode.split("_")
+        runner.interpolate_view(int(i0), int(i1))
+    elif args.mode == "validate_all_images":
+        runner.validate_all_images(resolution_level=4)
+    elif args.mode == "save_poses":
+        runner.save_poses()
+    elif args.mode == "save_poses_simple":
+        runner.save_poses_simple(align_dir=args.align_dir)
+    elif args.mode == "save_aligned_poses":
+        runner.save_aligned_poses()
+    elif args.mode == "render_poses":
+        if args.global_conf != "None":
+            runner = phase2_runner()
+        runner.render_poses()
+    elif args.mode == "pure_render_poses":
+        runner.render_poses(wo_normal=True)
+    elif args.mode == "save_alignment_materials":
+        runner.save_alignment_materials(align_dir=args.align_dir)
+    elif args.mode in ("validate_textured_mesh", "generate_textured_mesh"):
+        from fmov_pose_torch.pipeline import textured
+        if args.mode == "generate_textured_mesh":
+            runner = phase2_runner()
+        textured.textured_mesh(runner.validate_mesh(resolution=64), runner)
     else:
-        runner.validate_mesh(resolution=512, use_norml_color=True,
-                             mesh_scale=args.mesh_scale)
+        raise NotImplementedError(args.mode)
     return runner
 
 

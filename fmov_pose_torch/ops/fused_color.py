@@ -243,6 +243,7 @@ def launch_fwd(pk: RayPack, sdf_out, pts, dirs, normals, weights):
             fused_sdf._grid(dev, M_pad // packing.TILE_M), color.data_ptr(), stream)
     fused_sdf._raise_on(lib, err, "color_ray_fwd", M)
     LAUNCHES_K8 += 1
+    fused_sdf.LAUNCH_SIZES["K8", M] += 1
     return color
 
 
@@ -275,6 +276,7 @@ def launch_bwd(pk: RayPack, sdf_out, pts, dirs, normals, weights, ct):
             dw_pad.data_ptr(), db_pad.data_ptr(), stream)
     fused_sdf._raise_on(lib, err, "color_ray_bwd", M)
     LAUNCHES_K9 += 1
+    fused_sdf.LAUNCH_SIZES["K9", M] += 1
     return featbar, ubar, d_weights, dw_pad, db_pad
 
 
@@ -339,6 +341,7 @@ def launch_fwd_sample(pk: RayPack, xc):
             fused_sdf._grid(dev, M_pad // packing.TILE_M), rgb.data_ptr(), stream)
     fused_sdf._raise_on(lib, err, "color_sample_fwd", M)
     LAUNCHES_K6 += 1
+    fused_sdf.LAUNCH_SIZES["K6", M] += 1
     return rgb
 
 
@@ -364,6 +367,7 @@ def launch_bwd_sample(pk: RayPack, xc, ct):
             dw_pad.data_ptr(), db_pad.data_ptr(), stream)
     fused_sdf._raise_on(lib, err, "color_sample_bwd", M)
     LAUNCHES_K7 += 1
+    fused_sdf.LAUNCH_SIZES["K7", M] += 1
     return xcbar, dw_pad, db_pad
 
 

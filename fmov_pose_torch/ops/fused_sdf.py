@@ -32,8 +32,9 @@ Beside it:
   to its column 0 for the sdf alone.  The up-sampler builds one per
   render and queries it four times.
 * ``launch`` — one kernel launch on a pack; the only place that counts
-  ``LAUNCHES`` (kernel launches so far), inside the profiler range
-  ``PROFILE_K1``.
+  ``LAUNCHES`` (kernel launches so far) and K1's entries of
+  ``LAUNCH_SIZES`` (launches by kernel and M, which every kernel's launch
+  function counts), inside the profiler range ``PROFILE_K1``.
 * ``sdf_forward`` — K1 on a pack: a CUDA tensor launches the kernel (or
   raises); a CPU tensor takes the plain version on the pack's weights, the
   port's counterpart of the JAX package's interpret mode.
@@ -49,6 +50,7 @@ Beside it:
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -63,6 +65,8 @@ from fmov_pose_torch.ops import packing
 from fmov_pose_torch.ops.packing import round_up
 
 LAUNCHES = 0
+# launches by (kernel, rows M), counted beside each LAUNCHES* counter
+LAUNCH_SIZES = collections.Counter()
 # the profiler range around K1's launches (``profile_step.py`` reads it)
 PROFILE_K1 = "fmov::K1_sdf_fwd"
 
@@ -217,6 +221,7 @@ def launch(pk: FwdPack, x: torch.Tensor) -> torch.Tensor:
             _grid(x.device, M_pad // packing.TILE_M), out.data_ptr(), pk.n_out, stream)
     _raise_on(lib, err, "sdf_fwd", M)
     LAUNCHES += 1
+    LAUNCH_SIZES["K1", M] += 1
     return out
 
 
@@ -718,6 +723,7 @@ def launch_fwd_grad(pk: RaysPack, x: torch.Tensor):
             sdf.data_ptr(), grad.data_ptr(), stream)
     _raise_on(lib, err, "sdf_fwd_grad", M)
     LAUNCHES_K4 += 1
+    LAUNCH_SIZES["K4", M] += 1
     return out, sdf, grad
 
 
@@ -759,6 +765,7 @@ def launch_bwd(pk: RaysPack, x, ct_out, ct_sdf, ct_grad):
             G, KS, xbar.data_ptr(), dw_pad.data_ptr(), db_pad.data_ptr(), stream)
     _raise_on(lib, err, "sdf_bwd", M)
     LAUNCHES_K5 += 1
+    LAUNCH_SIZES["K5", M] += 1
     return xbar, dw_pad, db_pad
 
 
@@ -792,6 +799,7 @@ def launch_fwd_grad_flat(pk: RaysPack, xe: torch.Tensor):
             d_inputs.data_ptr(), stream)
     _raise_on(lib, err, "sdf_fwd_grad_flat", M)
     LAUNCHES_K2 += 1
+    LAUNCH_SIZES["K2", M] += 1
     return out, d_inputs
 
 
@@ -824,6 +832,7 @@ def launch_bwd_flat(pk: RaysPack, xe, ybar, gbar):
             dw_pad.data_ptr(), db_pad.data_ptr(), stream)
     _raise_on(lib, err, "sdf_bwd_flat", M)
     LAUNCHES_K3 += 1
+    LAUNCH_SIZES["K3", M] += 1
     return xebar, dw_pad, db_pad
 
 

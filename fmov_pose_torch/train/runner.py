@@ -43,12 +43,22 @@ Between the phases of a two-phase run, ``save_aligned_poses`` maps phase
 PnP, ``pipeline/align.py``) and writes the phase-2 dataset;
 ``save_poses_simple`` writes the learned poses at the end.
 
+The eval and export methods are the JAX Runner's, under the same file
+names: ``eval_render`` (the render in eval mode, under ``torch.no_grad``,
+never on the occupancy grid, through the fused kernels wherever the conf's
+gates put a training render) and ``render_rays_chunked`` on it,
+``validate_image``, ``validate_poses``, ``save_poses``,
+``render_novel_image`` / ``interpolate_view``, ``rays_from_mask`` /
+``render_poses``, ``validate_all_images``, ``save_alignment_materials``
+and ``gradient_analysis_report`` (``--gradient_analysis``).  The training
+loop calls ``validate_image`` every ``val_freq`` steps, ``validate_poses``
+every ``pose_freq`` and the gradient report where the JAX loop does, each
+inside a ``try`` that logs a warning and trains on, as the JAX loop does.
+
 What the port leaves out raises ``NotImplementedError`` naming its ROADMAP
-item: validation renders, pose evaluation and exports (the training loop
-logs where the JAX Runner would render, and draws the host RNG the JAX
-``validate_image`` draws), the planned and scanned multi-step dispatch
-(``train.plan_chunk``), the pixel-level pose banks (``model.pixel_level``),
-depth supervision and data parallelism.
+item: the planned and scanned multi-step dispatch (``train.plan_chunk``),
+the pixel-level pose banks (``model.pixel_level``), depth supervision and
+data parallelism.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ import torch
 
 from fmov_pose_torch import convert
 from fmov_pose_torch.data import hocon
+from fmov_pose_torch.data import rays as raygen
 from fmov_pose_torch.fields import nets
 from fmov_pose_torch.poses import picture_pose as pp
 from fmov_pose_torch.pipeline import meshio
@@ -129,16 +140,13 @@ class Runner:
         data_dir.  ``is_continue``: resume from the latest checkpoint under
         <exp>/checkpoints, or start afresh with a warning when there is
         none, as the JAX Runner does."""
-        if not (mode.startswith("train") or mode == "validate_mesh"):
-            _unsupported(f"mode {mode!r}", "item 10 (eval and export)")
-        if gradient_analysis:
-            _unsupported("--gradient_analysis", "item 10")
         if device is None:
             from fmov_pose_torch.device import require_cuda
             device = require_cuda()
         self.case = case
         self.mode = mode
         self.conf_path = conf_path
+        self.gradient_analysis = gradient_analysis
         self.device = torch.device(device)
         # the host RNG is not checkpointed: a resumed Runner restarts it from
         # the seed, as the JAX Runner does
@@ -190,6 +198,7 @@ class Runner:
         self.val_mesh_freq = t.get_int("val_mesh_freq")
         self.pose_freq = conf.get_int("train.pose_freq", 1000)
         self.batch_size = t.get_int("batch_size")
+        self.validate_resolution_level = t.get_int("validate_resolution_level")
         self.learning_rate = t.get_float("learning_rate")
         self.learning_rate_alpha = t.get_float("learning_rate_alpha")
         self.use_white_bkgd = t.get_bool("use_white_bkgd")
@@ -311,6 +320,7 @@ class Runner:
         n_override = conf.get_int("dataset.n_images", self.dataset.n_images)
         self.dataset.n_images = min(n_override, self.dataset.n_images)
         self.history = {}   # metric -> per-step floats, filled by train()
+        self.eval_chunks = 0  # chunks through render_rays_chunked
         self.step_ms = []   # per-step device-timeline ms (CUDA only)
         self.flow_steps = 0
 
@@ -723,7 +733,7 @@ class Runner:
         done = 0
         phase1_done = False
         for _ in range(res_step):
-            packed, use_flow, pixels_pair, _ = self._plan_step()
+            packed, use_flow, pixels_pair, img_id = self._plan_step()
             metrics = self._dispatch(packed, use_flow, pixels_pair)
             torch.stack([metrics[k] for k in names], out=rows[done])
             done += 1
@@ -733,6 +743,11 @@ class Runner:
                 self.update_occ_grid()
             if timer is not None:
                 timer.tick()
+            if self.gradient_analysis and self.iter_step % self.report_freq == 1:
+                try:
+                    self.gradient_analysis_report(img_id)
+                except Exception as e:  # keep training, as the JAX loop does
+                    LOG.warning("gradient_analysis failed: %s", e, exc_info=True)
 
             if self.iter_step % self.report_freq == 0:
                 m = dict(zip(names, rows[done - 1].tolist()))  # the one sync
@@ -743,10 +758,15 @@ class Runner:
                          m["eikonal_loss"], m["psnr"],
                          done * rays_per_step / max(dt, 1e-9), self.base_exp_dir)
             if self.iter_step % self.val_freq == 0:
-                # the JAX Runner's validate_image draws its frame here
-                idx = int(self.rng.integers(self.current_image))
-                LOG.info("validate_image(%d) skipped: not in the port yet "
-                         "(ROADMAP queue 1, item 10)", idx)
+                try:
+                    self.validate_image()
+                except Exception as e:  # keep training through viz errors
+                    LOG.warning("validate_image failed: %s", e, exc_info=True)
+            if self.iter_step % self.pose_freq == 0:
+                try:
+                    self.validate_poses()
+                except Exception as e:
+                    LOG.warning("validate_poses failed: %s", e, exc_info=True)
             self._progressive_update()
             if self.iter_step % self.val_mesh_freq == 0:
                 try:
@@ -961,8 +981,431 @@ class Runner:
         return path
 
     # ------------------------------------------------------------------
+    # eval renders
+    # ------------------------------------------------------------------
+    def eval_params(self):
+        """The render networks' parameters, detached from the trainable
+        buffer (no autograd graph reaches the state)."""
+        params = self.state.layout.views(self.state.flat.detach())
+        return {k: v for k, v in params.items()
+                if k in ("sdf", "color", "nerf", "variance")}
+
+    @torch.no_grad()
+    def eval_render(self, rays_o, rays_d, near, far, cos_anneal_ratio):
+        """One chunk through ``neus.render(..., eval_mode=True)``, the JAX
+        Runner's ``_eval_render``: never on the occupancy grid, a white
+        background with ``use_white_bkgd``, the conf's perturbation drawn
+        from a generator seeded 0 and made anew for each call, as JAX
+        draws every chunk from ``key(0)``.  Inputs (numpy or tensors) go
+        to the Runner's device; returns the render dict."""
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+        return neus.render(
+            generator, self.eval_params(), self.model_cfg, t(rays_o), t(rays_d),
+            t(near), t(far), cos_anneal_ratio=cos_anneal_ratio,
+            background_rgb=(torch.ones((1, 3), device=dev) if self.use_white_bkgd
+                            else None),
+            eval_mode=True)
+
+    @torch.no_grad()
+    def render_rays_chunked(self, rays_o, rays_d, chunk=None):
+        """Rays [n, 3] (numpy or tensors) rendered in chunks of ``chunk``
+        (the batch size), the last padded with zero origins and (1, 1, 1)
+        directions as JAX pads, near/far from the unit sphere, at the
+        Runner's cos-anneal ratio.  Returns numpy {color_fine [n, 3],
+        normal [n, 3] (gradients x weights x inside_sphere, summed over
+        the samples), depth_fine [n, 1], weight_sum [n, 1]}, copied back
+        once.  ``self.eval_chunks`` counts the chunks rendered."""
+        chunk = chunk or self.batch_size
+        dev = self.device
+        ro = torch.as_tensor(rays_o, dtype=torch.float32, device=dev)
+        rd = torch.as_tensor(rays_d, dtype=torch.float32, device=dev)
+        n = ro.shape[0]
+        pad = (-n) % chunk
+        ro = torch.cat([ro, torch.zeros((pad, 3), device=dev)])
+        rd = torch.cat([rd, torch.ones((pad, 3), device=dev)])
+        r = self.model_cfg["renderer"]
+        n_total = r.n_samples + r.n_importance
+        cos_anneal = self.get_cos_anneal_ratio()
+        outs = {"color_fine": [], "normal": [], "depth_fine": [], "weight_sum": []}
+        for i in range(0, n + pad, chunk):
+            ro_b, rd_b = ro[i:i + chunk], rd[i:i + chunk]
+            near, far = raygen.near_far_from_sphere(ro_b, rd_b)
+            out = self.eval_render(ro_b, rd_b, near, far, cos_anneal)
+            for k in ("color_fine", "depth_fine", "weight_sum"):
+                outs[k].append(out[k])
+            outs["normal"].append((out["gradients"] * out["weights"][:, :n_total, None]
+                                   * out["inside_sphere"][..., None]).sum(1))
+            self.eval_chunks += 1
+        return {k: torch.cat(v)[:n].cpu().numpy() for k, v in outs.items()}
+
+    def _pose_rays_grid(self, idx_intr, pose, resolution_level):
+        """The full-frame ray grid of intrinsics ``idx_intr`` through the
+        c2w ``pose`` [>=3, 4] at 1 / ``resolution_level``: rays [H*W, 3]
+        on the device and (H, W)."""
+        rays_o, rays_d = raygen.gen_rays_grid(
+            self.intr_inv_dev[idx_intr],
+            torch.as_tensor(np.asarray(pose[:3], np.float32), device=self.device),
+            self.dataset.H, self.dataset.W, resolution_level)
+        H, W = rays_o.shape[:2]
+        return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), H, W
+
+    def validate_image(self, idx=-1, resolution_level=-1, return_img=False):
+        """Render frame ``idx`` (drawn from the host RNG when < 0, as the JAX
+        Runner draws it) at 1 / ``resolution_level`` (the conf's by
+        default): <exp>/validations_fine/ (the render above the ground
+        truth) and <exp>/normals/ PNGs named
+        {current_image:08d}_{iter_step:08d}_0_{idx}.png; returns the PSNR
+        against the frame's file, or the stacked image with
+        ``return_img``."""
+        import cv2 as cv
+        if idx < 0:
+            idx = int(self.rng.integers(self.current_image))
+        if resolution_level < 0:
+            resolution_level = self.validate_resolution_level
+        pose = self.query_pose(idx)[:3]
+        rays_o, rays_d, H, W = self._pose_rays_grid(idx, pose, resolution_level)
+        out = self.render_rays_chunked(rays_o, rays_d)
+        img_fine = (out["color_fine"].reshape(H, W, 3) * 256).clip(0, 255)
+        rot = np.linalg.inv(pose[:3, :3])
+        normal_img = ((rot @ out["normal"].T).T.reshape(H, W, 3)
+                      * 128 + 128).clip(0, 255)
+        gt = self.dataset.image_at(idx, resolution_level)
+        stacked = np.concatenate([img_fine, gt])
+        if return_img:
+            return stacked
+        for sub, img in (("validations_fine", stacked), ("normals", normal_img)):
+            os.makedirs(os.path.join(self.base_exp_dir, sub), exist_ok=True)
+            cv.imwrite(os.path.join(
+                self.base_exp_dir, sub,
+                f"{self.current_image:08d}_{self.iter_step:08d}_0_{idx}.png"),
+                img.astype(np.uint8))
+        return float(10 * np.log10(255.0**2 / max(((img_fine - gt) ** 2).mean(), 1e-9)))
+
+    def validate_poses(self, save_pose=False):
+        """ATE/RPE of the learned against the annotated poses of the
+        admitted frames (``pipeline/evalpose.py``), the JAX Runner's:
+        <exp>/poses/stats_{iter_step:06d}.{json,txt} (``pipeline/report.py``),
+        the pose plot where matplotlib imports (a warning otherwise), and
+        with ``save_pose`` <exp>/poses_arr/.  Returns (ate, rpe_trans,
+        rpe_rot, gt, est), infinities without two annotated frames."""
+        from fmov_pose_torch.pipeline import evalpose
+        d = self.dataset
+        pose_all = self.query_poses(self.current_image)
+        gt_list, learned = [], []
+        if len(d.gt_poses) > 0:
+            for i, frame_idx in enumerate(d.avai_ann_frame):
+                if frame_idx >= self.current_image:
+                    break
+                gt_list.append(d.gt_poses[i])
+                learned.append(pose_all[frame_idx])
+        if not gt_list:
+            return float("inf"), float("inf"), float("inf"), None, pose_all
+        if len(gt_list) < 2:
+            LOG.warning("only %d annotated frame(s) below current_image=%d: "
+                        "ATE needs >=2 pose pairs (Umeyama is degenerate)",
+                        len(gt_list), self.current_image)
+            return float("inf"), float("inf"), float("inf"), None, pose_all
+        gt = np.stack(gt_list)
+        est = np.stack(learned)
+        try:
+            est_aligned = evalpose.align_ate_c2b_use_a2b(est, gt)
+            ate = evalpose.compute_ATE(gt, est_aligned)
+            rpe_trans, rpe_rot = evalpose.compute_rpe(gt, est_aligned)
+        except Exception as e:
+            LOG.warning("pose alignment failed: %s", e)
+            return float("inf"), float("inf"), float("inf"), gt, est
+        LOG.info("ate=%.5f rpe_trans=%.5f rpe_rot=%.4f deg", ate, rpe_trans,
+                 np.rad2deg(rpe_rot))
+        pose_dir = os.path.join(self.base_exp_dir, "poses")
+        os.makedirs(pose_dir, exist_ok=True)
+        try:
+            from fmov_pose_torch.pipeline import vis
+            vis.vis_poses(
+                est_aligned, gt, self.dataset.H, self.dataset.W,
+                float(d.intrinsics_all[0][0, 0]), float(d.intrinsics_all[0][1, 1]),
+                os.path.join(pose_dir, f"aligned_pose_{self.current_image:06d}_"
+                                       f"{self.iter_step:06d}_{ate:.5f}.png"))
+        except Exception as e:  # no matplotlib on the machine: no plot
+            LOG.warning("vis_poses failed: %s", e)
+        if save_pose:
+            arr_dir = os.path.join(self.base_exp_dir, "poses_arr")
+            os.makedirs(arr_dir, exist_ok=True)
+            np.save(os.path.join(arr_dir, f"pred_poses_{self.iter_step}.npy"), est)
+            np.save(os.path.join(arr_dir, "gt_poses.npy"), gt)
+        try:
+            from fmov_pose_torch.pipeline import report
+            trans_err = np.linalg.norm(
+                gt[:, :3, 3] - est_aligned[:len(gt), :3, 3], axis=-1)
+            report.write_metrics(
+                os.path.join(pose_dir, f"stats_{self.iter_step:06d}"),
+                {"ate_rmse": ate, "rpe_trans": rpe_trans,
+                 "rpe_rot_deg": float(np.rad2deg(rpe_rot)),
+                 "trans_error": report.compute_statistics(trans_err)})
+        except Exception as e:
+            LOG.warning("metric report failed: %s", e)
+        return ate, rpe_trans, rpe_rot, gt, est
+
+    def render_novel_image(self, idx_0, idx_1, ratio, resolution_level):
+        """The view ``ratio`` of the way from frame ``idx_0``'s pose to
+        ``idx_1``'s (scipy's Slerp on the rotation, linear on the
+        translation), with frame 0's intrinsics: uint8 [H, W, 3]."""
+        from scipy.spatial.transform import Rotation as Rot
+        from scipy.spatial.transform import Slerp
+        pose_0 = np.linalg.inv(self.query_pose(idx_0))
+        pose_1 = np.linalg.inv(self.query_pose(idx_1))
+        rots = Rot.from_matrix(np.stack([pose_0[:3, :3], pose_1[:3, :3]]))
+        rot = Slerp([0, 1], rots)(ratio)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = rot.as_matrix()
+        pose[:3, 3] = ((1.0 - ratio) * pose_0 + ratio * pose_1)[:3, 3]
+        pose = np.linalg.inv(pose)
+        rays_o, rays_d, H, W = self._pose_rays_grid(0, pose, resolution_level)
+        out = self.render_rays_chunked(rays_o, rays_d)
+        return (out["color_fine"].reshape(H, W, 3) * 256).clip(0, 255).astype(np.uint8)
+
+    def interpolate_view(self, img_idx_0, img_idx_1, n_frames=60):
+        """``n_frames`` novel views at 1/4 resolution from frame
+        ``img_idx_0`` to ``img_idx_1`` and back, as
+        <exp>/render/{iter_step:08d}_{i0}_{i1}.mp4 (mp4v, 30 fps); returns
+        the path."""
+        import cv2 as cv
+        images = []
+        for i in range(n_frames):
+            ratio = np.sin(((i / n_frames) - 0.5) * np.pi) * 0.5 + 0.5
+            images.append(self.render_novel_image(
+                img_idx_0, img_idx_1, ratio, resolution_level=4))
+        images += images[::-1]
+        video_dir = os.path.join(self.base_exp_dir, "render")
+        os.makedirs(video_dir, exist_ok=True)
+        h, w, _ = images[0].shape
+        path = os.path.join(video_dir, f"{self.iter_step:08d}_{img_idx_0}_{img_idx_1}.mp4")
+        writer = cv.VideoWriter(path, cv.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+        for img in images:
+            writer.write(img.astype(np.uint8))
+        writer.release()
+        return path
+
+    def rays_from_mask(self, idx: int, pose, resolution_level=1):
+        """Ray grid over the mask's bbox of frame ``idx`` (the uncropped
+        frame's mask, shifted by the crop, on a crop dataset) through the
+        c2w ``pose``.  Returns numpy (rays_o, rays_d, ys, xs, p_norm), or
+        None for an empty mask."""
+        d = self.dataset
+        if not d.crop:
+            mask = d.masks_np[idx][:, :, 0]
+            shift = (0.0, 0.0)
+        else:
+            import cv2 as cv
+            mask_dir = os.path.join(d.data_dir.replace("_ori", ""), "mask_obj")
+            path = os.path.join(mask_dir, d.index_to_frame[idx] + ".png")
+            if os.path.exists(path):
+                mask = cv.imread(path, cv.IMREAD_UNCHANGED) / 255.0
+                if mask.ndim == 3:
+                    mask = mask[..., 0]
+            else:
+                mask = d.masks_np[idx][:, :, 0]
+            M = d.crop_transforms[d.index_to_frame[idx]]
+            shift = (M[0, 2], M[1, 2])
+        ys, xs = np.where(mask > 0.5)
+        if len(ys) == 0:
+            return None
+        y0, y1 = max(ys.min() - 5, 0), min(ys.max() + 5, d.H - 1)
+        x0, x1 = max(xs.min() - 5, 0), min(xs.max() + 5, d.W - 1)
+        x0, x1 = x0 + shift[0], x1 + shift[0]
+        y0, y1 = y0 + shift[1], y1 + shift[1]
+        l = resolution_level  # noqa: E741
+        tx = np.linspace(x0, x1, max(int(x1 - x0) // l, 2)).astype(np.int64)
+        ty = np.linspace(y0, y1, max(int(y1 - y0) // l, 2)).astype(np.int64)
+        px, py = np.meshgrid(tx, ty, indexing="xy")
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+        rays_o, rays_v, p_norm = raygen.pixels_to_rays(
+            t(px.reshape(-1)), t(py.reshape(-1)), self.intr_inv_dev[idx], t(pose[:3]))
+        return (rays_o.cpu().numpy(), rays_v.cpu().numpy(), py.reshape(-1),
+                px.reshape(-1), p_norm.cpu().numpy())
+
+    def render_poses(self, resolution_level=1, reduce_res=2, wo_normal=False):
+        """Every frame with the oriented bbox of the latest mesh (a new 64^3
+        one without any) projected through its learned pose, as
+        <exp>/pose_vis/<frame>.jpg; unless ``wo_normal``, the normal map of
+        the rays inside the mask's bbox as <exp>/normal_vis/<frame>.jpg;
+        the frames as <exp>/poses_<iter_step>.gif where imageio imports (a
+        warning otherwise).  Returns the pose_vis dir."""
+        import cv2 as cv
+        mesh_dir = os.path.join(self.base_exp_dir, "meshes")
+        plys = sorted(os.listdir(mesh_dir)) if os.path.isdir(mesh_dir) else []
+        if not plys:
+            self.validate_mesh()
+            plys = sorted(os.listdir(mesh_dir))
+        verts, _tris = meshio.read_ply(os.path.join(mesh_dir, plys[-1]))
+        lo, hi = verts.min(0), verts.max(0)
+        corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                            for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
+        box_edges = [(0, 1), (0, 2), (1, 3), (2, 3), (4, 5), (4, 6), (5, 7),
+                     (6, 7), (0, 4), (1, 5), (2, 6), (3, 7)]
+        pose_dir = os.path.join(self.base_exp_dir, "pose_vis")
+        normal_dir = os.path.join(self.base_exp_dir, "normal_vis")
+        os.makedirs(pose_dir, exist_ok=True)
+        os.makedirs(normal_dir, exist_ok=True)
+        frames = []
+        for i in range(self.dataset.n_images):
+            pose = self.query_pose(i)
+            img = self.dataset.image_at(i, resolution_level)
+            img = cv.cvtColor(img.astype(np.uint8), cv.COLOR_BGR2RGB)
+            obj_pose = np.linalg.inv(pose)
+            rvec = cv.Rodrigues(obj_pose[:3, :3].astype(np.float64))[0]
+            tvec = obj_pose[:3, 3].astype(np.float64)
+            K = self.dataset.intrinsics_all[i][:3, :3].astype(np.float64)
+            pts2d, _ = cv.projectPoints(corners.astype(np.float64), rvec, tvec, K, None)
+            pts2d = (pts2d[:, 0] / resolution_level).astype(int)
+            for a, b in box_edges:
+                cv.line(img, tuple(pts2d[a]), tuple(pts2d[b]), (0, 255, 0), 2)
+            cv.imwrite(os.path.join(pose_dir, f"{self.dataset.index_to_frame[i]}.jpg"),
+                       cv.cvtColor(img, cv.COLOR_RGB2BGR))
+            if not wo_normal:
+                rm = self.rays_from_mask(i, pose, resolution_level=1)
+                if rm is not None:
+                    ro, rv, ys, xs, _ = rm
+                    out = self.render_rays_chunked(ro, rv)
+                    rot = np.linalg.inv(pose[:3, :3])
+                    normals = (rot @ out["normal"].T).T
+                    vis_mask = out["weight_sum"][:, 0] > 0.5
+                    nimg = np.ones((self.dataset.H, self.dataset.W, 3))
+                    ysv = np.clip(ys[vis_mask], 0, self.dataset.H - 1)
+                    xsv = np.clip(xs[vis_mask], 0, self.dataset.W - 1)
+                    nimg[ysv, xsv] = normals[vis_mask]
+                    nimg = ((nimg * 128 + 128).clip(0, 255)).astype(np.uint8)
+                    cv.imwrite(os.path.join(
+                        normal_dir, f"{self.dataset.index_to_frame[i]}.jpg"), nimg)
+            frames.append(img)
+        try:
+            import imageio
+            imageio.mimsave(os.path.join(self.base_exp_dir, f"poses_{self.iter_step}.gif"),
+                            frames, fps=5)
+        except Exception as e:  # no imageio on the machine: no gif
+            LOG.warning("gif export failed: %s", e)
+        return pose_dir
+
+    def validate_all_images(self, resolution_level=4):
+        """Up to 10 evenly spaced frames, each render above its ground
+        truth, as <exp>/imgs.gif (imageio required, as in the JAX
+        Runner)."""
+        import cv2 as cv
+        import imageio
+        n = self.dataset.n_images
+        idxs = np.arange(n) if n < 10 else np.linspace(0, n - 1, 10, dtype=int)
+        imgs = []
+        for i in idxs:
+            img = self.validate_image(int(i), resolution_level=resolution_level,
+                                      return_img=True)
+            imgs.append(cv.cvtColor(img.astype(np.uint8), cv.COLOR_BGR2RGB))
+        imageio.mimsave(os.path.join(self.base_exp_dir, "imgs.gif"), imgs, fps=2)
+
+    def save_alignment_materials(self, step=4, align_dir=None):
+        """The rendered depth through every ``len // step``-th annotated
+        frame (every frame without annotations), back-projected to world
+        points [n, 4], as <exp>/world_pts_3D.npy or
+        <align_dir>/<case>_world_pts_3D.npy; returns the path."""
+        d = self.dataset
+        ids = d.avai_ann_frame if len(d.avai_ann_frame) else list(range(d.n_images))
+        world_pts = []
+        for i in ids[::max(len(ids) // step, 1)]:
+            pose = self.query_pose(i)
+            rm = self.rays_from_mask(i, pose)
+            if rm is None:
+                continue
+            ro, rv, ys, xs, p_norm = rm
+            out = self.render_rays_chunked(ro, rv)
+            depths = out["depth_fine"][:, 0] / p_norm[:, 0]
+            K = d.intrinsics_all[i][:3, :3]
+            xy_hom = np.stack([xs, ys, np.ones_like(xs)], 0).astype(np.float64)
+            cam = (np.linalg.inv(K) @ xy_hom).T * depths[:, None]
+            cam_h = np.concatenate([cam, np.ones((len(cam), 1))], 1)
+            world_pts.append((pose @ cam_h.T).T)
+        world_pts = np.concatenate(world_pts, 0)
+        path = (os.path.join(align_dir, f"{self.case}_world_pts_3D.npy") if align_dir
+                else os.path.join(self.base_exp_dir, "world_pts_3D.npy"))
+        np.save(path, world_pts)
+        return path
+
+    def gradient_analysis_report(self, img_id=0):
+        """Per-loss gradient magnitudes (``--gradient_analysis``): for each
+        of color_loss, eikonal_loss and mask_loss, one gradient through the
+        training step's render and losses (JAX's scalar row: lr 0,
+        cos_anneal 1, every gate open, mask guiding off) on one ray batch
+        of frame ``img_id`` (uniform pixels from a generator seeded 0; JAX
+        draws from ``key(0)``), and (min, max, mean) of |grad| over each
+        network's leaves.  Returns {loss: {net: (min, max, mean)}}."""
+        cfg, st = self.step_cfg, self.state
+        S = self.n_segments
+        scalars = step_mod.StepScalars(
+            lr=0.0, cos_anneal=1.0, main_update=1.0, pose_update=1.0,
+            mask_guided=0.0, seg_touch=np.zeros(S, np.float32),
+            seg_freeze=np.ones(S, np.float32), seg_lr=np.zeros(S, np.float32),
+            trans_head_on=1.0)
+        report = {}
+        for name in ("color_loss", "eikonal_loss", "mask_loss"):
+            flat = st.flat.detach().clone().requires_grad_(True)
+            with torch.enable_grad():
+                params = st.layout.views(flat)
+                pose0 = step_mod.pose_of_frame(cfg, params, st.pose_bank,
+                                               st.pose_static, img_id)
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(0)
+                data = raygen.gen_random_rays(
+                    generator, self.images_dev, self.masks_dev, self.intr_inv_dev,
+                    pose0, img_id, self.batch_size, self.bbox_dev,
+                    cfg.mask_guided_patch_size, False, cfg.H, cfg.W)
+                generator.manual_seed(1)
+                _, metrics = step_mod._render_and_losses(
+                    cfg, generator, params, st.pose_static, data, scalars,
+                    pose_bank=st.pose_bank)
+                (g,) = torch.autograd.grad(metrics[name], flat)
+            grads = st.layout.views(g)
+            stats = {}
+            for net in ("sdf", "color", "nerf", "variance"):
+                if net in grads:
+                    vals = torch.cat([t.abs().reshape(-1) for _, t in
+                                      convert.flatten(grads[net])]).cpu().numpy()
+                    stats[net] = (float(vals.min()), float(vals.max()),
+                                  float(vals.mean()))
+            report[name] = stats
+        for name, stats in report.items():
+            LOG.info("gradient_analysis %s: %s", name, stats)
+        return report
+
+    # ------------------------------------------------------------------
     # poses out, and the phase transition
     # ------------------------------------------------------------------
+    def save_poses(self):
+        """After ``validate_poses`` with ``current_image`` lowered by 10 (at
+        least 1), as the JAX Runner does: <exp>/poses/
+        pred_poses_<iter_step>.npy (the admitted frames' c2w), gt_poses.npy
+        (with annotations), intrinsics.npy and, on a crop dataset,
+        transform_matrixs.npy; returns the dir."""
+        self.current_image = max(self.current_image - 10, 1)
+        self.validate_poses()
+        pose_dir = os.path.join(self.base_exp_dir, "poses")
+        os.makedirs(pose_dir, exist_ok=True)
+        poses = self.query_poses(self.current_image)
+        np.save(os.path.join(pose_dir, f"pred_poses_{self.iter_step}.npy"), poses)
+        if len(self.dataset.gt_poses):
+            np.save(os.path.join(pose_dir, "gt_poses.npy"), self.dataset.gt_poses)
+        np.save(os.path.join(pose_dir, "intrinsics.npy"), self.dataset.intrinsics_all)
+        if self.dataset.crop:
+            tm = np.stack([self.dataset.crop_transforms[self.dataset.index_to_frame[i]]
+                           for i in range(len(poses))])
+            np.save(os.path.join(pose_dir, "transform_matrixs.npy"), tm)
+        return pose_dir
+
     def save_poses_simple(self, align_dir=None):
         """{frame name: c2w [4, 4]} of the admitted frames as
         <exp>/poses_<iter_step>.npy, or <align_dir>/<case>_poses.npy;
