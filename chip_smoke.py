@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
     python3 chip_smoke.py train-kernels flat-kernels   # device, build and
                                  # the named kernel phases only, no result line
+    python3 chip_smoke.py scan quality   # those run phases only, no result line
 
 Phases, each printing lines as it ends:
   1. device   -- require CUDA; the card, its power limit, CUDA and nvcc
@@ -118,6 +119,27 @@ Phases, each printing lines as it ends:
                  render through the kernels against the plain versions
                  (CPU copies of the state), K4/K8's entries against the
                  kernels alone at M = 1,048,576, and a profile of 8 chunks
+ 15. scan     -- the JAX Runner's default phase-2 dispatch (100 steps a
+                 dispatch, on the card one step captured into a CUDA graph
+                 and replayed) on confs/ho3d_global_womask.conf (K1 4 a
+                 step) and on the fast conf without the grid (the
+                 harness's --fused phase 2: K1 4, K4/K5/K8/K9 1 a step),
+                 from step 0 with no LR warm-up: a graphed chunk bitwise
+                 an eager one from the same state and generator state (or
+                 the leaf rule on the parameter moves, reported), the
+                 chunk's frames over [0, 8) and a second chunk's differing,
+                 each kernel's launches a replay equal to an eager step's;
+                 a 3-chunk run (checkpoints at the edges) and a Runner
+                 loading its second edge's checkpoint bitwise equal after
+                 the third chunk, its launches (warm-up and replays); ms a
+                 step graphed (chunk events / 100) against the per-step
+                 loop (train.scan_steps = False, 200 steps)
+ 16. quality  -- python -m fmov_pose_torch.quality at a short schedule
+                 (6 frames, 128x128, phase 1 400 steps until all frames
+                 are admitted, phase 2 200): finite ATE, RPE, PSNR and
+                 Chamfer distance, a mesh, phase 2 on "scan x100"
+The phases before "scan" run the per-step loop (slice 1 sets
+train.scan_steps off; the other confs are not scan-eligible as cut).
 Then one JSON line of kernel results (each with its launches in its
 paths' runs, its time, its plain version's, and its bound on the card),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
@@ -128,6 +150,7 @@ nothing of the JAX package, and checks that at the end.
 import collections
 import dataclasses
 import json
+import math
 import os
 import statistics
 import re
@@ -876,12 +899,15 @@ def phase_slice(dev, smi, scene, tmp):
     runner = Runner(CONF, mode="train", case="orbit_smoke",
                     exp_dir=os.path.join(tmp, "exp1"), seed=SEED,
                     device=dev, scene=scene)
-    # the only overrides: a short run, and no LR warm-up (lr ~ 0 there)
+    # the only overrides: a short run, no LR warm-up (lr ~ 0 there), and
+    # the per-step loop (the scan phase runs the conf's default, the scan)
     runner.end_iter, runner.warm_up_end = STEPS, 0.0
+    runner.conf.put("train.scan_steps", False)
     r = runner.model_cfg["renderer"]
     _require(runner.model_cfg["sdf"]["use_fused"], "the conf path runs K1")
     _line("slice", conf=os.path.relpath(CONF, ROOT),
-          overrides=f"end_iter={STEPS},warm_up_end=0", pose_mode=runner.pose_mode,
+          overrides=f"end_iter={STEPS},warm_up_end=0,scan_steps=False",
+          pose_mode=runner.pose_mode,
           batch=runner.batch_size, samples=f"{r.n_samples}+{r.n_importance}",
           up_sample_steps=r.up_sample_steps, perturb=r.perturb,
           n_params=runner.state.layout.size)
@@ -1991,8 +2017,265 @@ def phase_eval(dev, smi, tmp, two):
     return counts, bake_chunk
 
 
+# the scanned phase-2 dispatch: k = train.scan_chunk's default, 3 chunks a
+# Runner (checkpoints at each chunk edge), the per-step loop timed beside it
+SCAN_K = 100
+SCAN_CHUNKS = 3
+PER_STEP_STEPS = 200
+# the quality harness at a short schedule: every frame admitted in phase 1
+# (mesh warm-up 50, then one frame every 30 steps), phase 2 two chunks
+QUALITY_ARGS = ["--frames", "6", "--res", "128", "--p1_iters", "400",
+                "--max_pro", "30", "--mesh_warmup", "50", "--p2_iters", "200"]
+
+
+def _scan_runner(conf, exp, scene, dev):
+    """A Runner on ``conf`` trained SCAN_CHUNKS chunks of SCAN_K steps from
+    step 0 (no LR warm-up, a checkpoint at every chunk edge), on the scan
+    path."""
+    from fmov_pose_torch.train.runner import Runner
+    runner = Runner(conf, mode="train", case="orbit_smoke", exp_dir=exp, seed=SEED,
+                    device=dev, scene=scene)
+    runner.end_iter, runner.warm_up_end = SCAN_K * SCAN_CHUNKS, 0.0
+    runner.save_freq = SCAN_K
+    return runner
+
+
+def _scan_state(runner):
+    """The tensors a scanned step writes, the generator's state and the counts."""
+    st = runner.state
+    return ({"flat": st.flat.detach().clone(), "mu": st.opt.mu.clone(),
+             "nu": st.opt.nu.clone()}, st.generator.get_state(), st.iter_step,
+            st.opt.step)
+
+
+def _set_scan_state(runner, saved):
+    import torch
+    tensors, gen, it, adam_step = saved
+    st = runner.state
+    with torch.no_grad():
+        st.flat.copy_(tensors["flat"])
+        st.opt.mu.copy_(tensors["mu"])
+        st.opt.nu.copy_(tensors["nu"])
+    st.generator.set_state(gen)
+    st.iter_step, st.opt.step = it, adam_step
+
+
+def _state_differ(a, b):
+    """The names among flat, mu, nu and the generator's state that are not
+    bitwise equal."""
+    import torch
+    out = [k for k in a[0] if not torch.equal(a[0][k], b[0][k])]
+    if not torch.equal(a[1], b[1]):
+        out.append("generator")
+    if a[2:] != b[2:]:
+        out.append("counts")
+    return out
+
+
+def _chunk_leaf_rule(runner, before, a, b):
+    """The leaf rule on two chunks' parameter moves from ``before``."""
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.ops import fused_sdf
+    layout = runner.state.layout
+    moves = [dict(convert.flatten(layout.views((s[0]["flat"] - before[0]["flat"]).cpu())))
+             for s in (a, b)]
+    return fused_sdf.leaf_rule(*moves)
+
+
+def _graph_vs_eager(name, runner, per_step):
+    """One chunk eagerly and one through the captured step, from the same
+    state and generator state: bitwise equal (or the leaf rule, reported),
+    the same frames, each kernel launched per step in the graph as in the
+    eager step; two replays' frames."""
+    import torch
+    from fmov_pose_torch.train import graph as graph_mod
+    n_cur = runner.current_image
+    before = _scan_state(runner)
+    res = {}
+    for mode in ("eager", "graph"):
+        _set_scan_state(runner, before)
+        scan = runner.scan_steps(SCAN_K, capture=(mode == "graph"))
+        _zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = scan(runner.state, n_cur)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        res[mode] = (_scan_state(runner), mean.clone(), scan.carry.frames.clone(),
+                     _counters(), seconds, scan)
+    (s_e, m_e, f_e, c_e, t_e, _), (s_g, m_g, f_g, c_g, t_g, scan) = res["eager"], res["graph"]
+    g = scan.graph
+    per_replay = graph_mod.launches_by_kernel(g.per_replay)
+    warmup = graph_mod.launches_by_kernel(g.warmup_launches)
+    differ = _state_differ(s_e, s_g)
+    metrics_equal = bool(torch.equal(m_e, m_g))
+    frames_equal = bool(torch.equal(f_e, f_g))
+    rule = None if not differ else _chunk_leaf_rule(runner, before, s_e, s_g)
+    frames = f_g.cpu().tolist()
+    # two replays: the frames drawn by consecutive steps of the chunk, and
+    # a second chunk of replays against the first
+    scan(runner.state, n_cur)
+    frames2 = scan.carry.frames.cpu().tolist()
+    repeats = sum(a == b for a, b in zip(frames[:-1], frames[1:]))
+    hist = collections.Counter(frames)
+    _line("scan", conf=name, check="graph_vs_eager", k=SCAN_K,
+          state_differ=json.dumps(differ).replace(" ", ""),
+          metrics_bitwise=metrics_equal, frames_equal=frames_equal,
+          leaf_rule=None if rule is None else json.dumps(
+              {k: rule[k] for k in ("ok", "worst", "worst_rel", "failed")}).replace(" ", ""),
+          eager_launches=json.dumps(c_e).replace(" ", ""),
+          graph_launches=json.dumps(c_g).replace(" ", ""),
+          per_replay=json.dumps(per_replay).replace(" ", ""),
+          warmup=json.dumps(warmup).replace(" ", ""),
+          frames_first10=json.dumps(frames[:10]).replace(" ", ""),
+          frames_second_chunk_first10=json.dumps(frames2[:10]).replace(" ", ""),
+          frame_hist=json.dumps(dict(sorted(hist.items()))).replace(" ", ""),
+          consecutive_repeats=repeats, eager_s=f"{t_e:.3f}", graph_s=f"{t_g:.3f}",
+          loss_eager=f"{float(m_e[0]):.6f}", loss_graph=f"{float(m_g[0]):.6f}")
+    _require(frames_equal and (not differ or rule["ok"]) and (metrics_equal or rule),
+             f"{name}: the graphed chunk differs from the eager one: {differ} {rule}")
+    _require(min(frames) >= 0 and max(frames) < n_cur and len(hist) >= n_cur // 2
+             and repeats < SCAN_K // 2 and frames2 != frames,
+             f"{name}: the replays' frames {frames} then {frames2}")
+    for key, n in per_replay.items():
+        want = per_step.get(key, 0)
+        _require(n == want and c_e[key] == SCAN_K * want,
+                 f"{name}: {key} launched {n} times a replay, {c_e[key]} in the "
+                 f"eager chunk of {SCAN_K} (expected {want} a step)")
+        _require(c_g[key] == warmup[key] + SCAN_K * n,
+                 f"{name}: {key} counted {c_g[key]} in the graphed chunk")
+    return per_replay
+
+
+def _scan_resume(name, conf, tmp, scene, dev, per_step):
+    """Runner A trains 3 chunks through the graph, a checkpoint at each
+    edge; runner B loads A's checkpoint of the second edge and trains the
+    third chunk through its own capture: A's and B's states bitwise equal.
+    Returns A (its launches, chunk times and peak memory read)."""
+    import torch
+    from fmov_pose_torch.train import graph as graph_mod
+    a = _scan_runner(conf, os.path.join(tmp, f"scan_{name}_a"), scene, dev)
+    _require(a._scan_eligible() == SCAN_K, f"{name}: not on the scan path")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    t0 = time.perf_counter()
+    a.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ckpts = sorted(os.listdir(os.path.join(a.base_exp_dir, "checkpoints")))
+    edge = os.path.join(a.base_exp_dir, "checkpoints",
+                        f"ckpt_{a.current_image:06d}_{(SCAN_CHUNKS - 1) * SCAN_K:06d}.ckpt")
+    warmup = graph_mod.launches_by_kernel(a.scan.graph.warmup_launches)
+    b = _scan_runner(conf, os.path.join(tmp, f"scan_{name}_b"), scene, dev)
+    b.load_checkpoint(edge)
+    b.train()
+    differ = _state_differ(_scan_state(a), _scan_state(b))
+    history = a.history["loss"]
+    _line("scan", conf=name, check="train_and_resume", dispatch=a.dispatch,
+          iter_step=a.iter_step, chunks=len(history),
+          chunk_losses=json.dumps([round(v, 6) for v in history]).replace(" ", ""),
+          checkpoints=json.dumps(ckpts).replace(" ", ""),
+          resumed_from=os.path.basename(edge), resumed_iter=b.iter_step,
+          resumed_differ=json.dumps(differ).replace(" ", ""),
+          launches=json.dumps(counts).replace(" ", ""),
+          wall_s=f"{wall:.2f}", peak_mem_gib=f"{peak / 2**30:.3f}")
+    _require(a.dispatch == f"scan x{SCAN_K}" and a.iter_step == SCAN_K * SCAN_CHUNKS
+             and len(history) == SCAN_CHUNKS and all(math.isfinite(v) for v in history),
+             f"{name}: the scanned run {a.dispatch} {a.iter_step} {history}")
+    _require(b.iter_step == a.iter_step and not differ,
+             f"{name}: the run resumed at a chunk edge differs in {differ}")
+    for key, n in counts.items():
+        want = per_step.get(key, 0) * SCAN_K * SCAN_CHUNKS + warmup[key]
+        _require(n == want, f"{name}: {key} launched {n} times in the scanned run "
+                            f"(expected {want}: the warm-up's {warmup[key]} and "
+                            f"{per_step.get(key, 0)} in each of "
+                            f"{SCAN_K * SCAN_CHUNKS} replays)")
+    _require(all(warmup[k] == graph_mod.WARMUP_STEPS * n for k, n in per_step.items()),
+             f"{name}: the warm-up launched {warmup}")
+    return a, counts, wall, peak
+
+
+def _per_step_ms(name, conf, tmp, scene, dev):
+    """The per-step loop (``train.scan_steps = False``) on the same conf:
+    its median step time from events."""
+    runner = _scan_runner(conf, os.path.join(tmp, f"scan_{name}_p"), scene, dev)
+    runner.end_iter = PER_STEP_STEPS
+    runner.conf.put("train.scan_steps", False)
+    runner.train()
+    _require(runner.dispatch == "per-step", f"{name}: {runner.dispatch}")
+    return statistics.median(runner.step_ms), runner.train_seconds
+
+
+def phase_scan(dev, smi, scene, tmp):
+    """The JAX Runner's default phase-2 dispatch, 100 steps a dispatch as
+    one captured step replayed: on the reference conf (K1 4 times a step)
+    and on the fast conf without the grid (the harness's --fused phase 2:
+    K4, K5, K8, K9 once a step, K1 4 times in the up-sampler).  Each: a graphed chunk against an eager
+    one, a 3-chunk run resumed bitwise at a chunk edge, ms a step graphed
+    and per-step."""
+    fused = os.path.join(tmp, "fused_no_grid.conf")
+    _conf_copy(FAST_CONF, fused, {"occupancy_sampling": "False"})
+    out = {}
+    for name, conf, per_step in (
+            ("reference", CONF, {"K1": 4}),
+            ("fused", fused, {"K1": 4, "K4": 1, "K5": 1, "K8": 1, "K9": 1})):
+        runner = _scan_runner(conf, os.path.join(tmp, f"scan_{name}_g"), scene, dev)
+        per_replay = _graph_vs_eager(name, runner, per_step)
+        del runner
+        a, counts, wall, peak = _scan_resume(name, conf, tmp, scene, dev, per_step)
+        graph_ms = statistics.median(a.step_ms) / SCAN_K
+        per_ms, per_wall = _per_step_ms(name, conf, tmp, scene, dev)
+        _line("scan", conf=name, check="ms_a_step", graphed_ms=f"{graph_ms:.3f}",
+              chunk_ms=json.dumps([round(v, 3) for v in a.step_ms]).replace(" ", ""),
+              per_step_ms=f"{per_ms:.3f}", speedup=f"{per_ms / graph_ms:.2f}",
+              graphed_wall_s=f"{wall:.2f}", per_step_wall_s=f"{per_wall:.2f}",
+              per_step_steps=PER_STEP_STEPS, card=repr(smi))
+        out[name] = {"launches": counts, "per_replay": per_replay, "graph_ms": graph_ms,
+                     "per_step_ms": per_ms}
+        del a
+    return out
+
+
+def phase_quality(dev, smi, tmp):
+    """The quality harness (``python -m fmov_pose_torch.quality``) at a
+    short schedule, all frames admitted: finite metrics, phase 2 on the
+    scan path."""
+    import contextlib
+    from fmov_pose_torch import quality
+    t0 = time.perf_counter()
+    # the harness prints its JSON result: to stderr here, so that standard
+    # output keeps one JSON object before the last line, the kernels'
+    with contextlib.redirect_stdout(sys.stderr):
+        res = quality.main(QUALITY_ARGS + ["--work", os.path.join(tmp, "quality")],
+                           device=dev)
+    keys = ("p1_ate", "p2_psnr", "p2_ate", "p2_rpe_trans", "p2_rpe_rot_deg",
+            "mesh_chamfer_aligned")
+    _line("quality", args=json.dumps(QUALITY_ARGS).replace(" ", ""),
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          **{k: res[k] for k in keys + ("mesh_verts", "p2_dispatch", "pipeline_time_s")})
+    _require(all(res[k] is not None and math.isfinite(res[k]) for k in keys)
+             and res["mesh_verts"] > 100, f"quality: non-finite metrics {res}")
+    _require(res["p2_dispatch"] == f"scan x{SCAN_K}",
+             f"quality: phase 2 ran {res['p2_dispatch']}")
+    return res
+
+
 KERNEL_PHASES = {"kernels": phase_kernels, "train-kernels": phase_train_kernels,
                  "flat-kernels": phase_flat_kernels, "color-kernels": phase_color_kernels}
+
+
+def _scene():
+    from fmov_pose_torch.data.scene import make_orbit_scene
+    t0 = time.perf_counter()
+    scene = make_orbit_scene(n_frames=8, H=480, W=640, seed=SEED)
+    _line("scene", scene="orbit_8x480x640", seconds=f"{time.perf_counter() - t0:.1f}",
+          match_pairs=len(scene.loftr_flows) // 2)
+    return scene
+
+
+RUN_PHASES = ("scan", "quality")
 
 
 def main(argv):
@@ -2001,27 +2284,29 @@ def main(argv):
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    unknown = [a for a in argv if a not in KERNEL_PHASES]
+    unknown = [a for a in argv if a not in KERNEL_PHASES and a not in RUN_PHASES]
     if unknown:
         print(f"chip_smoke: unknown phases {unknown}; "
-              f"choose from {sorted(KERNEL_PHASES)}", file=sys.stderr)
+              f"choose from {sorted(KERNEL_PHASES) + list(RUN_PHASES)}", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from fmov_pose_torch.data.scene import make_orbit_scene
     dev, smi = phase_device()
     phase_build()
-    if argv:  # a kernel check only: no training, no result line
+    if argv:  # chosen phases only: no result line
         for name in argv:
-            KERNEL_PHASES[name](dev)
+            if name in KERNEL_PHASES:
+                KERNEL_PHASES[name](dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            if "scan" in argv:
+                phase_scan(dev, smi, _scene(), tmp)
+            if "quality" in argv:
+                phase_quality(dev, smi, tmp)
         return 0
     k1 = phase_kernels(dev)
     train_k = phase_train_kernels(dev)
     flat_k = phase_flat_kernels(dev)
     sample_k = phase_color_kernels(dev)
-    t0 = time.perf_counter()
-    scene = make_orbit_scene(n_frames=8, H=480, W=640, seed=SEED)
-    _line("scene", scene="orbit_8x480x640", seconds=f"{time.perf_counter() - t0:.1f}",
-          match_pairs=len(scene.loftr_flows) // 2)
+    scene = _scene()
     with tempfile.TemporaryDirectory() as tmp:
         k1_launches, runner1 = phase_slice(dev, smi, scene, tmp)
         counts = phase_slice2(dev, smi, scene, tmp)
@@ -2033,14 +2318,20 @@ def main(argv):
         two, two_state = phase_two_phase(dev, smi, tmp)
         evals, bake_chunk = phase_eval(dev, smi, tmp, two_state)
         del two_state
+        scans = phase_scan(dev, smi, scene, tmp)
+        phase_quality(dev, smi, tmp)
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
     csrc = "fmov_pose_torch/ops/csrc/"
+    scan_ref = f"scan_reference_{SCAN_K * SCAN_CHUNKS}_steps"
+    scan_fused = f"scan_fused_{SCAN_K * SCAN_CHUNKS}_steps"
     kernels = [{"name": "sdf_fwd", "route": "cuda", "source": csrc + "sdf_fwd.cu",
                 "replaces": "fmov_pose_tpu/ops/fused_sdf.py:326",
                 "launches": {f"slice1_{STEPS}_steps": k1_launches,
                              f"mesh_{MESH_RES}": mesh_launches,
-                             "two_phase": two["K1"], "eval": evals["K1"]}, **k1,
+                             "two_phase": two["K1"], "eval": evals["K1"],
+                             scan_ref: scans["reference"]["launches"]["K1"],
+                             scan_fused: scans["fused"]["launches"]["K1"]}, **k1,
                 "bake_chunk": bake_chunk["K1"]}]
     slice3, slice2 = f"slice3_{STEPS}_steps", f"slice2_{STEPS}_steps"
     for key, name, src, replaces, launches, res in (
@@ -2049,17 +2340,21 @@ def main(argv):
             ("K3", "sdf_bwd_flat", "sdf_flat.cu", "fused_sdf.py:437",
              {slice3: counts3["K3"], "two_phase": two["K3"]}, flat_k),
             ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699",
-             {slice2: counts["K4"], "two_phase": two["K4"], "eval": evals["K4"]}, train_k),
+             {slice2: counts["K4"], "two_phase": two["K4"], "eval": evals["K4"],
+              scan_fused: scans["fused"]["launches"]["K4"]}, train_k),
             ("K5", "sdf_bwd", "sdf_bwd.cu", "fused_sdf.py:761",
-             {slice2: counts["K5"], "two_phase": two["K5"], "eval": evals["K5"]}, train_k),
+             {slice2: counts["K5"], "two_phase": two["K5"], "eval": evals["K5"],
+              scan_fused: scans["fused"]["launches"]["K5"]}, train_k),
             ("K6", "color_fwd", "color_sample.cu", "fused_color.py:93",
              {f"slice4_{STEPS}_steps": counts4["K6"], "eval": evals["K6"]}, sample_k),
             ("K7", "color_bwd", "color_sample.cu", "fused_color.py:108",
              {f"slice4_{STEPS}_steps": counts4["K7"]}, sample_k),
             ("K8", "color_ray_fwd", "color_ray.cu", "fused_color.py:375",
-             {slice2: counts["K8"], "two_phase": two["K8"], "eval": evals["K8"]}, train_k),
+             {slice2: counts["K8"], "two_phase": two["K8"], "eval": evals["K8"],
+              scan_fused: scans["fused"]["launches"]["K8"]}, train_k),
             ("K9", "color_ray_bwd", "color_ray.cu", "fused_color.py:407",
-             {slice2: counts["K9"], "two_phase": two["K9"], "eval": evals["K9"]}, train_k)):
+             {slice2: counts["K9"], "two_phase": two["K9"], "eval": evals["K9"],
+              scan_fused: scans["fused"]["launches"]["K9"]}, train_k)):
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": "fmov_pose_tpu/ops/" + replaces,
                         "launches": launches, **res[name]})

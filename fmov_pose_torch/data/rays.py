@@ -4,6 +4,11 @@ The image and mask stacks live on the device; each step gathers its ray
 batch there from a frame id and a ``torch.Generator``.  Pixels are plain
 index gathers (the JAX module's one-hot contractions exist because
 gathers serialize on a TPU).  Images are [N, H, W, 3], masks [N, H, W].
+
+A frame id is a host int (the per-step loop plans it on the host) or an
+int64 device tensor of one element (the scanned steps draw it on the
+device): a tensor id is gathered with, never read back, so a captured
+step never waits for the host.
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "frame_row",
     "gather_rgb",
     "pixels_to_rays",
     "sample_pixels",
@@ -21,10 +27,24 @@ __all__ = [
 ]
 
 
+def frame_row(table, img_idx):
+    """``table[img_idx]``: a host int indexes; a device id tensor gathers
+    (``index_select``: a 0-d tensor index would be read back)."""
+    if isinstance(img_idx, torch.Tensor):
+        return table.index_select(0, img_idx.reshape(1))[0]
+    return table[img_idx]
+
+
+def _frame_index(img_idx):
+    """A frame id as an index of an advanced gather: a host int, or a
+    device tensor of shape [1] that broadcasts against the pixel ids."""
+    return img_idx.reshape(1) if isinstance(img_idx, torch.Tensor) else img_idx
+
+
 def gather_rgb(images, img_idx, py, px):
     """Colors [B, 3] of frame ``img_idx`` of images [N, H, W, 3] at integer
     pixel ids py, px [B] (the JAX module's one-hot gather)."""
-    return images[img_idx, py, px]
+    return images[_frame_index(img_idx), py, px]
 
 
 def pixels_to_rays(px, py, intr_inv, pose):
@@ -47,12 +67,17 @@ def sample_pixels(generator, bbox_table, img_idx, batch_size: int,
     """Uniform pixel ids (px, py) [B] of one frame; with mask guiding on,
     70% of draws restrict the window to the dilated mask bbox
     (``bbox_table[img_idx]`` = ymin, ymax, xmin, xmax).  All on the table's
-    device, with no host sync."""
+    device, with no host sync.  ``mask_guided_active``: a host 0/1 (0 draws
+    no guide coin) or a 0-d device tensor, which gates the coin on the
+    device, as the JAX module's traced gate does."""
     dev = bbox_table.device
     u = torch.rand((3, batch_size), generator=generator, device=dev)
-    if mask_guided and mask_guided_active > 0:
+    gated = isinstance(mask_guided_active, torch.Tensor)
+    if mask_guided and (gated or mask_guided_active > 0):
         use_bbox = torch.rand((), generator=generator, device=dev) < 0.7
-        y0, y1, x0, x1 = bbox_table[img_idx].unbind()
+        if gated:
+            use_bbox = use_bbox & (mask_guided_active > 0)
+        y0, y1, x0, x1 = frame_row(bbox_table, img_idx).unbind()
         y_lo = torch.where(use_bbox, torch.clamp(y0 - patch_size, min=0), 0)
         y_hi = torch.where(use_bbox, torch.clamp(y1 + patch_size, max=H), H)
         x_lo = torch.where(use_bbox, torch.clamp(x0 - patch_size, min=0), 0)
@@ -72,8 +97,9 @@ def gen_random_rays(generator, images, masks, intr_inv_all, pose, img_idx,
     """Random ray batch from one frame.
 
     images: [N, H, W, 3], masks: [N, H, W], intr_inv_all: [N, 4, 4],
-    pose: [3, 4] c2w, img_idx: int, bbox_table: [N, 4].  ``pixels``: an
-    optional given (px, py) pair of int tensors [B], in place of the draw.
+    pose: [3, 4] c2w, img_idx: a host int or a device id, bbox_table:
+    [N, 4].  ``pixels``: an optional given (px, py) pair of int tensors
+    [B], in place of the draw.
     Returns data [batch, 10] = (rays_o, rays_d, color, mask).
     """
     if pixels is None:
@@ -83,9 +109,9 @@ def gen_random_rays(generator, images, masks, intr_inv_all, pose, img_idx,
     else:
         px, py = pixels
     color = gather_rgb(images, img_idx, py, px)  # [B, 3]
-    mask = masks[img_idx, py, px][:, None]     # [B, 1]
+    mask = masks[_frame_index(img_idx), py, px][:, None]     # [B, 1]
     rays_o, rays_v, _ = pixels_to_rays(px.to(pose.dtype), py.to(pose.dtype),
-                                       intr_inv_all[img_idx], pose)
+                                       frame_row(intr_inv_all, img_idx), pose)
     return torch.cat([rays_o, rays_v, color, mask], dim=-1)
 
 

@@ -356,18 +356,25 @@ def supported_rays(cfg, n_samples: int, n_pts: int = None) -> bool:
     return ok
 
 
+_PE_TABLES = {}
+
+
 def _pe_tables(multires: int, device):
     """Per encoded column: the input dim, the frequency and the kind
-    (0 identity, 1 sin, 2 cos), in ``positional_encode``'s order."""
-    dims, freqs, kinds = [0, 1, 2], [1.0] * 3, [0] * 3
-    for k in range(multires):
-        for kind in (1, 2):
-            dims += [0, 1, 2]
-            freqs += [2.0 ** k] * 3
-            kinds += [kind] * 3
-    return (torch.tensor(dims, device=device),
-            torch.tensor(freqs, dtype=torch.float32, device=device),
-            torch.tensor(kinds, device=device))
+    (0 identity, 1 sin, 2 cos), in ``positional_encode``'s order; made
+    once a device (a copy from the host cannot run in a captured step)."""
+    key = (multires, torch.device(device))
+    if key not in _PE_TABLES:
+        dims, freqs, kinds = [0, 1, 2], [1.0] * 3, [0] * 3
+        for k in range(multires):
+            for kind in (1, 2):
+                dims += [0, 1, 2]
+                freqs += [2.0 ** k] * 3
+                kinds += [kind] * 3
+        _PE_TABLES[key] = (torch.tensor(dims, device=device),
+                           torch.tensor(freqs, dtype=torch.float32, device=device),
+                           torch.tensor(kinds, device=device))
+    return _PE_TABLES[key]
 
 
 def pe_parts(xs: torch.Tensor, multires: int):

@@ -5,9 +5,11 @@ Parameters are {"train": trainable leaves, "static": buffers (Fourier
 bands b, init_c2w)}.  The initializers are numpy with the JAX module's draw
 order, so both packages build identical pose nets from one seed.
 
-Frame ids are host ints: the training loop plans them on the host, so
-the pose of a frame costs no host-to-device copy (a pageable copy of a
-frame id stalls the stream until the device has caught up).
+Frame ids are host ints where the training loop plans them on the host,
+so the pose of a frame costs no host-to-device copy (a pageable copy of a
+frame id stalls the stream until the device has caught up).  The scanned
+steps draw the frame on the device: ``gf_apply`` also takes an int64
+device tensor of one element, and gathers with it.
 
 The segment bank (``SegLearnPose`` of the reference): one pose net per
 ``segment_img_num`` frames, every trainable leaf stacked on a leading
@@ -105,11 +107,16 @@ def _lin(p, x):
     return x @ p["w"].T + p["b"]
 
 
-def gf_apply(params: Params, cfg: PoseCfg, cam_id: int) -> torch.Tensor:
-    """cam_id: a host int.  Returns c2w [3, 4]."""
+def gf_apply(params: Params, cfg: PoseCfg, cam_id) -> torch.Tensor:
+    """cam_id: a host int, or a device id tensor of one element (read on
+    the device only).  Returns c2w [3, 4]."""
     static, train = params["static"], params["train"]
     b = static["b"]
-    cam = torch.full((1, 1), float(cam_id), dtype=torch.float32, device=b.device)
+    on_device = isinstance(cam_id, torch.Tensor)
+    if on_device:
+        cam = cam_id.reshape(1, 1).to(torch.float32)
+    else:
+        cam = torch.full((1, 1), float(cam_id), dtype=torch.float32, device=b.device)
     feat = fourier_features(cam, b)  # [1, 256]
     h = F.gelu(_lin(train["lin1"], feat), approximate="none")
     h = F.gelu(_lin(train["lin2"], h), approximate="none")
@@ -126,7 +133,11 @@ def gf_apply(params: Params, cfg: PoseCfg, cam_id: int) -> torch.Tensor:
     c2w = make_c2w(pred_rot, pred_trans)[0]  # [3, 4]
 
     init_bank = static["init_c2w"]
-    init = init_bank[min(int(cam_id), init_bank.shape[0] - 1)]
+    last = init_bank.shape[0] - 1
+    if on_device:
+        init = init_bank.index_select(0, torch.clamp(cam_id.reshape(1), max=last))[0]
+    else:
+        init = init_bank[min(int(cam_id), last)]
     t = init[:3, 3] * (pred_scale[0, 0] if pred_scale is not None else 1.0)
     bottom = torch.eye(4, dtype=c2w.dtype, device=c2w.device)[3:]
     tmp = torch.cat([torch.cat([init[:3, :3], t[:, None]], dim=1), bottom], dim=0)

@@ -40,6 +40,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from fmov_pose_torch.core.sampling import merge_sorted, sample_pdf
 from fmov_pose_torch.fields import nets
@@ -78,10 +79,31 @@ def _sdf_only_fn(model_cfg, sdf_params):
     return lambda x: nets.sdf_only(sdf_params, sdf_cfg, x)
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` over the last dim with PyTorch's own backward for
+    an input without zeros, the reversed cumulative sum of output x grad
+    over the input (bitwise the built-in's), but without the built-in's
+    test for zeros: that test reads a value back to the host, which a
+    captured step (``train/graph.py``) cannot do.  The transmittance's
+    factors 1 - alpha + 1e-7 (alpha <= 1) are never 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def _transmittance_weights(alpha: torch.Tensor) -> torch.Tensor:
     """weights = alpha * cumprod([1, 1-alpha+1e-7])[:, :-1]."""
     ones = torch.ones_like(alpha[..., :1])
-    trans = torch.cumprod(torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1), dim=-1)
+    trans = _Cumprod.apply(torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1))
     return alpha * trans[..., :-1]
 
 

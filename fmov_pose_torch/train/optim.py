@@ -6,7 +6,10 @@ Moments live in one raveled [P] buffer in ``convert.ParamLayout`` order
 decay and the parameters move by momentum, which is torch's
 ``zero_grad(); step()`` drift that the ``detach_mesh_at_warm_up`` gate
 relies on.  The update is in place, on the flat parameter buffer the
-training state owns.
+training state owns.  The scanned steps (``step.ScanPhotoSteps``)
+keep the step count on the device (``adam_update_flat_dev_``): the count
+and the bias corrections never reach the host, so a captured step reads
+nothing back.
 
 The segment-bank Adam is S independent Adams over one flat bank buffer
 (leaves [S, ...], so the ravel is segment-major): per-segment step
@@ -51,6 +54,26 @@ def adam_update_flat_(flat_g: torch.Tensor, state: AdamState,
     stepf = torch.tensor(float(state.step), dtype=torch.float32)
     bc1 = float(1 - torch.tensor(B1, dtype=torch.float32) ** stepf)
     bc2 = float(1 - torch.tensor(B2, dtype=torch.float32) ** stepf)
+    denom = torch.sqrt(state.nu / bc2) + EPS
+    flat_p.sub_(lr * (state.mu / bc1) / denom)
+    return state
+
+
+@torch.no_grad()
+def adam_update_flat_dev_(flat_g: torch.Tensor, state: AdamState,
+                          flat_p: torch.Tensor, lr: torch.Tensor,
+                          step: torch.Tensor) -> AdamState:
+    """``adam_update_flat_`` with the step count ``step`` (0-d int32) and
+    the learning rate ``lr`` (0-d f32) on the device: the count is
+    incremented in place and the bias corrections are computed from it in
+    f32, as the JAX module computes them.  ``state.step`` (the host count)
+    is left to the caller, which advances it by the steps it ran."""
+    step.add_(1)
+    stepf = step.to(torch.float32)
+    state.mu.mul_(B1).add_(flat_g, alpha=1 - B1)
+    state.nu.mul_(B2).addcmul_(flat_g, flat_g, value=1 - B2)
+    bc1 = 1 - torch.pow(B1, stepf)
+    bc2 = 1 - torch.pow(B2, stepf)
     denom = torch.sqrt(state.nu / bc2) + EPS
     flat_p.sub_(lr * (state.mu / bc1) / denom)
     return state

@@ -2,9 +2,13 @@
 training lifecycle of one conf, phase 1 or phase 2).
 
 Reads the reference's .conf files with the port's HOCON reader
-(``data/hocon.py``) and trains with a plain Python loop, one step per
-iteration, on the device the caller names (``device``; by default the
-CUDA device, which must exist).  The data is a dataset object the caller
+(``data/hocon.py``) and trains on the device the caller names (``device``;
+by default the CUDA device, which must exist) with one of the JAX Runner's
+two loops: the scan path (``_train_scan``: k = ``train.scan_chunk`` steps
+a dispatch, on CUDA one captured step replayed k times) wherever
+``_scan_eligible`` admits the phase, as JAX does by default
+(``train.scan_steps``), else a plain Python loop, one planned step per
+iteration.  The data is a dataset object the caller
 passes (``data/scene.py``, or anything with the same fields) or the
 port's host ``Dataset`` read from the conf's ``data_dir``.
 
@@ -56,9 +60,9 @@ every ``pose_freq`` and the gradient report where the JAX loop does, each
 inside a ``try`` that logs a warning and trains on, as the JAX loop does.
 
 What the port leaves out raises ``NotImplementedError`` naming its ROADMAP
-item: the planned and scanned multi-step dispatch (``train.plan_chunk``),
-the pixel-level pose banks (``model.pixel_level``), depth supervision and
-data parallelism.
+item: the planned multi-step dispatch (``train.plan_chunk``), the
+pixel-level pose banks (``model.pixel_level``), depth supervision and data
+parallelism.
 """
 
 from __future__ import annotations
@@ -539,8 +543,9 @@ class Runner:
                 occupancy.make_grid_points(self.occ_grid_res), device=self.device)
         sdf = nets.sdf_only(self.state.params["sdf"], self.model_cfg["sdf"],
                             self._occ_pts)
-        self.state.pose_static["occ_grid"] = occupancy.update_occ_grid(
-            sdf, self.occ_grid_res)
+        # in place: a captured step (train/graph.py) reads the grid's address
+        self.state.pose_static["occ_grid"].copy_(
+            occupancy.update_occ_grid(sdf, self.occ_grid_res))
         self.occ_refreshes += 1
 
     def reset_neus(self, seed=None):
@@ -557,8 +562,7 @@ class Runner:
         st.flat, st.layout, st.opt = self._set_fields(params)
         st.iter_step = 0
         if self.occupancy_sampling:
-            st.pose_static["occ_grid"] = torch.ones(
-                (self.occ_grid_res,) * 3, dtype=torch.float32, device=self.device)
+            st.pose_static["occ_grid"].fill_(1.0)
         self.iter_step = 0
         self.mesh_warmup_step = self.conf.get_int("train.mesh_warmup_step", 0)
 
@@ -716,12 +720,43 @@ class Runner:
             # unfreeze all previous segments after the new segment's warm-up
             self.seg_frozen[:self.current_pose_mlp_index + 1] = 1.0
 
+    def _scan_eligible(self):
+        """k > 0 when the phase can run k steps a dispatch (the JAX Runner's
+        rule): ``train.scan_steps`` on (the default), a fixed or gf pose,
+        no flow, curriculum, maintain_shape, gradient report, rotation
+        reset or mesh warm-up, so that every per-step decision is a pure
+        function of iter_step; k = ``train.scan_chunk`` (100) divides
+        every event's frequency (the grid refresh's too) and iter_step."""
+        if not self.conf.get_bool("train.scan_steps", True):
+            return 0
+        if (self.pose_mode not in ("fixed", "gf") or self.flow_weight > 0
+                or self.progressive or self.maintain_shape
+                or self.gradient_analysis or self.reset_based_on_rot
+                or self.mesh_warmup_step > 0):
+            return 0
+        k = self.conf.get_int("train.scan_chunk", 100)
+        freqs = [self.report_freq, self.val_freq, self.val_mesh_freq,
+                 self.save_freq, self.pose_freq]
+        if self.occupancy_sampling:
+            freqs.append(self.occ_update_freq)
+        if any(f % k for f in freqs) or self.iter_step % k:
+            return 0
+        return k
+
     def train(self):
         """Train to ``end_iter``, or until phase 1 has admitted every frame
-        (with a global conf: then its mesh and checkpoint).  Fills
-        ``self.history`` (every metric of every step, read back once at the
-        end) and, on CUDA, ``self.step_ms`` (per-step times from events
-        between steps)."""
+        (with a global conf: then its mesh and checkpoint).  A phase that
+        ``_scan_eligible`` admits runs ``_train_scan`` (k steps a dispatch,
+        as the JAX Runner does by default); ``self.dispatch`` says which
+        loop ran ("scan x{k}" or "per-step").  Fills ``self.history``
+        (every metric of every step, or of every chunk on the scan path,
+        read back once at the end) and, on CUDA, ``self.step_ms`` (times
+        from events between steps, or between chunks)."""
+        k = self._scan_eligible()
+        if k:
+            LOG.info("scan training: %d steps per dispatch", k)
+            return self._train_scan(k)
+        self.dispatch = "per-step"
         res_step = max(self.end_iter - self.iter_step, 0)
         self._init_perms()
         names = step_mod.METRIC_NAMES
@@ -794,6 +829,86 @@ class Runner:
         if phase1_done:
             LOG.info("all %d frames admitted: phase 1 ends", self.current_image)
             self.validate_mesh()
+        self.save_checkpoint()
+
+    def scan_steps(self, k, capture=None):
+        """The scanned steps of this Runner's step config and schedule
+        (``step.ScanPhotoSteps``, k steps a call)."""
+        schedule = {
+            "learning_rate": self.learning_rate,
+            "learning_rate_alpha": self.learning_rate_alpha,
+            "warm_up_end": self.warm_up_end, "end_iter": self.end_iter,
+            "anneal_end": self.anneal_end,
+            "mask_guided": 1.0 if self.mask_guided_sampling else 0.0,
+        }
+        return step_mod.ScanPhotoSteps(
+            self.step_cfg, self.images_dev, self.masks_dev, self.intr_inv_dev,
+            self.bbox_dev, schedule, k, capture)
+
+    def _train_scan(self, k):
+        """The JAX Runner's scan path: chunks of k steps, each one dispatch
+        (``step.ScanPhotoSteps``: on CUDA a captured step replayed k times,
+        whose capture or replay raises if it fails), while a whole chunk
+        fits before ``end_iter``: the steps past the last whole chunk are
+        not run, as in JAX.  At a chunk's end, as there: the report line
+        with the chunk's mean metrics, validate_image, validate_poses,
+        validate_mesh (each caught), the grid refresh, the checkpoint; a
+        checkpoint at the end.  ``history`` gets one row a chunk, its mean;
+        ``step_ms`` the chunks' times."""
+        self.dispatch = f"scan x{k}"
+        scan = self.scan = self.scan_steps(k)
+        n_chunks = max(self.end_iter - self.iter_step, 0) // k
+        names = step_mod.METRIC_NAMES
+        rows = torch.empty((n_chunks, len(names)), dtype=torch.float32,
+                           device=self.device)
+        timer = None
+        t_start = time.perf_counter()
+        done = 0
+        while self.iter_step + k <= self.end_iter:
+            rows[done] = scan(self.state, self.current_image)
+            if timer is None and self.device.type == "cuda":
+                # from the end of the first chunk: the capture is not a step
+                timer = StepTimer(n_chunks - 1)
+            elif timer is not None:
+                timer.tick()
+            done += 1
+            self.iter_step += k
+            if self.iter_step % self.report_freq == 0:
+                m = dict(zip(names, rows[done - 1].tolist()))  # the one sync
+                dt = time.perf_counter() - t_start
+                LOG.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f "
+                         "rays/s=%.0f (scan x%d)",
+                         self.iter_step, m["loss"], m["color_loss"],
+                         m["eikonal_loss"], m["psnr"],
+                         done * k * self.batch_size / max(dt, 1e-9), k)
+            if self.iter_step % self.val_freq == 0:
+                try:
+                    self.validate_image()
+                except Exception as e:
+                    LOG.warning("validate_image failed: %s", e, exc_info=True)
+            if self.iter_step % self.pose_freq == 0:
+                try:
+                    self.validate_poses()
+                except Exception as e:
+                    LOG.warning("validate_poses failed: %s", e, exc_info=True)
+            if self.iter_step % self.val_mesh_freq == 0:
+                try:
+                    self.validate_mesh()
+                except Exception as e:
+                    LOG.warning("validate_mesh failed: %s", e, exc_info=True)
+            if (self.occupancy_sampling
+                    and self.iter_step % self.occ_update_freq == 0):
+                self.update_occ_grid()
+            if self.iter_step % self.save_freq == 0 and self.iter_step > 0:
+                self.save_checkpoint()
+        self.step_ms = timer.finish() if timer is not None else []
+        self.train_seconds = time.perf_counter() - t_start
+        if done:
+            cols = rows[:done].cpu().numpy()
+            for j, name in enumerate(names):
+                self.history.setdefault(name, []).extend(cols[:, j].tolist())
+        LOG.info("trained %d steps in %d chunks of %d in %.1f s", done * k, done, k,
+                 self.train_seconds)
         self.save_checkpoint()
 
     # ------------------------------------------------------------------

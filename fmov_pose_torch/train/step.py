@@ -19,12 +19,19 @@ Pose modes: ``seg`` (the segment bank of phase 1), ``gf`` (one global
 Gaussian-Fourier pose net), ``se3`` (BARF refinement) and ``fixed`` (GT
 poses); the SDF-guided up-sampler or the occupancy grid (``occ_grid`` in
 ``pose_static``).  ``maintain_shape`` adds a second frame's ray batch to
-every step.  The scanned and planned multi-step forms and ``seg_pixel``
-are not ported (ROADMAP queue 1).
+every step.
+
+The scanned form (``ScanPhotoSteps``, the JAX ``make_scan_photo_steps``)
+plans nothing on the host: the schedule comes from a device iteration
+count (``make_device_scalars``), the frame from the state's generator,
+the Adam bias corrections from a device step count, and on CUDA one step
+is a captured graph replayed k times a chunk.  The planned multi-step
+form and ``seg_pixel`` are not ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -104,7 +111,8 @@ def make_step_config(model_cfg, **kw) -> StepConfig:
 
 
 class StepScalars(NamedTuple):
-    """Per-iteration inputs computed on the host."""
+    """Per-iteration inputs: host floats planned by the per-step loop, or
+    0-d device tensors on the scanned steps (``make_device_scalars``)."""
     lr: float                # main Adam LR this step
     cos_anneal: float
     main_update: float = 1.0     # 0/1: detach_mesh_at_warm_up gate
@@ -155,19 +163,22 @@ def to_device_async(arr, device) -> torch.Tensor:
     return pinned.to(device, non_blocking=True)
 
 
-def pose_of_frame(cfg: StepConfig, params, pose_bank, pose_static, cam_id: int):
-    """c2w [3, 4] of frame ``cam_id`` (a host int) under the pose model."""
+def pose_of_frame(cfg: StepConfig, params, pose_bank, pose_static, cam_id):
+    """c2w [3, 4] of frame ``cam_id`` under the pose model: a host int, or
+    (gf, se3, fixed; the scanned steps) a device id tensor of one element,
+    gathered with on the device."""
     if cfg.pose_mode == "seg":
         return pp.seg_apply(pose_bank, cfg.pose_cfg, cfg.segment_img_num, cam_id)
     if cfg.pose_mode == "gf":
         return pp.gf_apply({"train": params["pose"], "static": pose_static},
                            cfg.pose_cfg, cam_id)
     if cfg.pose_mode == "se3":
-        refine = lie.se3_exp(params["se3_refine"][cam_id],
+        refine = lie.se3_exp(raygen.frame_row(params["se3_refine"], cam_id),
                              only_rot=cfg.only_rotation)
-        return posealg.compose_pair(refine, pose_static["noise_poses"][cam_id, :3])
+        return posealg.compose_pair(
+            refine, raygen.frame_row(pose_static["noise_poses"], cam_id)[:3])
     if cfg.pose_mode == "fixed":
-        return pose_static["pose_all"][cam_id, :3]
+        return raygen.frame_row(pose_static["pose_all"], cam_id)[:3]
     raise NotImplementedError(
         f"pose_mode {cfg.pose_mode!r}: seg_pixel is ROADMAP queue 1, item 8")
 
@@ -304,17 +315,22 @@ def _flat_bank_masks(layout: convert.ParamLayout, device):
 
 
 def _apply_updates(cfg: StepConfig, state: TrainState, flat_g, scalars: StepScalars,
-                   masks, bank_g=None, bank_masks=None, seg_row=None):
+                   masks, bank_g=None, bank_masks=None, seg_row=None, adam_step=None):
     """Gate the flat gradient and take one Adam step; in seg mode also the
     segment Adams.  The gates are exact 0/1 values: main_update zeroes the
     gradient but still steps (moment drift); pose leaves use the pose
     gate, which is also 0 whenever main_update is; with emphasize_rot the
     lin3_trans head never moves and lin3_scale follows trans_head_on.
     Bank positions take their segment's freeze gate times pose_update;
-    ``seg_row`` [3, S] on the device is (touch, freeze, lr)."""
+    ``seg_row`` [3, S] on the device is (touch, freeze, lr).  The scalars
+    are host floats, or 0-d device tensors with ``adam_step`` the device
+    step count of ``optim.adam_update_flat_dev_`` (the scanned steps)."""
     if cfg.pose_mode in ("gf", "se3"):
         m_pose, m_trans, m_scale = masks
-        pose_gate = scalars.pose_update if scalars.main_update > 0 else 0.0
+        if isinstance(scalars.main_update, torch.Tensor):
+            pose_gate = torch.where(scalars.main_update > 0, scalars.pose_update, 0.0)
+        else:
+            pose_gate = scalars.pose_update if scalars.main_update > 0 else 0.0
         gate = scalars.main_update * (1.0 - m_pose) + pose_gate * m_pose
         if cfg.pose_mode == "gf" and cfg.pose_cfg.emphasize_rot:
             gate = (gate * (1.0 - m_trans - m_scale)
@@ -322,7 +338,10 @@ def _apply_updates(cfg: StepConfig, state: TrainState, flat_g, scalars: StepScal
         flat_g = flat_g * gate
     else:
         flat_g = flat_g * scalars.main_update
-    optim.adam_update_flat_(flat_g, state.opt, state.flat, scalars.lr)
+    if adam_step is None:
+        optim.adam_update_flat_(flat_g, state.opt, state.flat, scalars.lr)
+    else:
+        optim.adam_update_flat_dev_(flat_g, state.opt, state.flat, scalars.lr, adam_step)
 
     if cfg.pose_mode == "seg":
         m_trans, m_scale, idx = bank_masks
@@ -341,16 +360,22 @@ def _seg_row(cfg: StepConfig, scalars: StepScalars, device):
                                      scalars.seg_lr]), device)
 
 
-def _step_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
-                     loss_of, cache: dict):
-    """Gradients of ``loss_of(params, pose_bank)`` in the flat buffers and
-    the gated updates; returns the detached metrics."""
-    dev = state.flat.device
-    seg_row = _seg_row(cfg, scalars, dev)  # its copy overlaps the forward
+def _gate_masks(cfg: StepConfig, state: TrainState, cache: dict) -> dict:
+    """The flat (and seg mode's bank) gate masks, built at the first call
+    and kept in ``cache``."""
     if "m" not in cache:
+        dev = state.flat.device
         cache["m"] = _flat_gate_masks(state.layout, dev)
         if cfg.pose_mode == "seg":
             cache["b"] = _flat_bank_masks(state.bank_layout, dev)
+    return cache
+
+
+def _grads_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
+                      loss_of, cache: dict, seg_row=None, adam_step=None):
+    """Gradients of ``loss_of(params, pose_bank)`` in the flat buffers and
+    the gated updates; returns the detached metrics."""
+    _gate_masks(cfg, state, cache)
     with torch.enable_grad():
         loss, metrics = loss_of(state.params, state.pose_bank)
         if cfg.pose_mode == "seg":
@@ -358,9 +383,18 @@ def _step_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
         else:
             (flat_g,), bank_g = torch.autograd.grad(loss, state.flat), None
     _apply_updates(cfg, state, flat_g, scalars, cache["m"], bank_g, cache.get("b"),
-                   seg_row)
-    state.iter_step += 1
+                   seg_row, adam_step)
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def _step_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
+                     loss_of, cache: dict):
+    """One planned step: ``_grads_and_update`` with the host's scalars,
+    then the host step count."""
+    seg_row = _seg_row(cfg, scalars, state.flat.device)  # its copy overlaps the forward
+    metrics = _grads_and_update(cfg, state, scalars, loss_of, cache, seg_row)
+    state.iter_step += 1
+    return metrics
 
 
 def _maintain_rays(cfg, state, images, masks, intr_inv_all, bbox_table, params,
@@ -464,3 +498,148 @@ def make_flow_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
         return state, metrics
 
     return run_one
+
+
+def make_device_scalars(schedule: Dict[str, float], device):
+    """``it_f`` (a 0-d f32 device tensor) -> StepScalars of 0-d f32 device
+    tensors, the scanned steps' schedule (the JAX function's, in f32): the
+    cosine learning rate after a linear warm-up, the cos-anneal ratio, and
+    constant gates (main and pose update, the scale head on) and
+    mask-guided flag.  The divisors are device tensors made here, once: a
+    division by a host float runs as a multiply by its reciprocal on CUDA."""
+    lr0 = schedule["learning_rate"]
+    alpha = schedule["learning_rate_alpha"]
+    warm_up = schedule["warm_up_end"]
+    end_iter = schedule["end_iter"]
+    anneal_end = schedule.get("anneal_end", 0.0)
+
+    def const(v):
+        return torch.tensor(float(v), dtype=torch.float32, device=device)
+
+    warm_den = const(max(warm_up, 1.0))
+    cos_den = const(max(end_iter - warm_up, 1.0))
+    anneal_den = const(anneal_end) if anneal_end != 0.0 else None
+    one = const(1.0)
+    mask_guided = const(schedule.get("mask_guided", 1.0))
+
+    def device_scalars(it_f):
+        warm = it_f / warm_den
+        progress = (it_f - warm_up) / cos_den
+        cosf = (torch.cos(math.pi * progress) + 1.0) * 0.5 * (1 - alpha) + alpha
+        lr = lr0 * torch.where(it_f < warm_up, warm, cosf)
+        cos_anneal = (one if anneal_den is None
+                      else torch.clamp(it_f / anneal_den, max=1.0))
+        return StepScalars(lr=lr, cos_anneal=cos_anneal, main_update=one,
+                           pose_update=one, mask_guided=mask_guided,
+                           trans_head_on=one)
+
+    return device_scalars
+
+
+class ScanCarry(NamedTuple):
+    """The scanned steps' device buffers: the state's iteration count and
+    the flat Adam's step count (0-d int32), the chunk's metric sums
+    [len(METRIC_NAMES)] f32, and the frame each step of the chunk drew
+    [k] int64 (step i of the chunk at i = iter_step mod k)."""
+    iter_step: torch.Tensor
+    adam_step: torch.Tensor
+    metric_sum: torch.Tensor
+    frames: torch.Tensor
+
+
+class ScanPhotoSteps:
+    """``k_steps`` photometric steps a call, every per-step quantity a
+    function of the device's own iteration count (the counterpart of the
+    JAX ``make_scan_photo_steps``; the phases whose host decisions are pure
+    functions of ``iter_step``: no flow, no curriculum, no segment bank).
+
+    ``scan(state, n_images_cur)`` runs ``k_steps`` steps on ``state`` in
+    place and returns the chunk's mean metrics, a [len(METRIC_NAMES)]
+    device tensor.  Each step: the schedule from the device count
+    (``make_device_scalars``), a frame drawn uniform in
+    ``[0, n_images_cur)`` from the state's generator (the JAX module draws
+    iid too, not the per-step loop's epoch permutation), then the photo
+    step with the device Adam count (``optim.adam_update_flat_dev_``), its
+    metrics summed on the device.  On CUDA one step is captured into a CUDA
+    graph at the first call (``train/graph.py``) and replayed ``k_steps``
+    times a call; ``capture=False`` runs the same step eagerly, as the CPU
+    does.  The host counts (``state.iter_step``, ``state.opt.step``)
+    advance by ``k_steps`` after the steps; the device counts are set from
+    them before.  ``step`` is one step alone: the tests give it the
+    frame and the pixels (``img_id``, ``pixels``) instead of the draws."""
+
+    def __init__(self, cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
+                 schedule: Dict[str, float], k_steps: int, capture=None):
+        if cfg.pose_mode not in ("fixed", "gf", "se3") or cfg.flow_weight > 0 \
+                or cfg.maintain_shape:
+            raise ValueError(f"scanned steps take a fixed, gf or se3 pose without "
+                             f"flow or maintain_shape, not {cfg.pose_mode!r}")
+        self.cfg, self.k = cfg, int(k_steps)
+        self.device = images.device
+        self.loss_fn = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table)
+        self.device_scalars = make_device_scalars(schedule, self.device)
+        self.capture = self.device.type == "cuda" if capture is None else capture
+        self.cache = {}
+        self.carry = None
+        self.graph = None
+        self._graph_key = None
+
+    def step(self, state: TrainState, carry: ScanCarry, n_images_cur: int,
+             img_id=None, pixels=None):
+        """One scanned step on ``state`` and ``carry``, in place."""
+        scalars = self.device_scalars(carry.iter_step.to(torch.float32))
+        if img_id is None:
+            img_id = torch.randint(n_images_cur, (1,), generator=state.generator,
+                                   device=self.device)
+            slot = torch.remainder(carry.iter_step, self.k).reshape(1).to(torch.int64)
+            carry.frames.index_copy_(0, slot, img_id)
+        metrics = _grads_and_update(
+            self.cfg, state, scalars,
+            lambda params, bank: self.loss_fn(params, state, img_id, scalars, pixels),
+            self.cache, adam_step=carry.adam_step)
+        carry.metric_sum.add_(torch.stack([metrics[k] for k in METRIC_NAMES]))
+        carry.iter_step.add_(1)
+
+    def _step_graph(self, state: TrainState, n_images_cur: int):
+        """The captured step of (state, n_images_cur), built at its first use."""
+        from fmov_pose_torch.train import graph
+        # the graph reads and writes these addresses: a state whose buffers
+        # moved (a checkpoint loaded into new tensors) needs a new capture
+        key = (n_images_cur, id(state.generator), *(t.data_ptr() for t in (
+            state.flat, state.opt.mu, state.opt.nu, *state.pose_static.values())))
+        if self.graph is None or self._graph_key != key:
+            _gate_masks(self.cfg, state, self.cache)
+            self.graph = graph.StepGraph(
+                lambda: self.step(state, self.carry, n_images_cur), state.generator,
+                [state.flat, state.opt.mu, state.opt.nu, *self.carry])
+            self._graph_key = key
+        return self.graph
+
+    def __call__(self, state: TrainState, n_images_cur: int, frames=None, pixels=None):
+        """``k_steps`` steps; ``frames`` / ``pixels``: per-step frame ids
+        and (px, py) pixel ids given instead of the draws (eager only)."""
+        if self.carry is None:
+            dev = self.device
+            self.carry = ScanCarry(
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros(len(METRIC_NAMES), dtype=torch.float32, device=dev),
+                torch.full((self.k,), -1, dtype=torch.int64, device=dev))
+        carry = self.carry
+        carry.iter_step.fill_(state.iter_step)
+        carry.adam_step.fill_(state.opt.step)
+        carry.metric_sum.zero_()
+        if self.capture:
+            if frames is not None or pixels is not None:
+                raise ValueError("given frames and pixels run eagerly (capture=False)")
+            step_graph = self._step_graph(state, n_images_cur)
+            for _ in range(self.k):
+                step_graph.replay()
+        else:
+            for i in range(self.k):
+                self.step(state, carry, n_images_cur,
+                          None if frames is None else frames[i],
+                          None if pixels is None else pixels[i])
+        state.iter_step += self.k
+        state.opt.step += self.k
+        return carry.metric_sum / self.k
