@@ -134,10 +134,22 @@ Phases, each printing lines as it ends:
                  the third chunk, its launches (warm-up and replays); ms a
                  step graphed (chunk events / 100) against the per-step
                  loop (train.scan_steps = False, 200 steps)
- 16. quality  -- python -m fmov_pose_torch.quality at a short schedule
+ 16. bf16     -- confs/ho3d_global_womask.conf with train.compute_dtype =
+                 bfloat16 (a copy of the conf in a temporary directory):
+                 the bf16 fields at the conf's width on the card against
+                 the same functions on CPU copies; 50 per-step steps and
+                 a 300-step scanned run (3 chunks of 100) on the scene:
+                 finite losses, a falling color loss, K1 4 launches a
+                 step (1,208 in the scanned run), ms a step and peak
+                 memory beside the f32 runs of slice and scan in the same
+                 call
+ 17. quality  -- python -m fmov_pose_torch.quality at a short schedule
                  (6 frames, 128x128, phase 1 400 steps until all frames
                  are admitted, phase 2 200): finite ATE, RPE, PSNR and
-                 Chamfer distance, a mesh, phase 2 on "scan x100"
+                 Chamfer distance, a mesh, phase 2 on "scan x100"; phase
+                 1's orbit errors (``quality.orbit_errors``: each
+                 transition's relative rotation error, the degrees a frame
+                 learned and true, the radii)
 The phases before "scan" run the per-step loop (slice 1 sets
 train.scan_steps off; the other confs are not scan-eligible as cut).
 Then one JSON line of kernel results (each with its launches in its
@@ -2248,18 +2260,113 @@ def phase_quality(dev, smi, tmp):
     # the harness prints its JSON result: to stderr here, so that standard
     # output keeps one JSON object before the last line, the kernels'
     with contextlib.redirect_stdout(sys.stderr):
-        res = quality.main(QUALITY_ARGS + ["--work", os.path.join(tmp, "quality")],
-                           device=dev)
+        res, orbit = quality.main(QUALITY_ARGS + ["--work", os.path.join(tmp, "quality")],
+                                  device=dev)
     keys = ("p1_ate", "p2_psnr", "p2_ate", "p2_rpe_trans", "p2_rpe_rot_deg",
             "mesh_chamfer_aligned")
     _line("quality", args=json.dumps(QUALITY_ARGS).replace(" ", ""),
           seconds=f"{time.perf_counter() - t0:.1f}",
           **{k: res[k] for k in keys + ("mesh_verts", "p2_dispatch", "pipeline_time_s")})
+    _require(orbit is not None, "quality: phase 1 has no annotated poses to evaluate")
+    _line("quality", check="phase1_orbit",
+          **{k: json.dumps(v).replace(" ", "") for k, v in orbit.items()})
     _require(all(res[k] is not None and math.isfinite(res[k]) for k in keys)
              and res["mesh_verts"] > 100, f"quality: non-finite metrics {res}")
     _require(res["p2_dispatch"] == f"scan x{SCAN_K}",
              f"quality: phase 2 ran {res['p2_dispatch']}")
     return res
+
+
+def _bf16_fields_check(runner, dev):
+    """The bf16 SDF (value and input gradient) and color network at the
+    conf's width on the card against the same functions on CPU copies:
+    both round to bf16 between layers, so they differ where their f32
+    sums straddle a bf16 rounding boundary; max error at most 2e-2 of
+    max|ref|, the median at most 1e-3 of it."""
+    import torch
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.fields import nets
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    x = (torch.rand((8192, 3), generator=g) - 0.5) * 1.6
+    sdf_cfg, color_cfg = runner.model_cfg["sdf"], runner.model_cfg["color"]
+    out = {}
+    for where in ("cuda", "cpu"):
+        p = runner.state.params
+        if where == "cpu":
+            p = convert.unflatten((n, t.detach().cpu()) for n, t in convert.flatten(p))
+        xd = x.to(dev if where == "cuda" else "cpu")
+        with torch.no_grad():
+            sdf_out, grad = nets.sdf_apply_with_gradient(p["sdf"], sdf_cfg, xd)
+            color = nets.color_apply(p["color"], color_cfg, xd, grad, -xd,
+                                     sdf_out[:, 1:])
+        out[where] = [t.float().cpu() for t in (sdf_out, grad, color)]
+    errs = {}
+    for name, ref, got in zip(("sdf", "sdf_grad", "color"), out["cpu"], out["cuda"]):
+        d = (got - ref).abs() / ref.abs().max()
+        errs[name] = (float(d.max()), float(d.median()))
+    _line("bf16", check="fields_card_vs_cpu", points=len(x),
+          **{k: f"max={v[0]:.2e},median={v[1]:.2e}" for k, v in errs.items()},
+          tol="max<2e-2,median<1e-3")
+    _require(all(m < 2e-2 and med < 1e-3 for m, med in errs.values()),
+             f"bf16 fields on the card against the CPU: {errs}")
+
+
+def phase_bf16(dev, smi, scene, tmp, f32_step_ms, f32_graph_ms):
+    """Slice 1's conf with bf16 activations (``train.compute_dtype``): the
+    fields on the card against CPU copies, 50 per-step steps and one
+    300-step scanned run, against the f32 runs of this call (slice's
+    per-step median, scan's graphed reference conf)."""
+    import torch
+    from fmov_pose_torch import quality
+    from fmov_pose_torch.train.runner import Runner
+    conf = os.path.join(tmp, "ho3d_global_womask_bf16.conf")
+    quality.shrink_conf(CONF, conf, quality.train_setting("compute_dtype", "bfloat16"))
+    runner = Runner(conf, mode="train", case="orbit_smoke",
+                    exp_dir=os.path.join(tmp, "bf16_step"), seed=SEED, device=dev,
+                    scene=scene)
+    _require(all(runner.model_cfg[k]["compute_dtype"] == "bfloat16"
+                 for k in ("sdf", "color", "nerf")), "the conf copy sets bf16")
+    runner.end_iter, runner.warm_up_end = STEPS, 0.0
+    runner.conf.put("train.scan_steps", False)
+    _bf16_fields_check(runner, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    runner.train()
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = _history_lines("bf16", runner, smi,
+                             launches=json.dumps(counts).replace(" ", ""))
+    _perf_line("bf16", runner, step_ms, peak, smi)
+    _line("bf16", check="per_step_vs_f32", bf16_ms=f"{step_ms:.3f}",
+          f32_ms=f"{f32_step_ms:.3f}", ratio=f"{f32_step_ms / step_ms:.3f}")
+    _require(counts["K1"] == 4 * STEPS
+             and all(v == 0 for k, v in counts.items() if k != "K1"),
+             f"bf16 per-step launches: {counts}")
+    del runner
+    scan = _scan_runner(conf, os.path.join(tmp, "bf16_scan"), scene, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    scan.train()
+    scan_counts = _counters()
+    scan_peak = torch.cuda.max_memory_allocated(dev)
+    loss = [float(v) for v in scan.history["loss"]]
+    color = scan.history["color_loss"]
+    graph_ms = statistics.median(scan.step_ms) / SCAN_K
+    _line("bf16", check="scan", dispatch=scan.dispatch, chunks=len(loss),
+          loss=json.dumps([round(v, 5) for v in loss]).replace(" ", ""),
+          launches=json.dumps(scan_counts).replace(" ", ""),
+          graphed_ms=f"{graph_ms:.3f}", f32_graphed_ms=f"{f32_graph_ms:.3f}",
+          ratio=f"{f32_graph_ms / graph_ms:.3f}",
+          chunk_ms=json.dumps([round(v, 3) for v in scan.step_ms]).replace(" ", ""),
+          peak_mem_gib=f"{scan_peak / 2**30:.3f}", card=repr(smi))
+    _require(scan.dispatch == f"scan x{SCAN_K}" and len(loss) == SCAN_CHUNKS
+             and all(math.isfinite(v) for v in loss) and color[-1] < color[0],
+             f"bf16 scanned run: {scan.dispatch}, losses {loss}, color {color}")
+    n_k1 = 4 * (SCAN_K * SCAN_CHUNKS + 2)  # 2 warm-up steps, then the replays
+    _require(scan_counts["K1"] == n_k1
+             and all(v == 0 for k, v in scan_counts.items() if k != "K1"),
+             f"bf16 scanned launches: {scan_counts}, K1 should be {n_k1}")
+    return {"per_step": counts["K1"], "scan": scan_counts["K1"]}
 
 
 KERNEL_PHASES = {"kernels": phase_kernels, "train-kernels": phase_train_kernels,
@@ -2275,7 +2382,7 @@ def _scene():
     return scene
 
 
-RUN_PHASES = ("scan", "quality")
+RUN_PHASES = ("scan", "bf16", "quality")
 
 
 def main(argv):
@@ -2297,8 +2404,15 @@ def main(argv):
             if name in KERNEL_PHASES:
                 KERNEL_PHASES[name](dev)
         with tempfile.TemporaryDirectory() as tmp:
+            if "scan" in argv or "bf16" in argv:
+                scene = _scene()
             if "scan" in argv:
-                phase_scan(dev, smi, _scene(), tmp)
+                phase_scan(dev, smi, scene, tmp)
+            if "bf16" in argv:  # against an f32 slice-1 run of its own
+                _, r1 = phase_slice(dev, smi, scene, tmp)
+                f32_ms = statistics.median(r1.step_ms)
+                del r1
+                phase_bf16(dev, smi, scene, tmp, f32_ms, float("nan"))
             if "quality" in argv:
                 phase_quality(dev, smi, tmp)
         return 0
@@ -2309,6 +2423,7 @@ def main(argv):
     scene = _scene()
     with tempfile.TemporaryDirectory() as tmp:
         k1_launches, runner1 = phase_slice(dev, smi, scene, tmp)
+        slice1_ms = statistics.median(runner1.step_ms)
         counts = phase_slice2(dev, smi, scene, tmp)
         counts3, runner3 = phase_slice3(dev, smi, scene, tmp)
         counts4 = phase_slice4(dev, smi, scene, tmp)
@@ -2319,6 +2434,8 @@ def main(argv):
         evals, bake_chunk = phase_eval(dev, smi, tmp, two_state)
         del two_state
         scans = phase_scan(dev, smi, scene, tmp)
+        bf16 = phase_bf16(dev, smi, scene, tmp, slice1_ms,
+                          scans["reference"]["graph_ms"])
         phase_quality(dev, smi, tmp)
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
@@ -2331,7 +2448,10 @@ def main(argv):
                              f"mesh_{MESH_RES}": mesh_launches,
                              "two_phase": two["K1"], "eval": evals["K1"],
                              scan_ref: scans["reference"]["launches"]["K1"],
-                             scan_fused: scans["fused"]["launches"]["K1"]}, **k1,
+                             scan_fused: scans["fused"]["launches"]["K1"],
+                             f"bf16_slice1_{STEPS}_steps": bf16["per_step"],
+                             f"bf16_scan_{SCAN_K * SCAN_CHUNKS}_steps": bf16["scan"]},
+                **k1,
                 "bake_chunk": bake_chunk["K1"]}]
     slice3, slice2 = f"slice3_{STEPS}_steps", f"slice2_{STEPS}_steps"
     for key, name, src, replaces, launches, res in (

@@ -14,8 +14,10 @@ OpenCV is imported only where PNGs are read, so that importing the port
 does not load it (``data/scene.py`` uses this module's functions).  The
 decomposition is ``scipy.linalg.rq`` with the signs fixed
 so that K has a positive diagonal, the convention of
-``cv2.decomposeProjectionMatrix``.  Optional depth maps (``depth_weight``)
-are not ported: the Runner raises for them.
+``cv2.decomposeProjectionMatrix``.  Optional per-frame z-depth maps
+(``depth/``, npy or png) are read when the conf asks for them
+(``load_depth`` or ``use_mono_depth``; the Runner sets ``load_depth``
+when ``train.depth_weight > 0``) into ``depths_np`` [N, H, W], else None.
 """
 
 from __future__ import annotations
@@ -205,8 +207,31 @@ class Dataset:
             self.pose_all = self.pose_all[sl]
             self.gt_poses = self.gt_poses[sl]
         self.n_images = self.images_np.shape[0]
+        self._load_depths(conf, sl)
         self.mask_bboxes = mask_bboxes(self.masks_np)
         self.object_bbox_min, self.object_bbox_max = object_bbox(self.scale_mats_np[0])
+
+    def _load_depths(self, conf, sl):
+        """The optional per-frame z-depth maps of ``depth/`` (npy or png,
+        in file order), sliced as the frames are; None unless the conf asks
+        for them and the directory holds some."""
+        self.depths_np = None
+        if not (conf.get_bool("use_mono_depth", False)
+                or conf.get_bool("load_depth", False)):
+            return
+        depth_dir = os.path.join(self.data_dir, "depth")
+        if not os.path.isdir(depth_dir):
+            return
+        depths = []
+        for f in sorted(os.listdir(depth_dir)):
+            path = os.path.join(depth_dir, f)
+            if f.endswith("png"):
+                import cv2 as cv
+                depths.append(cv.imread(path, cv.IMREAD_UNCHANGED).astype(np.float32))
+            else:
+                depths.append(np.load(path).astype(np.float32))
+        if depths:
+            self.depths_np = np.stack(depths)[sl]
 
     # ------------------------------------------------------------------
     def image_at(self, idx, resolution_level=1):

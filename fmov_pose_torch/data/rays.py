@@ -93,14 +93,16 @@ def sample_pixels(generator, bbox_table, img_idx, batch_size: int,
 def gen_random_rays(generator, images, masks, intr_inv_all, pose, img_idx,
                     batch_size: int, bbox_table, patch_size: int,
                     mask_guided: bool, H: int, W: int,
-                    mask_guided_active: float = 1.0, pixels=None):
+                    mask_guided_active: float = 1.0, pixels=None, depths=None):
     """Random ray batch from one frame.
 
     images: [N, H, W, 3], masks: [N, H, W], intr_inv_all: [N, 4, 4],
     pose: [3, 4] c2w, img_idx: a host int or a device id, bbox_table:
     [N, 4].  ``pixels``: an optional given (px, py) pair of int tensors
-    [B], in place of the draw.
-    Returns data [batch, 10] = (rays_o, rays_d, color, mask).
+    [B], in place of the draw.  ``depths``: optional z-depth maps
+    [N, H, W].
+    Returns data [batch, 10] = (rays_o, rays_d, color, mask), with depths
+    [batch, 11]: the pixel's depth along its ray (z-depth x |K^-1 p|) last.
     """
     if pixels is None:
         px, py = sample_pixels(generator, bbox_table, img_idx, batch_size,
@@ -110,8 +112,11 @@ def gen_random_rays(generator, images, masks, intr_inv_all, pose, img_idx,
         px, py = pixels
     color = gather_rgb(images, img_idx, py, px)  # [B, 3]
     mask = masks[_frame_index(img_idx), py, px][:, None]     # [B, 1]
-    rays_o, rays_v, _ = pixels_to_rays(px.to(pose.dtype), py.to(pose.dtype),
-                                       frame_row(intr_inv_all, img_idx), pose)
+    rays_o, rays_v, p_norm = pixels_to_rays(px.to(pose.dtype), py.to(pose.dtype),
+                                            frame_row(intr_inv_all, img_idx), pose)
+    if depths is not None:
+        depth = depths[_frame_index(img_idx), py, px][:, None] * p_norm
+        return torch.cat([rays_o, rays_v, color, mask, depth], dim=-1)
     return torch.cat([rays_o, rays_v, color, mask], dim=-1)
 
 

@@ -11,6 +11,18 @@ differentiates through it to second order.
 
 Initializers draw from a numpy ``Generator`` the caller passes: IDR
 geometric init for the SDF, ``nn.Linear``'s default init for the others.
+
+``compute_dtype`` (a network's cfg key, set by the Runner from
+``train.compute_dtype``; float32 by default): with ``bfloat16`` every
+linear layer multiplies bf16 operands with f32 accumulation, adds its
+bias in f32 and stores its output in bf16 (``linear_apply``); softplus
+runs in f32 and is stored back in bf16; each network's outputs are f32.
+Parameters stay f32.  The product is an f32 GEMM of the operands' bf16
+values, on the card as on the CPU: a product of two bf16 values is exact
+in f32, so this is the bf16 x bf16 -> f32 sum, and autograd rounds the
+operands' gradients to bf16 where the casts stand, to any order.  (A
+bf16 GEMM with an f32 result, ``torch.mm(..., out_dtype=)``, has no
+derivative in torch 2.11.)
 """
 
 from __future__ import annotations
@@ -48,8 +60,30 @@ def materialize(p: Params) -> torch.Tensor:
     return p["w"]
 
 
-def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ materialize(p).T + p["b"]
+def compute_dtype(cfg):
+    """The activations' dtype of a network's cfg: None for float32 (the
+    default), torch.bfloat16 for ``bfloat16`` or ``bf16``."""
+    d = cfg.get("compute_dtype")
+    if d in (None, "float32", "f32"):
+        return None
+    if d in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype {d!r}: float32 or bfloat16")
+
+
+def _f32(h: torch.Tensor, dtype) -> torch.Tensor:
+    """Activations ``h`` of the compute dtype ``dtype`` back in f32; without
+    one, ``h`` as it is (f32, or f64 where a check evaluates in f64)."""
+    return h if dtype is None else h.float()
+
+
+def linear_apply(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """A (weight-normed) linear layer; with ``dtype`` (the compute dtype)
+    bf16 x bf16 -> f32 products, the f32 bias, the result in ``dtype``."""
+    w = materialize(p)
+    if dtype is None:
+        return x @ w.T + p["b"]
+    return (x.to(dtype).float() @ w.to(dtype).float().T + p["b"]).to(dtype)
 
 
 def _torch_default_linear(rng: np.random.Generator, d_in: int, d_out: int,
@@ -68,14 +102,6 @@ def softplus100(z: torch.Tensor) -> torch.Tensor:
     (autograd of relu(z) + log1p(exp(-100|z|)) / 100 gives 0 there), and
     its double backward stays finite."""
     return F.softplus(z, beta=100.0)
-
-
-def _check_f32(cfg):
-    d = cfg.get("compute_dtype")
-    if d not in (None, "float32", "f32"):
-        raise NotImplementedError(
-            f"compute_dtype={d!r}: the port runs its fields in float32 only "
-            "(bf16 activations are ROADMAP queue 1, item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -137,11 +163,11 @@ def sdf_apply(params: Params, cfg, x: torch.Tensor, progress=None) -> torch.Tens
     """[N, 3] -> [N, d_out] = [sdf, feature...]; ``progress`` is accepted
     for the BARF API and ignored, as in the reference."""
     del progress
-    _check_f32(cfg)
     scale = cfg.get("scale", 1.0)
     multires = cfg["multires"]
     skip_in = tuple(cfg.get("skip_in", (4,)))
     n_lin = len(sdf_dims(cfg)) - 1
+    cdt = compute_dtype(cfg)
 
     inputs = x * scale
     if multires > 0:
@@ -150,10 +176,14 @@ def sdf_apply(params: Params, cfg, x: torch.Tensor, progress=None) -> torch.Tens
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
     for l in range(n_lin):
         if l in skip_in:
-            h = torch.cat([h, inputs], dim=-1) * inv_sqrt2
-        h = linear_apply(params["layers"][f"lin{l}"], h)
+            # the skip's concat and scale in f32 (JAX promotes bf16 with f32)
+            h = torch.cat([_f32(h, cdt), inputs], dim=-1) * inv_sqrt2
+        h = linear_apply(params["layers"][f"lin{l}"], h, cdt)
         if l < n_lin - 1:
-            h = softplus100(h)
+            h = softplus100(_f32(h, cdt))
+            if cdt is not None:
+                h = h.to(cdt)
+    h = _f32(h, cdt)
     return torch.cat([h[..., :1] / scale, h[..., 1:]], dim=-1)
 
 
@@ -211,7 +241,6 @@ def init_color(rng: np.random.Generator, cfg) -> Params:
 
 def color_apply(params, cfg, points, normals, view_dirs, feature, progress=None):
     del progress
-    _check_f32(cfg)
     mode = cfg.get("mode", "idr")
     if cfg.get("multires_view", 0) > 0:
         view_dirs = positional_encode(view_dirs, cfg["multires_view"])
@@ -224,10 +253,12 @@ def color_apply(params, cfg, points, normals, view_dirs, feature, progress=None)
     else:
         raise ValueError(mode)
     n_lin = cfg["n_layers"] + 1
+    cdt = compute_dtype(cfg)
     for l in range(n_lin):
-        h = linear_apply(params["layers"][f"lin{l}"], h)
+        h = linear_apply(params["layers"][f"lin{l}"], h, cdt)
         if l < n_lin - 1:
             h = torch.relu(h)
+    h = _f32(h, cdt)
     if cfg.get("squeeze_out", True):
         h = torch.sigmoid(h)
     return h
@@ -260,24 +291,26 @@ def init_nerf(rng: np.random.Generator, cfg) -> Params:
 
 
 def nerf_apply(params, cfg, input_pts, input_views):
-    """Returns (alpha/density, rgb) of the NeRF++ background net."""
-    _check_f32(cfg)
+    """Returns (alpha/density, rgb) of the NeRF++ background net (f32 with
+    a compute dtype)."""
     D = cfg["D"]
     skips = tuple(cfg.get("skips", (4,)))
     if cfg.get("multires", 0) > 0:
         input_pts = positional_encode(input_pts, cfg["multires"])
     if cfg.get("multires_view", 0) > 0:
         input_views = positional_encode(input_views, cfg["multires_view"])
+    cdt = compute_dtype(cfg)
     h = input_pts
     for i in range(D):
-        h = torch.relu(linear_apply(params["pts"][f"lin{i}"], h))
+        h = torch.relu(linear_apply(params["pts"][f"lin{i}"], h, cdt))
         if i in skips:
-            h = torch.cat([input_pts, h], dim=-1)
-    alpha = linear_apply(params["alpha"], h)
-    feature = linear_apply(params["feature"], h)
-    h = torch.relu(linear_apply(params["views0"],
-                                torch.cat([feature, input_views], dim=-1)))
-    return alpha, linear_apply(params["rgb"], h)
+            # JAX promotes the bf16 activations with the f32 inputs
+            h = torch.cat([input_pts, _f32(h, cdt)], dim=-1)
+    alpha = linear_apply(params["alpha"], h, cdt)
+    feature = linear_apply(params["feature"], h, cdt)
+    h = torch.cat([feature, input_views.to(feature.dtype)], dim=-1)
+    h = torch.relu(linear_apply(params["views0"], h, cdt))
+    return _f32(alpha, cdt), _f32(linear_apply(params["rgb"], h, cdt), cdt)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,12 @@ the Runner trains on its scan path, 100 steps a dispatch), the final
 * phase-2 render PSNR (frame 0 at half resolution);
 * the final mesh's Chamfer distance to the analytic sphere, after
   aligning its centre and scale (the reconstruction's frame differs from
-  the world's by a Sim(3)).
+  the world's by a Sim(3));
+* phase 1's per-frame errors (``per_frame_errors``, the JAX package's
+  ``scripts/seed2_postmortem.py``) and the orbit they trace
+  (``orbit_errors``: the relative rotation error of each transition, the
+  degrees a frame the learned and the true orbits turn, their radii),
+  printed on a line of their own before the JSON result.
 
 The flags, their defaults, the confs' edits, the data and the JSON keys
 are the JAX script's; the port adds ``p2_dispatch`` (the phase-2 loop:
@@ -26,7 +31,9 @@ from nvidia-smi).  The steps are separate functions (``make_data``,
 ``write_confs``, ``run``, then ``evaluate``: ``read_run`` and
 ``metrics``; ``result``), so that a caller can edit the confs between
 them.  The work directory is a new temporary one unless ``--work`` names
-one.
+one.  The training seed is the CLI's ``--seed`` (2024, as in the JAX
+script); ``run`` and ``main`` take another as ``seed``
+(``python -m fmov_pose_torch.phase1_probe --harness`` runs several).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -141,18 +149,26 @@ def write_confs(work, args):
     return p1, p2
 
 
-def run(work, device, final_mesh_resolution=512):
-    """The two-phase CLI command in ``work`` (the confs' relative paths);
-    returns (phase-2 Runner, seconds)."""
+def run(work, device, final_mesh_resolution=512, seed=2024, init=None):
+    """The two-phase CLI command in ``work`` (the confs' relative paths),
+    trained from ``seed`` (the CLI's ``--seed``); returns (phase-2 Runner,
+    seconds).  ``init``: a checkpoint phase 1 starts from instead of its
+    own initial state (e.g. the JAX Runner's before its first step),
+    placed in phase 1's checkpoint directory for ``--is_continue``."""
     from fmov_pose_torch import exp_runner
+    argv = ["--mode", "train", "--conf", "./" + P1_CONF, "--case", "SYN_ori",
+            "--global_conf", "./" + P2_CONF,
+            "--final_mesh_resolution", str(final_mesh_resolution), "--seed", str(seed)]
+    if init is not None:
+        ckpt_dir = os.path.join(work, "exp/SYN_ori/ours/checkpoints")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        shutil.copy(init, os.path.join(ckpt_dir, "ckpt_000001_000000.ckpt"))
+        argv.append("--is_continue")
     cwd = os.getcwd()
     os.chdir(work)
     try:
         t0 = time.time()
-        runner = exp_runner.main(
-            ["--mode", "train", "--conf", "./" + P1_CONF, "--case", "SYN_ori",
-             "--global_conf", "./" + P2_CONF,
-             "--final_mesh_resolution", str(final_mesh_resolution)], device=device)
+        runner = exp_runner.main(argv, device=device)
         seconds = time.time() - t0
     finally:
         os.chdir(cwd)
@@ -162,6 +178,60 @@ def run(work, device, final_mesh_resolution=512):
         with open(err_file) as f:
             print("PHASE-1 ERROR FILE:\n" + f.read()[:2000])
     return runner, seconds
+
+
+def _angle_deg(R):
+    cos = np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    return float(np.rad2deg(np.arccos(cos)))
+
+
+def per_frame_errors(est, gt):
+    """Per-frame errors after ATE alignment (the JAX package's
+    ``scripts/seed2_postmortem.py``): rows (frame, absolute rotation error
+    in degrees after the best global rotation offset, translation error,
+    relative rotation error in degrees of the transition to the next frame,
+    0 for the last), and the aligned poses [N, 4, 4]."""
+    from fmov_pose_torch.pipeline import evalpose
+    est_aligned = evalpose.align_ate_c2b_use_a2b(est, gt)
+    # global rotation offset: R* = argmin_R sum ||R Rest_i - Rgt_i||_F
+    M = sum(gt[i, :3, :3] @ est_aligned[i, :3, :3].T for i in range(len(gt)))
+    U, _, Vt = np.linalg.svd(M)
+    S = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R_star = U @ S @ Vt
+    rows = []
+    for i in range(len(gt)):
+        dt = float(np.linalg.norm(est_aligned[i, :3, 3] - gt[i, :3, 3]))
+        rot_abs = _angle_deg(R_star @ est_aligned[i, :3, :3] @ gt[i, :3, :3].T)
+        if i + 1 < len(gt):
+            rel_est = est_aligned[i, :3, :3].T @ est_aligned[i + 1, :3, :3]
+            rel_gt = gt[i, :3, :3].T @ gt[i + 1, :3, :3]
+            rot_rel = _angle_deg(rel_est @ rel_gt.T)
+        else:
+            rot_rel = 0.0
+        rows.append((i, rot_abs, dt, rot_rel))
+    return rows, est_aligned
+
+
+def orbit_errors(est, gt):
+    """What ``per_frame_errors`` says of a trajectory, as the JAX package's
+    round-5 post-mortem read it: {"rel_rot_deg": each transition's relative
+    rotation error, "median_rel_rot_deg", "est_deg_per_frame" and
+    "gt_deg_per_frame" (the angle each transition turns, learned after the
+    alignment and true), "est_radius" and "gt_radius" (the mean distance of
+    the camera centres from the origin, where the object sits)}."""
+    rows, aligned = per_frame_errors(est, gt)
+    gt = np.asarray(gt, np.float64)
+
+    def turns(p):
+        return [_angle_deg(p[i, :3, :3].T @ p[i + 1, :3, :3]) for i in range(len(p) - 1)]
+
+    rel = [r for _, _, _, r in rows[:-1]]
+    return {"rel_rot_deg": [round(r, 3) for r in rel],
+            "median_rel_rot_deg": round(float(np.median(rel)), 3),
+            "est_deg_per_frame": round(float(np.mean(turns(aligned))), 3),
+            "gt_deg_per_frame": round(float(np.mean(turns(gt))), 3),
+            "est_radius": round(float(np.linalg.norm(aligned[:, :3, 3], axis=-1).mean()), 4),
+            "gt_radius": round(float(np.linalg.norm(gt[:, :3, 3], axis=-1).mean()), 4)}
 
 
 def sphere_chamfer(verts):
@@ -282,22 +352,38 @@ def result(args, m, seconds, dispatch, device, work):
     }
 
 
-def main(argv=None, device=None):
-    """Run the harness; prints and returns the JSON result.  ``device``
-    overrides ``--device``."""
+def train_setting(key, value):
+    """The ``shrink_conf`` substitution that sets ``train.<key>`` in a conf
+    (a line added at the top of its train block)."""
+    return {r"(?m)^train\s*\{": f"train {{\n    {key} = {value}"}
+
+
+def main(argv=None, device=None, seed=2024, conf_subs=None, init=None):
+    """Run the harness from ``seed``; prints phase 1's orbit errors
+    (``orbit_errors``, a line "phase1 {...}") and then the JSON result, and
+    returns (the result, the orbit errors).  ``device`` overrides
+    ``--device``; ``conf_subs`` (``shrink_conf``'s) edit both confs after
+    the harness's own edits, e.g. ``train_setting("compute_dtype",
+    "bfloat16")``; ``init`` as ``run``'s."""
     args = parse_args(argv)
     if device is None:
         from fmov_pose_torch.device import require_cuda
         device = args.device or require_cuda()
     work = args.work or tempfile.mkdtemp(prefix="fmov_pipeq_")
     gt = make_data(work, args)
-    write_confs(work, args)
-    runner, seconds = run(work, device)
+    for path in write_confs(work, args):
+        if conf_subs:
+            shrink_conf(path, path, conf_subs)
+    runner, seconds = run(work, device, seed=seed, init=init)
     dispatch = runner.dispatch
     del runner
-    out = result(args, evaluate(work, gt, device), seconds, dispatch, device, work)
+    ran = read_run(work, device)
+    _, _, _, p1_gt, p1_est = ran["p1"]
+    orbit = None if p1_gt is None else orbit_errors(p1_est[:len(p1_gt)], p1_gt)
+    print("phase1 " + json.dumps({"seed": seed, **(orbit or {})}))
+    out = result(args, metrics(ran, gt), seconds, dispatch, device, work)
     print(json.dumps(out))
-    return out
+    return out, orbit
 
 
 if __name__ == "__main__":

@@ -59,10 +59,13 @@ loop calls ``validate_image`` every ``val_freq`` steps, ``validate_poses``
 every ``pose_freq`` and the gradient report where the JAX loop does, each
 inside a ``try`` that logs a warning and trains on, as the JAX loop does.
 
-What the port leaves out raises ``NotImplementedError`` naming its ROADMAP
-item: the planned multi-step dispatch (``train.plan_chunk``), the
-pixel-level pose banks (``model.pixel_level``), depth supervision and data
-parallelism.
+Depth supervision (``train.depth_weight > 0``: the Dataset's optional
+``depth/`` maps, a masked L1 on the rendered depth) and bf16 activations
+(``train.compute_dtype``, per network; the fused kernels ignore it, as
+the JAX ones do) are the JAX Runner's.  What the port leaves out raises
+``NotImplementedError`` naming its ROADMAP item: the planned multi-step
+dispatch (``train.plan_chunk``) and the pixel-level pose banks
+(``model.pixel_level``); data parallelism is not ported either.
 """
 
 from __future__ import annotations
@@ -182,7 +185,7 @@ class Runner:
         conf.put("dataset.start_idx", start_img_idx)
 
         if conf.get_float("train.depth_weight", 0.0) > 0:
-            _unsupported("train.depth_weight", "item 6 (depth loss)")
+            conf.put("dataset.load_depth", True)
         if conf.get_bool("model.pixel_level", False):
             _unsupported("model.pixel_level (seg_pixel pose banks)", "item 8")
         if conf.get_int("train.plan_chunk", 1) > 1:
@@ -214,6 +217,7 @@ class Runner:
         self.mask_weight = t.get_float("mask_weight")
         self.flow_weight = conf.get_float("train.flow_weight", 0.0)
         self.unit_sphere_weight = conf.get_float("train.unit_sphere_weight", 0.0)
+        self.depth_weight = conf.get_float("train.depth_weight", 0.0)
 
         self.progressive = conf.get_bool("train.progressive", False)
         self.image_interval = conf.get_int("train.image_interval", 10)
@@ -341,6 +345,10 @@ class Runner:
             np.asarray(d.intrinsics_all_inv, np.float32), device=dev)
         self.bbox_dev = torch.as_tensor(
             np.asarray(d.mask_bboxes, np.int32), device=dev)
+        # depth maps only where the loss is on and the data has them
+        depths = getattr(d, "depths_np", None)
+        self.depths_dev = (torch.as_tensor(np.asarray(depths, np.float32), device=dev)
+                           if depths is not None and self.depth_weight > 0 else None)
 
     def _field_params(self, seed):
         rng = np.random.default_rng(seed)
@@ -412,6 +420,7 @@ class Runner:
             igr_weight=self.igr_weight,
             mask_weight=self.mask_weight,
             flow_weight=self.flow_weight,
+            depth_weight=self.depth_weight if self.depths_dev is not None else 0.0,
             unit_sphere_weight=self.unit_sphere_weight,
             use_white_bkgd=self.use_white_bkgd,
             mask_guided_sampling=self.mask_guided_sampling,
@@ -423,7 +432,8 @@ class Runner:
             occupancy_sampling=self.occupancy_sampling,
         )
         bufs = (self.images_dev, self.masks_dev, self.intr_inv_dev, self.bbox_dev)
-        self.photo_step = step_mod.make_photo_step(self.step_cfg, *bufs)
+        self.photo_step = step_mod.make_photo_step(self.step_cfg, *bufs,
+                                                   depths=self.depths_dev)
         self.flow_step = step_mod.make_flow_step(self.step_cfg, *bufs)
 
     # ------------------------------------------------------------------
@@ -843,7 +853,7 @@ class Runner:
         }
         return step_mod.ScanPhotoSteps(
             self.step_cfg, self.images_dev, self.masks_dev, self.intr_inv_dev,
-            self.bbox_dev, schedule, k, capture)
+            self.bbox_dev, schedule, k, capture, depths=self.depths_dev)
 
     def _train_scan(self, k):
         """The JAX Runner's scan path: chunks of k steps, each one dispatch

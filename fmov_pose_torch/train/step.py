@@ -94,6 +94,7 @@ class StepConfig:
     igr_weight: float = 0.1
     mask_weight: float = 0.0
     flow_weight: float = 0.0
+    depth_weight: float = 0.0           # > 0 only with depth maps (the Runner's rule)
     unit_sphere_weight: float = 0.0
     use_white_bkgd: bool = False
     mask_guided_sampling: bool = False
@@ -191,9 +192,11 @@ METRIC_NAMES = ("loss", "color_loss", "eikonal_loss", "mask_loss", "flow_loss",
 def _render_and_losses(cfg: StepConfig, generator, params, pose_static, data,
                        scalars: StepScalars, flow_ctx=None, pose_bank=None):
     """Render a ray batch and assemble the objective: color, eikonal,
-    mask, unit-sphere and, given ``flow_ctx``, the flow loss."""
+    mask, unit-sphere, given ``flow_ctx`` the flow loss, and given a depth
+    column in ``data`` (its 11th) and ``depth_weight`` the depth loss."""
     rays_o, rays_d = data[:, :3], data[:, 3:6]
     true_rgb, mask = data[:, 6:9], data[:, 9:10]
+    depth_gt = data[:, 10:11] if data.shape[1] > 10 else None
     near, far = raygen.near_far_from_sphere(rays_o, rays_d)
     background_rgb = (torch.ones((1, 3), device=data.device)
                       if cfg.use_white_bkgd else None)
@@ -239,13 +242,22 @@ def _render_and_losses(cfg: StepConfig, generator, params, pose_static, data,
     if flow_ctx is not None:
         flow_loss = _flow_loss(cfg, params, pose_bank, pose_static, out, flow_ctx)
 
+    depth_loss = zero
+    if cfg.depth_weight > 0.0 and depth_gt is not None:
+        # masked L1 over the in-mask rays with a depth, a validity weight
+        # keeping the batch's shape; numerator and denominator apart
+        valid = ((mask > 0.5) & (depth_gt > 0)).to(torch.float32)
+        num = (torch.abs(out["depth_fine"] - depth_gt) * valid).sum()
+        depth_loss = num / (valid.sum() + 1e-8) * cfg.depth_weight
+
     total = (color_loss + eikonal_loss * cfg.igr_weight
-             + mask_loss * cfg.mask_weight + unit_sphere_loss + flow_loss)
+             + mask_loss * cfg.mask_weight + unit_sphere_loss + flow_loss
+             + depth_loss)
 
     metrics = {
         "loss": total, "color_loss": color_loss, "eikonal_loss": eikonal_loss,
         "mask_loss": mask_loss, "flow_loss": flow_loss,
-        "unit_sphere_loss": unit_sphere_loss, "depth_loss": zero,
+        "unit_sphere_loss": unit_sphere_loss, "depth_loss": depth_loss,
         "psnr": psnr,
         "s_val": out["s_val"].mean(),
         "cdf": (out["cdf_fine"][:, :1] * mask).sum() / mask_sum,
@@ -398,18 +410,20 @@ def _step_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
 
 
 def _maintain_rays(cfg, state, images, masks, intr_inv_all, bbox_table, params,
-                   pose_bank, add_img_id, scalars, add_pixels):
+                   pose_bank, add_img_id, scalars, add_pixels, depths=None):
     """The maintain_shape batch: random rays of frame ``add_img_id``."""
     pose_a = pose_of_frame(cfg, params, pose_bank, state.pose_static, add_img_id)
     return raygen.gen_random_rays(
         state.generator, images, masks, intr_inv_all, pose_a, add_img_id,
         cfg.batch_size, bbox_table, cfg.mask_guided_patch_size,
         cfg.mask_guided_sampling, cfg.H, cfg.W,
-        mask_guided_active=scalars.mask_guided, pixels=add_pixels)
+        mask_guided_active=scalars.mask_guided, pixels=add_pixels, depths=depths)
 
 
-def make_photo_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
-    """The photometric loss closure used by make_photo_step."""
+def make_photo_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
+                    depths=None):
+    """The photometric loss closure used by make_photo_step; ``depths``
+    (z-depth maps [N, H, W]) adds each ray's depth to its batch."""
 
     def loss_fn(params, state: TrainState, img_id, scalars, pixels=None,
                 add_img_id=0, add_pixels=None, pose_bank=None):
@@ -418,11 +432,11 @@ def make_photo_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
             state.generator, images, masks, intr_inv_all, pose0, img_id,
             cfg.batch_size, bbox_table, cfg.mask_guided_patch_size,
             cfg.mask_guided_sampling, cfg.H, cfg.W,
-            mask_guided_active=scalars.mask_guided, pixels=pixels)
+            mask_guided_active=scalars.mask_guided, pixels=pixels, depths=depths)
         if cfg.maintain_shape:
             data = torch.cat([data, _maintain_rays(
                 cfg, state, images, masks, intr_inv_all, bbox_table, params,
-                pose_bank, add_img_id, scalars, add_pixels)], dim=0)
+                pose_bank, add_img_id, scalars, add_pixels, depths)], dim=0)
         return _render_and_losses(cfg, state.generator, params,
                                   state.pose_static, data, scalars,
                                   pose_bank=pose_bank)
@@ -430,12 +444,14 @@ def make_photo_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
     return loss_fn
 
 
-def make_photo_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
+def make_photo_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
+                    depths=None):
     """Photometric step ``step(state, scalars, img_id, add_img_id=0,
     pixels=None, add_pixels=None) -> (state, metrics)``; ``pixels`` /
     ``add_pixels`` replace the random pixel draws of the frame's and the
-    maintain_shape batch with given (px, py) ids.  Updates in place."""
-    loss_fn = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table)
+    maintain_shape batch with given (px, py) ids; ``depths`` as in
+    ``make_photo_loss``.  Updates in place."""
+    loss_fn = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table, depths)
     cache = {}
 
     def run_one(state: TrainState, scalars: StepScalars, img_id, add_img_id=0,
@@ -569,14 +585,15 @@ class ScanPhotoSteps:
     frame and the pixels (``img_id``, ``pixels``) instead of the draws."""
 
     def __init__(self, cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
-                 schedule: Dict[str, float], k_steps: int, capture=None):
+                 schedule: Dict[str, float], k_steps: int, capture=None, depths=None):
         if cfg.pose_mode not in ("fixed", "gf", "se3") or cfg.flow_weight > 0 \
                 or cfg.maintain_shape:
             raise ValueError(f"scanned steps take a fixed, gf or se3 pose without "
                              f"flow or maintain_shape, not {cfg.pose_mode!r}")
         self.cfg, self.k = cfg, int(k_steps)
         self.device = images.device
-        self.loss_fn = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table)
+        self.loss_fn = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table,
+                                       depths)
         self.device_scalars = make_device_scalars(schedule, self.device)
         self.capture = self.device.type == "cuda" if capture is None else capture
         self.cache = {}

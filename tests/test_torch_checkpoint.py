@@ -41,6 +41,7 @@ from fmov_pose_torch.train import checkpoint as tckpt
 from fmov_pose_torch.train import step as tstep
 from tests.test_torch_progressive import _plan, _virtual_conf, seq_root  # noqa: F401
 from tests.test_torch_step import _check_grads, _check_scalars
+from tests.test_torch_scan import one_torch_thread  # noqa: F401 (autouse)
 
 N_TRAIN = 30  # mesh warm-up 10, then an admission after 15 steps
 

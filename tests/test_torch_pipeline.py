@@ -59,6 +59,7 @@ from fmov_pose_torch.pipeline import norm as tnorm
 from tests.test_evalpose import make_traj
 from tests.test_torch_runner import CONF
 from tests.test_train_e2e import VIRTUAL_CONF
+from tests.test_torch_scan import one_torch_thread  # noqa: F401 (autouse)
 
 NORM_SEED = 11
 

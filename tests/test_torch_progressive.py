@@ -32,6 +32,7 @@ from fmov_pose_torch.data.dataset import load_K_Rt_from_P
 from tests.test_torch_runner import _write_noise_cams
 from tests.test_torch_step_fast import _count_calls
 from tests.test_train_e2e import VIRTUAL_CONF, _write_conf
+from tests.test_torch_scan import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, HW = 5, 48

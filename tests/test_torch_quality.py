@@ -6,6 +6,12 @@ port's Chamfer distance on the CPU, against the JAX package.
 * The harness's flags and defaults and its JSON keys are the JAX
   script's (``scripts/pipeline_quality.py``, read with ``ast``), plus
   ``p2_dispatch``, ``device`` and ``power_limit``.
+* ``quality.per_frame_errors`` is the JAX package's
+  ``scripts/seed2_postmortem.py`` function (bitwise, on the same arrays:
+  an orbit that collapsed and one that tracked), and ``orbit_errors``
+  reads it: the degrees a frame and radii of the orbits.
+* ``run(init=...)`` starts phase 1 from a given checkpoint: the CLI gets
+  ``--is_continue`` and finds the state as phase 1's step-0 checkpoint.
 * A tiny run on the CPU through the port's CLI (4 frames at 32x32, the
   confs' widths cut by the test between ``write_confs`` and ``run``,
   phase 2 one chunk of 100 steps at a tiny learning rate so that the
@@ -32,6 +38,7 @@ from fmov_pose_torch.pipeline import meshio as tmeshio
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_SCRIPT = os.path.join(REPO, "scripts", "pipeline_quality.py")
+POSTMORTEM = os.path.join(REPO, "scripts", "seed2_postmortem.py")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -83,6 +90,77 @@ def test_harness_flags_and_keys_are_the_jax_scripts():
     out = quality.result(quality.parse_args([]), m, 1.0, "scan x100", "cpu", "w")
     assert list(out) == jax_keys + ["p2_dispatch", "device", "power_limit"]
     assert (out["device"], out["power_limit"]) == ("cpu", None)
+
+
+def _orbit(n, deg_per_frame, radius, axis_tilt=0.0):
+    """c2w [n, 4, 4] of cameras on a circle about the origin, looking at it."""
+    out = np.tile(np.eye(4), (n, 1, 1))
+    for i in range(n):
+        a = np.deg2rad(deg_per_frame * i)
+        c = np.array([radius * np.sin(a), radius * np.sin(axis_tilt) * np.cos(a),
+                      -radius * np.cos(a)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        out[i, :3, :3] = np.stack([x, np.cross(z, x), z], 1)
+        out[i, :3, 3] = c
+    return out
+
+
+def test_per_frame_errors_are_the_postmortem_scripts():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("seed2_postmortem", POSTMORTEM)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    gt = _orbit(12, 13.6, 1.62)
+    rng = np.random.default_rng(2)
+    # a collapsed orbit (4 degrees a frame about a tilted axis, radius
+    # 0.61) and one that tracks, with noise
+    for est in (_orbit(12, 4.0, 0.61, axis_tilt=0.5), gt + rng.normal(0, 1e-2, gt.shape)):
+        est = est.astype(np.float32)
+        rows_t, al_t = quality.per_frame_errors(est, gt)
+        rows_j, al_j = script.per_frame_errors(est, gt)
+        assert rows_t == rows_j
+        np.testing.assert_array_equal(al_t, al_j)
+    o = quality.orbit_errors(_orbit(12, 4.0, 0.61).astype(np.float32), gt)
+    assert o["gt_deg_per_frame"] == pytest.approx(13.6, abs=1e-3)
+    assert o["gt_radius"] == pytest.approx(1.62, abs=1e-4)
+    assert o["est_deg_per_frame"] == pytest.approx(4.0, abs=1e-2)
+    assert o["median_rel_rot_deg"] == pytest.approx(9.6, abs=1e-2)
+    assert len(o["rel_rot_deg"]) == 11
+    tracked = quality.orbit_errors(gt.astype(np.float32), gt)
+    assert tracked["median_rel_rot_deg"] < 1e-2
+    assert tracked["est_radius"] == pytest.approx(1.62, abs=1e-4)
+
+
+def test_run_starts_phase1_from_a_given_state(tmp_path, monkeypatch):
+    """``run(init=...)``: the CLI gets ``--is_continue`` and the seed, and
+    phase 1's checkpoint directory holds the given state as its step-0
+    checkpoint, which the phase-1 Runner then loads (``--is_continue``
+    with a JAX checkpoint is ``tests/test_torch_checkpoint.py``'s)."""
+    from fmov_pose_torch import exp_runner
+    init = tmp_path / "start.ckpt"
+    init.write_bytes(b"state")
+    seen = {}
+
+    def fake_main(argv, device):
+        seen["argv"], seen["device"] = argv, device
+        d = "exp/SYN_ori/ours/checkpoints"
+        seen["files"] = {n: open(os.path.join(d, n), "rb").read()
+                         for n in (os.listdir(d) if os.path.isdir(d) else ())}
+
+        class R:
+            dispatch = "per-step"
+        return R()
+
+    monkeypatch.setattr(exp_runner, "main", fake_main)
+    quality.run(str(tmp_path), "cpu", seed=5, init=str(init))
+    assert seen["argv"][-3:] == ["--seed", "5", "--is_continue"]
+    assert seen["files"] == {"ckpt_000001_000000.ckpt": b"state"}
+    os.makedirs(tmp_path / "w2")
+    quality.run(str(tmp_path / "w2"), "cpu")
+    assert "--is_continue" not in seen["argv"] and seen["argv"][-2:] == ["--seed", "2024"]
+    assert seen["files"] == {}
 
 
 # the confs cut to a CPU test's size (the test's own edits)

@@ -22,6 +22,7 @@ from fmov_pose_tpu.train import optim as joptim
 from fmov_pose_torch import convert
 from fmov_pose_torch.data import hocon as thocon
 from fmov_pose_torch.data import scene as tscene
+from tests.test_torch_scan import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
