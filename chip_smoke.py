@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
     python3 chip_smoke.py train-kernels flat-kernels   # device, build and
                                  # the named kernel phases only, no result line
-    python3 chip_smoke.py scan quality   # those run phases only, no result line
+    python3 chip_smoke.py planned scan quality   # those run phases only, no
+                                 # result line
 
 Phases, each printing lines as it ends:
   1. device   -- require CUDA; the card, its power limit, CUDA and nvcc
@@ -64,27 +65,42 @@ Phases, each printing lines as it ends:
                  loss, K2 and K3 launched once per step and no other kernel,
                  flow steps taken, at least 4 frames admitted and their
                  segments initialised; the same batch check before and after
- 10. slice4   -- Runner trains the fast phase-2 conf with n_outside = 32
+ 10. planned  -- the planned phase-1 dispatch (train.plan_chunk = 20) on a
+                 copy of confs/ho3d_virtual_tpu_fast.conf cut in depth (mesh
+                 warm-up 40, a frame admitted every 40 steps, warm-up end
+                 20, every frequency a multiple of 20, 320 steps): the
+                 photo and the flow step captured into a CUDA graph each
+                 and replayed row by row; the per-step run from the same
+                 seed; both admit all 8 frames with the same curriculum,
+                 flow steps and host RNG, the states within the leaf rule,
+                 K2 and K3 once a replay and a step, finite losses, frame
+                 0's color loss falling; 40 graphed steps (photo and flow,
+                 from a run at step 120) bitwise the same 40 eager ones;
+                 ms a step planned against per-step, launches a replay,
+                 peak memory; then the same planned run with
+                 model.pixel_level = true (the deep pose bank), all its
+                 segments initialised, its checkpoint read back bitwise
+ 11. slice4   -- Runner trains the fast phase-2 conf with n_outside = 32
                  (the NeRF++ background; a copy of the conf written to a
                  temporary directory) for 50 steps on the same scene: finite
                  losses, a falling color loss, K4, K5, K6 and K7 launched
                  once per step and no other kernel, the background
                  network's parameters moved, a refreshed grid; the batch
                  check before and after, the nerf.* leaves included
- 11. mesh     -- the CLI's final mesh on slice 1's Runner after its 50
+ 12. mesh     -- the CLI's final mesh on slice 1's Runner after its 50
                  steps: validate_mesh(resolution=512, use_norml_color=True),
                  the 512^3 grid through K1 in chunks of 262,144 points on
                  one pack (K1 launched exactly 512 times, no other kernel),
                  a non-empty mesh inside the bounds that read_ply reads back
                  as written; the seconds of the grid, the copies back, the
                  marching cubes, the normals and the write
- 12. resume   -- a second Runner on the exp dir of slice 1 and of slice 3
+ 13. resume   -- a second Runner on the exp dir of slice 1 and of slice 3
                  with is_continue: every checkpoint leaf (parameters, Adam
                  moments, segment bank and its Adam, pose buffers), the
                  generator's state and the host counters bitwise the first
                  Runner's; one fixed batch's loss bitwise equal through both;
                  5 more steps with finite losses on the path's kernels
- 13. two_phase -- the CLI's two-phase command (exp_runner.main with
+ 14. two_phase -- the CLI's two-phase command (exp_runner.main with
                  --global_conf, in-process, the cwd a temporary work dir)
                  on an 8-frame 480x640 orbit written to disk in the HO3D
                  layout (SYN_ori with crop and matches, SYN, ann/SYN.npz),
@@ -100,7 +116,7 @@ Phases, each printing lines as it ends:
                  K4/K5/K8/K9 once a phase-2 step, K6/K7 never; the
                  alignment's ATE/RPE, phase 2's poses against the true
                  orbit, and each stage's seconds
- 14. eval     -- the eval and export methods on the two-phase command's
+ 15. eval     -- the eval and export methods on the two-phase command's
                  Runners in its work dir, each called directly (uncaught):
                  on phase 2 (K1 in the up-sampler, K4, K8: the eval render
                  under no_grad, 512-ray chunks) validate_image at levels 1
@@ -119,7 +135,7 @@ Phases, each printing lines as it ends:
                  render through the kernels against the plain versions
                  (CPU copies of the state), K4/K8's entries against the
                  kernels alone at M = 1,048,576, and a profile of 8 chunks
- 15. scan     -- the JAX Runner's default phase-2 dispatch (100 steps a
+ 16. scan     -- the JAX Runner's default phase-2 dispatch (100 steps a
                  dispatch, on the card one step captured into a CUDA graph
                  and replayed) on confs/ho3d_global_womask.conf (K1 4 a
                  step) and on the fast conf without the grid (the
@@ -134,7 +150,7 @@ Phases, each printing lines as it ends:
                  the third chunk, its launches (warm-up and replays); ms a
                  step graphed (chunk events / 100) against the per-step
                  loop (train.scan_steps = False, 200 steps)
- 16. bf16     -- confs/ho3d_global_womask.conf with train.compute_dtype =
+ 17. bf16     -- confs/ho3d_global_womask.conf with train.compute_dtype =
                  bfloat16 (a copy of the conf in a temporary directory):
                  the bf16 fields at the conf's width on the card against
                  the same functions on CPU copies; 50 per-step steps and
@@ -143,15 +159,15 @@ Phases, each printing lines as it ends:
                  step (1,208 in the scanned run), ms a step and peak
                  memory beside the f32 runs of slice and scan in the same
                  call
- 17. quality  -- python -m fmov_pose_torch.quality at a short schedule
+ 18. quality  -- python -m fmov_pose_torch.quality at a short schedule
                  (6 frames, 128x128, phase 1 400 steps until all frames
                  are admitted, phase 2 200): finite ATE, RPE, PSNR and
                  Chamfer distance, a mesh, phase 2 on "scan x100"; phase
                  1's orbit errors (``quality.orbit_errors``: each
                  transition's relative rotation error, the degrees a frame
                  learned and true, the radii)
-The phases before "scan" run the per-step loop (slice 1 sets
-train.scan_steps off; the other confs are not scan-eligible as cut).
+The phases before "scan" but "planned" run the per-step loop (slice 1
+sets train.scan_steps off; the other confs are not scan-eligible as cut).
 Then one JSON line of kernel results (each with its launches in its
 paths' runs, its time, its plain version's, and its bound on the card),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
@@ -1157,6 +1173,302 @@ def phase_slice3(dev, smi, scene, tmp):
              f"{runner.current_pose_mlp_index}")
     _check_batch(runner, scene, dev, "after_training", phase="slice3", n_rays=rays)
     return counts, runner
+
+
+# the planned dispatch (train.plan_chunk) on a copy of the fast virtual conf
+# cut in depth only: chunks of PLAN_K steps, the curriculum and every
+# frequency on a chunk edge, all 8 frames admitted at step PLANNED_STEPS
+PLAN_K = 20
+PLANNED_STEPS = 320
+PLANNED_EDITS = {"end_iter": PLANNED_STEPS, "warm_up_end": 0, "mesh_warmup_step": 40,
+                 "max_pro_iteration": 40, "pro_warm_up_end": 20, "report_freq": 100,
+                 "val_mesh_freq": 100, "save_freq": 100, "pose_freq": 1000,
+                 "val_freq": 1000}
+# a Runner trained PLANNED_START planned steps (3 frames admitted), then
+# PLANNED_BITWISE steps (two chunks) graphed and eagerly from one state
+PLANNED_START, PLANNED_BITWISE = 120, 40
+
+
+def _planned_conf(tmp, name, plan_chunk, pixel_level=False):
+    path = os.path.join(tmp, f"{name}.conf")
+    _conf_copy(VIRTUAL_CONF, path, PLANNED_EDITS)
+    with open(path) as f:
+        text = f.read()
+    add = [("maintain_shape = True", f"plan_chunk = {plan_chunk}")]
+    if pixel_level:
+        add.append(("pose_type = seg", "pixel_level = True"))
+    for after, line in add:
+        text, n = re.subn(rf"(?m)^(\s*){after}\s*$", rf"\g<0>\n\g<1>{line}", text)
+        _require(n == 1, f"{path}: {n} lines {after!r}")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _planned_run(conf, name, scene, dev, tmp):
+    """A Runner on ``conf`` trained to its end: (runner, launches, peak
+    memory, seconds, the (frame, flow) of every step in order)."""
+    import torch
+    from fmov_pose_torch.train.runner import Runner
+    runner = Runner(conf, mode="train", case="orbit_smoke", exp_dir=os.path.join(tmp, name),
+                    seed=SEED, device=dev, scene=scene)
+    plans, plan_step = [], runner._plan_step
+
+    def recorded():
+        out = plan_step()
+        plans.append((out[3], out[1]))
+        return out
+
+    runner._plan_step = recorded
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del runner._plan_step  # the class's again: no cycle keeps the Runner alive
+    return runner, _counters(), torch.cuda.max_memory_allocated(dev), seconds, plans
+
+
+def _planned_state(runner):
+    """Every tensor a planned step writes, cloned, the generator's state
+    and the host counts."""
+    from fmov_pose_torch.train import step as step_mod
+    st = runner.state
+    written, _ = step_mod.state_buffers(st)
+    return ([t.detach().clone() for t in written], st.generator.get_state(),
+            st.iter_step, st.opt.step)
+
+
+def _set_planned_state(runner, saved):
+    import torch
+    from fmov_pose_torch.train import step as step_mod
+    tensors, gen, it, adam_step = saved
+    st = runner.state
+    with torch.no_grad():
+        for t, v in zip(step_mod.state_buffers(st)[0], tensors):
+            t.copy_(v)
+    st.generator.set_state(gen)
+    st.iter_step, st.opt.step = it, adam_step
+
+
+def _planned_bitwise(conf, scene, dev, tmp):
+    """PLANNED_BITWISE planned steps (photo and flow) from one state and
+    generator state, through the captured steps and eagerly: bitwise the
+    same state, generator and metrics.  Returns the launches a replay."""
+    import numpy as np
+    import torch
+    from fmov_pose_torch.train import graph as graph_mod
+    from fmov_pose_torch.train import step as step_mod
+    from fmov_pose_torch.train.runner import Runner
+    runner = Runner(conf, mode="train", case="orbit_smoke",
+                    exp_dir=os.path.join(tmp, "planned_bitwise"), seed=SEED,
+                    device=dev, scene=scene)
+    runner.end_iter = PLANNED_START
+    runner.train()
+    runner.end_iter = PLANNED_STEPS
+    chunks = []  # the host side alone: the planned rows of two chunks
+    while sum(len(c) for c in chunks) < PLANNED_BITWISE:
+        plan, _ = runner._plan_chunk(PLAN_K)
+        if len(plan) == PLAN_K:
+            chunks.append(plan)
+    before = _planned_state(runner)
+    res = {}
+    for mode in ("eager", "graph"):
+        _set_planned_state(runner, before)
+        steps = runner.planned_steps(PLAN_K, capture=(mode == "graph"))
+        zero_pix = np.zeros(steps.rows.shape[1] - steps.n_packed, np.float32)
+        metrics = []
+        _zero_counters()
+        for plan in chunks:
+            rows = np.stack([np.concatenate([p, x.reshape(-1) if uf else zero_pix])
+                             for p, uf, x in plan])
+            metrics.append(steps(runner.state, rows, [uf for _, uf, _ in plan]).clone())
+        torch.cuda.synchronize()
+        res[mode] = (_planned_state(runner), torch.cat(metrics), _counters(), steps)
+    (s_e, m_e, c_e, _), (s_g, m_g, c_g, steps) = res["eager"], res["graph"]
+    differ = [i for i, (a, b) in enumerate(zip(s_e[0], s_g[0])) if not torch.equal(a, b)]
+    same_gen = bool(torch.equal(s_e[1], s_g[1]))
+    same_metrics = bool(torch.equal(m_e, m_g))
+    flows = sum(uf for plan in chunks for _, uf, _ in plan)
+    per_replay = {uf: graph_mod.launches_by_kernel(g.per_replay)
+                  for uf, g in steps.graphs.items()}
+    _line("planned", check="graph_vs_eager", start=PLANNED_START, steps=PLANNED_BITWISE,
+          flow_steps=flows, current_image=runner.current_image,
+          state_tensors_differ=json.dumps(differ).replace(" ", ""),
+          generator_equal=same_gen, metrics_bitwise=same_metrics,
+          loss_eager=f"{float(m_e[:, 0].mean()):.6f}",
+          loss_graph=f"{float(m_g[:, 0].mean()):.6f}",
+          eager_launches=json.dumps(c_e).replace(" ", ""),
+          graph_launches=json.dumps(c_g).replace(" ", ""),
+          per_replay_photo=json.dumps(per_replay[False]).replace(" ", ""),
+          per_replay_flow=json.dumps(per_replay[True]).replace(" ", ""))
+    _require(0 < flows < PLANNED_BITWISE, f"{flows} flow steps in the {PLANNED_BITWISE}")
+    _require(not differ and same_gen and same_metrics and s_e[2:] == s_g[2:],
+             f"the graphed planned steps differ from the eager ones: tensors {differ}, "
+             f"generator {same_gen}, metrics {same_metrics}")
+    for uf, launches in per_replay.items():
+        _require(launches.get("K2") == launches.get("K3") == 1
+                 and all(v == 0 for k, v in launches.items() if k not in ("K2", "K3")),
+                 f"the {'flow' if uf else 'photo'} graph launches {launches} a replay")
+    _require(c_e["K2"] == c_e["K3"] == PLANNED_BITWISE,
+             f"the eager steps launched {c_e}")
+    return per_replay
+
+
+def _planned_checks(name, runner, counts, plans):
+    """The run's checks: K2/K3 once a step (each capture's warm-up steps
+    too), finite losses, frame 0's color loss falling; returns the steps."""
+    import numpy as np
+    from fmov_pose_torch.train import graph as graph_mod
+    losses = np.asarray(runner.history["loss"])
+    steps = len(losses)
+    color = np.asarray(runner.history["color_loss"])
+    frame0 = np.asarray([c for c, (img, flow) in zip(color, plans) if img == 0 and not flow])
+    planned = getattr(runner, "planned", None)
+    warm = (graph_mod.WARMUP_STEPS * planned.captures * len(planned.graphs)
+            if planned is not None else 0)
+    _line("planned", run=name, dispatch=runner.dispatch, steps=steps,
+          iter_step=runner.iter_step, flow_steps=runner.flow_steps,
+          current_image=runner.current_image, segment=runner.current_pose_mlp_index,
+          resets=runner.reset_count, captures=getattr(planned, "captures", 0),
+          launches=json.dumps(counts).replace(" ", ""),
+          loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
+          frame0_photo_steps=len(frame0), frame0_color_first10=f"{frame0[:10].mean():.5f}",
+          frame0_color_last10=f"{frame0[-10:].mean():.5f}")
+    _require(steps == len(plans) and bool(np.isfinite(losses).all()),
+             f"{name}: {steps} losses for {len(plans)} steps, finite {np.isfinite(losses).all()}")
+    _require(counts["K2"] == counts["K3"] == steps + warm,
+             f"{name}: K2/K3 launched {counts['K2']}/{counts['K3']} times in {steps} "
+             f"steps and {warm} warm-up steps")
+    _require(all(v == 0 for k, v in counts.items() if k not in ("K1", "K2", "K3")),
+             f"{name}: other kernels launched {counts}")
+    _require(len(frame0) >= 20 and frame0[-10:].mean() < frame0[:10].mean(),
+             f"{name}: frame 0's color loss did not fall: {frame0[:10]} -> {frame0[-10:]}")
+    return steps
+
+
+def _state_close(a, b, start):
+    """The leaf rule on two runs' parameter moves from their common start
+    ``start`` (the flat fields and the flat bank), and the fields' largest
+    error relative to their largest value."""
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.ops import fused_sdf
+    moves = []
+    for r in (a, b):
+        st = r.state
+        moves.append({**{f"f.{n}": v for n, v in convert.flatten(
+            st.layout.views((st.flat.detach() - start.flat.detach()).cpu()))},
+                      **{f"b.{n}": v for n, v in convert.flatten(st.bank_layout.views(
+                          (st.bank_flat.detach() - start.bank_flat.detach()).cpu()))}})
+    fa, fb = a.state.flat.detach(), b.state.flat.detach()
+    rel = float((fa - fb).abs().max() / fb.abs().max())
+    return fused_sdf.leaf_rule(*moves), rel
+
+
+def phase_planned(dev, smi, scene, tmp):
+    """The planned phase-1 dispatch on the fast virtual conf cut in depth
+    (``PLANNED_EDITS``, chunks of PLAN_K): a graphed planned run and the
+    per-step run from the same seed (the same curriculum, the state
+    within the leaf rule, ms a step), PLANNED_BITWISE graphed steps
+    bitwise the eager ones, then the same planned run with the deep pose
+    bank (``model.pixel_level``) and its checkpoint read back bitwise."""
+    import gc
+    import numpy as np
+    import torch
+    from fmov_pose_torch.train import graph as graph_mod
+    from fmov_pose_torch.train.runner import Runner
+    allocated = torch.cuda.memory_allocated(dev)
+    conf_p = _planned_conf(tmp, "planned", PLAN_K)
+    conf_s = _planned_conf(tmp, "per_step", 1)
+    conf_x = _planned_conf(tmp, "planned_pixel", PLAN_K, pixel_level=True)
+    _line("planned", conf=os.path.relpath(VIRTUAL_CONF, ROOT),
+          overrides=",".join(f"{k}={v}" for k, v in PLANNED_EDITS.items()),
+          plan_chunk=PLAN_K)
+    out = {}
+    runs = {}
+    for name, conf in (("planned", conf_p), ("per_step", conf_s)):
+        r, counts, peak, seconds, plans = _planned_run(conf, name, scene, dev, tmp)
+        runs[name] = (r, counts, peak, seconds, plans)
+        _planned_checks(name, r, counts, plans)
+    (p, cp, peak_p, sec_p, plans_p), (s, cs, peak_s, sec_s, plans_s) = (
+        runs["planned"], runs["per_step"])
+    _require(p.dispatch == f"planned x{PLAN_K}" and s.dispatch == "per-step",
+             f"dispatch {p.dispatch} / {s.dispatch}")
+    same_host = [k for k in ("iter_step", "current_image", "pro_iteration",
+                             "current_pose_mlp_index", "flow_steps", "reset_count")
+                 if getattr(p, k) != getattr(s, k)]
+    same_host += [k for k in ("seg_progress", "seg_frozen")
+                  if not np.array_equal(getattr(p, k), getattr(s, k))]
+    same_rng = p.rng.integers(1 << 30) == s.rng.integers(1 << 30)
+    _require(plans_p == plans_s and not same_host and same_rng,
+             f"the planned run's curriculum differs from the per-step run's: {same_host}, "
+             f"the plans equal {plans_p == plans_s}, the host RNG {same_rng}")
+    _require(p.current_image == s.current_image == scene.n_images
+             and bool(p.state.bank_static["initialized"].all()),
+             f"{p.current_image} frames admitted")
+    # the two runs from one seed start from one state: their moves
+    start = Runner(conf_s, mode="train", case="orbit_smoke",
+                   exp_dir=os.path.join(tmp, "planned_start"), seed=SEED, device=dev,
+                   scene=scene)
+    rule, rel = _state_close(p, s, start.state)
+    del start
+    differ = [i for i, (a, b) in enumerate(zip(_planned_state(p)[0], _planned_state(s)[0]))
+              if not torch.equal(a, b)]
+    same_gen = bool(torch.equal(p.state.generator.get_state(), s.state.generator.get_state()))
+    same_losses = p.history["loss"] == s.history["loss"]
+    per_replay = {uf: graph_mod.launches_by_kernel(g.per_replay)
+                  for uf, g in p.planned.graphs.items()}
+    planned_ms = statistics.median(p.step_ms)
+    per_ms = statistics.median(s.step_ms)
+    _line("planned", check="planned_vs_per_step",
+          state_tensors_differ=json.dumps(differ).replace(" ", ""),
+          generator_equal=same_gen, losses_equal=same_losses,
+          leaf_rule=json.dumps({k: rule[k] for k in ("ok", "worst", "worst_rel", "failed")
+                                }).replace(" ", ""),
+          flat_max_rel=f"{rel:.3e}", leaf_tol=LEAF_TOL)
+    _require(rule["ok"] and same_gen,
+             f"the planned run's state is off the per-step run's: {rule}")
+    _line("planned", check="ms_a_step", planned_ms=f"{planned_ms:.3f}",
+          per_step_ms=f"{per_ms:.3f}", speedup=f"{per_ms / planned_ms:.2f}",
+          chunk_step_ms=json.dumps([round(v, 3) for v in p.step_ms]).replace(" ", ""),
+          per_replay_photo=json.dumps(per_replay[False]).replace(" ", ""),
+          per_replay_flow=json.dumps(per_replay[True]).replace(" ", ""),
+          planned_wall_s=f"{sec_p:.2f}", per_step_wall_s=f"{sec_s:.2f}",
+          planned_peak_gib=f"{peak_p / 2**30:.3f}", per_step_peak_gib=f"{peak_s / 2**30:.3f}",
+          card=repr(smi))
+    out["planned"], out["per_step"] = cp, cs
+    out["planned_ms"], out["per_step_ms"] = planned_ms, per_ms
+    del p, s, r, runs
+    out["per_replay"] = _planned_bitwise(conf_p, scene, dev, tmp)
+
+    # the deep pose bank on the planned path, and its checkpoint
+    x, cx, peak_x, sec_x, plans_x = _planned_run(conf_x, "planned_pixel", scene, dev, tmp)
+    _planned_checks("planned_pixel", x, cx, plans_x)
+    _require(x.pose_mode == "seg_pixel" and x.current_image == scene.n_images
+             and bool(x.state.bank_static["initialized"].all()),
+             f"seg_pixel: {x.pose_mode}, {x.current_image} frames, initialized "
+             f"{x.state.bank_static['initialized']}")
+    y = Runner(conf_x, mode="train", case="orbit_smoke",
+               exp_dir=os.path.join(tmp, "planned_pixel"), seed=SEED, device=dev,
+               scene=scene, is_continue=True)
+    differ = [n for (n, a), (_, b) in zip(x.state_leaves(), y.state_leaves())
+              if a.dtype != b.dtype or not np.array_equal(a, b)]
+    same_gen = bool(torch.equal(x.state.generator.get_state(), y.state.generator.get_state()))
+    _line("planned", run="planned_pixel", check="checkpoint", leaves=len(x.state_leaves()),
+          leaves_differ=json.dumps(differ).replace(" ", ""), generator_equal=same_gen,
+          n_bank=x.state.bank_layout.size, ms_a_step=f"{statistics.median(x.step_ms):.3f}",
+          wall_s=f"{sec_x:.2f}", peak_gib=f"{peak_x / 2**30:.3f}")
+    _require(not differ and same_gen and y.iter_step == x.iter_step,
+             f"seg_pixel: the checkpoint read back differs in {differ}")
+    out["planned_pixel"] = cx
+    del x, y
+    gc.collect()
+    # what the phase leaves allocated would count in every later phase's peak
+    _line("planned", check="memory_left", allocated_before_gib=f"{allocated / 2**30:.3f}",
+          allocated_after_gib=f"{torch.cuda.memory_allocated(dev) / 2**30:.3f}")
+    return out
 
 
 def phase_slice4(dev, smi, scene, tmp):
@@ -2382,7 +2694,7 @@ def _scene():
     return scene
 
 
-RUN_PHASES = ("scan", "bf16", "quality")
+RUN_PHASES = ("planned", "scan", "bf16", "quality")
 
 
 def main(argv):
@@ -2404,8 +2716,10 @@ def main(argv):
             if name in KERNEL_PHASES:
                 KERNEL_PHASES[name](dev)
         with tempfile.TemporaryDirectory() as tmp:
-            if "scan" in argv or "bf16" in argv:
+            if {"planned", "scan", "bf16"} & set(argv):
                 scene = _scene()
+            if "planned" in argv:
+                phase_planned(dev, smi, scene, tmp)
             if "scan" in argv:
                 phase_scan(dev, smi, scene, tmp)
             if "bf16" in argv:  # against an f32 slice-1 run of its own
@@ -2426,6 +2740,7 @@ def main(argv):
         slice1_ms = statistics.median(runner1.step_ms)
         counts = phase_slice2(dev, smi, scene, tmp)
         counts3, runner3 = phase_slice3(dev, smi, scene, tmp)
+        planned = phase_planned(dev, smi, scene, tmp)
         counts4 = phase_slice4(dev, smi, scene, tmp)
         mesh_launches = phase_mesh(runner1)
         phase_resume(scene, dev, tmp, runner1, runner3)
@@ -2454,11 +2769,16 @@ def main(argv):
                 **k1,
                 "bake_chunk": bake_chunk["K1"]}]
     slice3, slice2 = f"slice3_{STEPS}_steps", f"slice2_{STEPS}_steps"
+    planned_runs = {f"{run}_{PLANNED_STEPS}_steps": planned[run]
+                    for run in ("planned", "per_step", "planned_pixel")}
+    kernels[0]["launches"].update({k: v["K1"] for k, v in planned_runs.items()})
     for key, name, src, replaces, launches, res in (
             ("K2", "sdf_fwd_grad_flat", "sdf_flat.cu", "fused_sdf.py:343",
-             {slice3: counts3["K2"], "two_phase": two["K2"], "eval": evals["K2"]}, flat_k),
+             {slice3: counts3["K2"], "two_phase": two["K2"], "eval": evals["K2"],
+              **{k: v["K2"] for k, v in planned_runs.items()}}, flat_k),
             ("K3", "sdf_bwd_flat", "sdf_flat.cu", "fused_sdf.py:437",
-             {slice3: counts3["K3"], "two_phase": two["K3"]}, flat_k),
+             {slice3: counts3["K3"], "two_phase": two["K3"],
+              **{k: v["K3"] for k, v in planned_runs.items()}}, flat_k),
             ("K4", "sdf_fwd_grad", "sdf_fwd_grad.cu", "fused_sdf.py:699",
              {slice2: counts["K4"], "two_phase": two["K4"], "eval": evals["K4"],
               scan_fused: scans["fused"]["launches"]["K4"]}, train_k),

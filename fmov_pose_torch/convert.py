@@ -115,6 +115,18 @@ def seg_bank_to_torch(bank, device=None) -> Tree:
                        "initialized": np.array(static["initialized"], bool)}}
 
 
+def seg_deep_bank_to_torch(bank, device=None) -> Tree:
+    """A JAX deep segment bank (``poses/pixel_pose.py:init_seg_deep_bank``;
+    leaves as numpy) -> the port's: the train leaves [S, ...], the init
+    poses and any ``t_*`` encoding buffers as tensors, the ``initialized``
+    flags as host numpy (its unread ``progress`` buffer is dropped)."""
+    static = bank["static"]
+    out = {k: to_torch(v, device) for k, v in static.items()
+           if k == "init_c2w" or k.startswith("t_")}
+    out["initialized"] = np.array(static["initialized"], bool)
+    return {"train": to_torch(bank["train"], device), "static": out}
+
+
 def seg_adam_to_torch(opt, device=None):
     """A JAX ``SegAdamState`` (flat moments over the bank's ravel order,
     which is ``ParamLayout``'s) -> the port's."""

@@ -67,14 +67,17 @@ def sample_pixels(generator, bbox_table, img_idx, batch_size: int,
     """Uniform pixel ids (px, py) [B] of one frame; with mask guiding on,
     70% of draws restrict the window to the dilated mask bbox
     (``bbox_table[img_idx]`` = ymin, ymax, xmin, xmax).  All on the table's
-    device, with no host sync.  ``mask_guided_active``: a host 0/1 (0 draws
-    no guide coin) or a 0-d device tensor, which gates the coin on the
-    device, as the JAX module's traced gate does."""
+    device, with no host sync.  ``mask_guided_active``: a host 0/1 or a
+    0-d device tensor, which gates the guide coin on the device, as the
+    JAX module's traced gate does.  The coin is drawn whenever mask
+    guiding is on, open gate or not, so a step draws the same numbers
+    from the generator with a host gate as with a device one."""
     dev = bbox_table.device
     u = torch.rand((3, batch_size), generator=generator, device=dev)
     gated = isinstance(mask_guided_active, torch.Tensor)
-    if mask_guided and (gated or mask_guided_active > 0):
+    if mask_guided:
         use_bbox = torch.rand((), generator=generator, device=dev) < 0.7
+    if mask_guided and (gated or mask_guided_active > 0):
         if gated:
             use_bbox = use_bbox & (mask_guided_active > 0)
         y0, y1, x0, x1 = frame_row(bbox_table, img_idx).unbind()

@@ -8,8 +8,9 @@ order, so both packages build identical pose nets from one seed.
 Frame ids are host ints where the training loop plans them on the host,
 so the pose of a frame costs no host-to-device copy (a pageable copy of a
 frame id stalls the stream until the device has caught up).  The scanned
-steps draw the frame on the device: ``gf_apply`` also takes an int64
-device tensor of one element, and gathers with it.
+and planned steps read the frame on the device: ``gf_apply`` and
+``seg_apply`` also take an int64 device tensor of one element, and gather
+with it.
 
 The segment bank (``SegLearnPose`` of the reference): one pose net per
 ``segment_img_num`` frames, every trainable leaf stacked on a leading
@@ -182,21 +183,32 @@ def init_seg_bank(seed: int, cfg: PoseCfg, n_images: int, segment_img_num: int,
                        "initialized": initialized}}
 
 
-def seg_slice(bank: Params, seg_idx: int) -> Params:
-    """The single-segment pose net of segment ``seg_idx`` (views)."""
+def seg_row(leaf: torch.Tensor, seg_idx) -> torch.Tensor:
+    """``leaf[seg_idx]``: a host int indexes (a view); a device index
+    tensor of one element gathers (``index_select``: a 0-d tensor index
+    would be read back to the host)."""
+    if isinstance(seg_idx, torch.Tensor):
+        return leaf.index_select(0, seg_idx.reshape(1))[0]
+    return leaf[seg_idx]
+
+
+def seg_slice(bank: Params, seg_idx) -> Params:
+    """The single-segment pose net of segment ``seg_idx``, a host int
+    (views) or a device index tensor of one element (gathers)."""
 
     def take(tree):
         if isinstance(tree, dict):
             return {k: take(v) for k, v in tree.items()}
-        return tree[seg_idx]
+        return seg_row(tree, seg_idx)
 
     return {"train": take(bank["train"]),
-            "static": {"b": bank["static"]["b"][seg_idx],
-                       "init_c2w": bank["static"]["init_c2w"][seg_idx][None]}}
+            "static": {"b": seg_row(bank["static"]["b"], seg_idx),
+                       "init_c2w": seg_row(bank["static"]["init_c2w"], seg_idx)[None]}}
 
 
-def seg_apply(bank: Params, cfg: PoseCfg, segment_img_num: int, cam_id: int) -> torch.Tensor:
-    """Pose [3, 4] of frame cam_id through its segment's net."""
+def seg_apply(bank: Params, cfg: PoseCfg, segment_img_num: int, cam_id) -> torch.Tensor:
+    """Pose [3, 4] of frame cam_id (a host int or a device id tensor of one
+    element) through its segment's net."""
     # init_c2w has one entry per segment: gf_apply clamps the index to 0
     return gf_apply(seg_slice(bank, cam_id // segment_img_num), cfg, cam_id)
 

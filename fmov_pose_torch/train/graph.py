@@ -45,6 +45,16 @@ import collections
 import torch
 
 WARMUP_STEPS = 2
+_SIDE_STREAMS = {}  # device -> the stream every capture warms up and captures on
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """One side stream a device for every capture: PyTorch keeps a cuBLAS
+    workspace for each stream a GEMM ran on, for the life of the process,
+    so a new stream a capture would leave one more allocated each time."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
 
 
 def _launch_counters():
@@ -105,32 +115,34 @@ class StepGraph:
 
     ``generator``: the state's CUDA generator, registered with the graph.
     ``mutable``: every tensor the step writes; the warm-up's steps are
-    undone by copying them back, with the generator's state."""
+    undone by copying them back, with the generator's state.  ``fn`` is
+    not kept past the capture: a step that holds its graph would
+    otherwise keep both, and the graph's memory, alive until the garbage
+    collector breaks the cycle."""
 
     def __init__(self, fn, generator: torch.Generator, mutable, warmup: int = WARMUP_STEPS):
-        self.fn = fn
         self.device = mutable[0].device
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph captures CUDA work, not {self.device}")
         try:
-            self._capture(generator, list(mutable), warmup)
+            self._capture(fn, generator, list(mutable), warmup)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the training step failed: "
                                f"{type(e).__name__}: {e}") from e
 
-    def _capture(self, generator, mutable, warmup):
+    def _capture(self, fn, generator, mutable, warmup):
         dev = self.device
         saved = [t.detach().clone() for t in mutable]
         gen_state = generator.get_state()
-        side = torch.cuda.Stream(dev)
+        side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = _launch_counters()
         with torch.cuda.stream(side):
             for i in range(warmup):
                 if i == 0:
-                    self.fn()  # first uses may copy to and from the host
+                    fn()  # first uses may copy to and from the host
                 else:
-                    _steady_step(self.fn)
+                    _steady_step(fn)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.warmup_launches = _counts_since(before)
         with torch.no_grad():
@@ -149,7 +161,7 @@ class StepGraph:
         register(generator)
         before = _launch_counters()
         with torch.cuda.graph(self.graph, stream=side):
-            self.fn()
+            fn()
         self.per_replay = _counts_since(before)
         _add_counts(self.per_replay, -1)  # the capture launched nothing
 

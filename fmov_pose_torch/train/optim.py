@@ -6,10 +6,11 @@ Moments live in one raveled [P] buffer in ``convert.ParamLayout`` order
 decay and the parameters move by momentum, which is torch's
 ``zero_grad(); step()`` drift that the ``detach_mesh_at_warm_up`` gate
 relies on.  The update is in place, on the flat parameter buffer the
-training state owns.  The scanned steps (``step.ScanPhotoSteps``)
-keep the step count on the device (``adam_update_flat_dev_``): the count
-and the bias corrections never reach the host, so a captured step reads
-nothing back.
+training state owns.  The training steps keep the step count on the
+device (``adam_update_flat_dev_``; the per-step loop beside the host's
+count, the scanned and planned steps advancing the host's by a chunk):
+the count and the bias corrections never reach the host, so a captured
+step reads nothing back, and every loop takes the same arithmetic.
 
 The segment-bank Adam is S independent Adams over one flat bank buffer
 (leaves [S, ...], so the ravel is segment-major): per-segment step

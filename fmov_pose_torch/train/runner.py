@@ -4,11 +4,14 @@ training lifecycle of one conf, phase 1 or phase 2).
 Reads the reference's .conf files with the port's HOCON reader
 (``data/hocon.py``) and trains on the device the caller names (``device``;
 by default the CUDA device, which must exist) with one of the JAX Runner's
-two loops: the scan path (``_train_scan``: k = ``train.scan_chunk`` steps
-a dispatch, on CUDA one captured step replayed k times) wherever
-``_scan_eligible`` admits the phase, as JAX does by default
-(``train.scan_steps``), else a plain Python loop, one planned step per
-iteration.  The data is a dataset object the caller
+three loops, chosen in its order: the scan path (``_train_scan``: k =
+``train.scan_chunk`` steps a dispatch, on CUDA one captured step replayed
+k times) wherever ``_scan_eligible`` admits the phase, as JAX does by
+default (``train.scan_steps``); else the planned path (``_train_planned``,
+``train.plan_chunk`` > 1: chunks of up to k steps planned on the host, on
+CUDA the photo and the flow step captured and replayed row by row); else
+a plain Python loop, one planned step per iteration.  The data is a
+dataset object the caller
 passes (``data/scene.py``, or anything with the same fields) or the
 port's host ``Dataset`` read from the conf's ``data_dir``.
 
@@ -18,7 +21,8 @@ pair of a flow step, the warm-up gates, and per segment the touch, freeze
 and learning rate.  The progressive phase 1 (``train.progressive``,
 ``pose_type = seg``) admits ``image_interval`` frames every
 ``max_pro_iteration`` steps past the mesh warm-up, trains the newest
-segment's pose net alone until ``pro_warm_up_end``, lazily initialises
+segment's pose net (``model.pixel_level``: a deep pose net,
+``poses/pixel_pose.py``) alone until ``pro_warm_up_end``, lazily initialises
 each new segment from the last pose of the one before, and with
 ``reset_based_on_rot`` restarts the NeuS fields when the admitted frames
 have turned by more than ``reset_rot_threshold`` degrees.  Photo and flow
@@ -62,14 +66,20 @@ inside a ``try`` that logs a warning and trains on, as the JAX loop does.
 Depth supervision (``train.depth_weight > 0``: the Dataset's optional
 ``depth/`` maps, a masked L1 on the rendered depth) and bf16 activations
 (``train.compute_dtype``, per network; the fused kernels ignore it, as
-the JAX ones do) are the JAX Runner's.  What the port leaves out raises
-``NotImplementedError`` naming its ROADMAP item: the planned multi-step
-dispatch (``train.plan_chunk``) and the pixel-level pose banks
-(``model.pixel_level``); data parallelism is not ported either.
+the JAX ones do) are the JAX Runner's.  ``train.matmul_precision``
+(``default``, ``high`` or ``highest``, else ``ValueError``) sets PyTorch's
+f32 matmul precision (``MATMUL_PRECISION``: ``highest`` full f32,
+``high`` TF32, ``default`` ``"medium"``) while ``train`` and
+``eval_render`` run, and restores the caller's setting after them; the
+CUDA kernels ignore it, as the Pallas kernels do; with the key absent the
+setting is left alone (full f32 unless the caller changed it).  Data
+parallelism (``train.data_parallel``) is not ported: the port runs on
+one device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import shutil
@@ -83,6 +93,7 @@ from fmov_pose_torch.data import hocon
 from fmov_pose_torch.data import rays as raygen
 from fmov_pose_torch.fields import nets
 from fmov_pose_torch.poses import picture_pose as pp
+from fmov_pose_torch.poses import pixel_pose as px
 from fmov_pose_torch.pipeline import meshio
 from fmov_pose_torch.render import geometry, neus
 from fmov_pose_torch.train import checkpoint as ckpt
@@ -91,9 +102,24 @@ from fmov_pose_torch.train import optim, step as step_mod
 LOG = logging.getLogger(__name__)
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not in the PyTorch port yet (ROADMAP queue 1, {item})")
+# train.matmul_precision -> torch.set_float32_matmul_precision: the JAX
+# values' meaning on this backend (full f32; TF32; bf16-pass products)
+MATMUL_PRECISION = {"highest": "highest", "high": "high", "default": "medium"}
+
+
+@contextlib.contextmanager
+def matmul_precision(setting):
+    """PyTorch's f32 matmul precision at ``setting`` inside the block (None:
+    left alone), the caller's restored after it."""
+    if setting is None:
+        yield
+        return
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(setting)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
 
 
 def rotation_error_deg(rel_R: np.ndarray) -> float:
@@ -109,17 +135,18 @@ class StepTimer:
     nothing."""
     RING = 64
 
-    def __init__(self, n_steps: int):
+    def __init__(self):
         self.events = [torch.cuda.Event(enable_timing=True) for _ in range(self.RING)]
-        self.ms = np.zeros(n_steps)
+        self.ms = []
         self.n = 0
         self.events[0].record()
 
     def _read(self, k):
-        """Step k's time (1-based): from event k-1 to event k."""
+        """Step k's time (1-based): from event k-1 to event k; read in
+        order."""
         end = self.events[k % self.RING]
         end.synchronize()
-        self.ms[k - 1] = self.events[(k - 1) % self.RING].elapsed_time(end)
+        self.ms.append(self.events[(k - 1) % self.RING].elapsed_time(end))
 
     def tick(self):
         self.n += 1
@@ -131,7 +158,7 @@ class StepTimer:
         """The times of the steps recorded, as a list."""
         for k in range(max(1, self.n - self.RING + 2), self.n + 1):
             self._read(k)
-        return self.ms[:self.n].tolist()
+        return list(self.ms)
 
 
 class Runner:
@@ -186,10 +213,11 @@ class Runner:
 
         if conf.get_float("train.depth_weight", 0.0) > 0:
             conf.put("dataset.load_depth", True)
-        if conf.get_bool("model.pixel_level", False):
-            _unsupported("model.pixel_level (seg_pixel pose banks)", "item 8")
-        if conf.get_int("train.plan_chunk", 1) > 1:
-            _unsupported("train.plan_chunk (planned multi-step dispatch)", "item 8")
+        mm_prec = conf.get("train.matmul_precision", None)
+        if mm_prec is not None and mm_prec not in MATMUL_PRECISION:
+            raise ValueError(f"train.matmul_precision must be default/high/highest, "
+                             f"got {mm_prec!r}")
+        self.matmul_precision = MATMUL_PRECISION.get(mm_prec)
 
         if scene is None:
             from fmov_pose_torch.data.dataset import Dataset
@@ -291,7 +319,8 @@ class Runner:
             else:
                 raise NotImplementedError("only mask_init / crop_init supported")
         if self.pose_type == "seg":
-            self.pose_mode = "seg"
+            self.pose_mode = ("seg_pixel" if conf.get_bool("model.pixel_level", False)
+                              else "seg")
         elif self.pose_type == "gf":
             self.pose_mode = "gf"
         elif self.barf:
@@ -301,8 +330,10 @@ class Runner:
         self.pose_cfg = pp.PoseCfg(
             emphasize_rot=bool(conf.get("train.emphasize_rot", False)),
             small_rot=bool(conf.get("train.small_rot", False)))
+        self.deep_pose_cfg = (px.DeepPoseCfg(n_images=self.dataset.n_images)
+                              if self.pose_mode == "seg_pixel" else None)
         self.n_segments = (pp.num_segments(self.dataset.n_images, self.image_interval)
-                           if self.pose_mode == "seg" else 1)
+                           if self.pose_mode in step_mod.BANK_MODES else 1)
         self.current_pose_mlp_index = 0
         self.pro_iteration = 0
         self.reset_count = 0  # rotation-triggered reset_neus firings
@@ -373,6 +404,10 @@ class Runner:
             bank = pp.init_seg_bank(seed, self.pose_cfg, self.dataset.n_images,
                                     self.image_interval, np.asarray(noise_poses)[0])
             pose_static = {}
+        elif self.pose_mode == "seg_pixel":
+            bank = px.init_seg_deep_bank(seed, self.deep_pose_cfg, self.dataset.n_images,
+                                         self.image_interval, np.asarray(noise_poses)[0])
+            pose_static = {}
         elif self.pose_mode == "gf":
             gf = pp.init_gf(seed, self.pose_cfg, np.asarray(noise_poses))
             params["pose"] = gf["train"]
@@ -402,9 +437,8 @@ class Runner:
             self.state.bank_flat = bank_flat
             self.state.bank_layout = bank_layout
             self.state.bank_static = {
-                "b": bank["static"]["b"].to(dev),
-                "init_c2w": bank["static"]["init_c2w"].to(dev),
-                "initialized": bank["static"]["initialized"]}
+                k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                for k, v in bank["static"].items()}
             self.state.pose_opt = optim.seg_adam_init(
                 bank_flat.detach(), bank_layout.shapes, self.n_segments)
 
@@ -417,6 +451,7 @@ class Runner:
             segment_img_num=self.image_interval,
             pose_mode=self.pose_mode,
             pose_cfg=self.pose_cfg,
+            deep_pose_cfg=self.deep_pose_cfg,
             igr_weight=self.igr_weight,
             mask_weight=self.mask_weight,
             flow_weight=self.flow_weight,
@@ -691,7 +726,7 @@ class Runner:
     def _pro_tick(self):
         """Advance the progressive counter by one step; True when an event
         (admission or warm-up end) fires at the new count.  Host only."""
-        if not (self.pose_mode == "seg" and self.pro_iteration >= 0
+        if not (self.pose_mode in step_mod.BANK_MODES and self.pro_iteration >= 0
                 and self.iter_step > self.mesh_warmup_step):
             return False
         self.pro_iteration += 1
@@ -720,8 +755,13 @@ class Runner:
                 if self.current_pose_mlp_index < self.n_segments:
                     self.seg_frozen[self.current_pose_mlp_index] = 1.0
                     # lazy init of the new segment from the previous one
-                    pp.seg_initialize(self.state.pose_bank, self.pose_cfg,
-                                      self.image_interval, self.current_pose_mlp_index)
+                    if self.pose_mode == "seg_pixel":
+                        px.seg_deep_initialize(self.state.pose_bank, self.deep_pose_cfg,
+                                               self.image_interval,
+                                               self.current_pose_mlp_index)
+                    else:
+                        pp.seg_initialize(self.state.pose_bank, self.pose_cfg,
+                                          self.image_interval, self.current_pose_mlp_index)
             else:
                 self.pro_iteration = -1  # all frames admitted
             LOG.info("admitted frames: %d (segment %d)", self.current_image,
@@ -753,26 +793,99 @@ class Runner:
             return 0
         return k
 
+    def _plan_eligible(self):
+        """k > 1 when the loop can run chunks of k host-planned steps (the
+        JAX Runner's rule): ``train.plan_chunk`` > 1 and no gradient report
+        (the JAX rule also excludes data parallelism, which the port does
+        not run)."""
+        k = self.conf.get_int("train.plan_chunk", 1)
+        if k <= 1 or self.gradient_analysis:
+            return 0
+        return k
+
     def train(self):
         """Train to ``end_iter``, or until phase 1 has admitted every frame
-        (with a global conf: then its mesh and checkpoint).  A phase that
-        ``_scan_eligible`` admits runs ``_train_scan`` (k steps a dispatch,
-        as the JAX Runner does by default); ``self.dispatch`` says which
-        loop ran ("scan x{k}" or "per-step").  Fills ``self.history``
-        (every metric of every step, or of every chunk on the scan path,
-        read back once at the end) and, on CUDA, ``self.step_ms`` (times
-        from events between steps, or between chunks)."""
-        k = self._scan_eligible()
-        if k:
-            LOG.info("scan training: %d steps per dispatch", k)
-            return self._train_scan(k)
+        (with a global conf: then its mesh and checkpoint), on the first of
+        the JAX Runner's loops that admits the phase: the scan path
+        (``_scan_eligible``), the planned path (``_plan_eligible``), the
+        per-step loop; ``self.dispatch`` says which ran ("scan x{k}",
+        "planned x{k}" or "per-step").  Fills ``self.history`` (every
+        metric of every step, or of every chunk on the scan path, read back
+        once at the end) and, on CUDA, ``self.step_ms`` (times from events
+        between steps; between chunks, a chunk's time over its steps, on
+        the scan and the planned path).  Runs at ``train.matmul_precision``."""
+        with matmul_precision(self.matmul_precision):
+            k = self._scan_eligible()
+            if k:
+                LOG.info("scan training: %d steps per dispatch", k)
+                return self._train_scan(k)
+            k = self._plan_eligible()
+            if k:
+                LOG.info("planned training: up to %d steps per dispatch", k)
+                return self._train_planned(k)
+            return self._train_per_step()
+
+    def _events_after(self, done, rows, t_start, rays_per_row, tag):
+        """The JAX loops' events at iter_step after a step or a chunk: the
+        report line (history row ``done - 1``: the last step's metrics, or
+        the scanned chunk's means), validate_image and validate_poses (each
+        caught)."""
+        if self.iter_step % self.report_freq == 0:
+            m = dict(zip(step_mod.METRIC_NAMES, rows[done - 1].tolist()))  # the one sync
+            dt = time.perf_counter() - t_start
+            LOG.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f "
+                     "rays/s=%.0f %s", self.iter_step, m["loss"], m["color_loss"],
+                     m["eikonal_loss"], m["psnr"],
+                     done * rays_per_row / max(dt, 1e-9), tag)
+        if self.iter_step % self.val_freq == 0:
+            try:
+                self.validate_image()
+            except Exception as e:  # keep training through viz errors
+                LOG.warning("validate_image failed: %s", e, exc_info=True)
+        if self.iter_step % self.pose_freq == 0:
+            try:
+                self.validate_poses()
+            except Exception as e:
+                LOG.warning("validate_poses failed: %s", e, exc_info=True)
+
+    def _mesh_event(self):
+        """validate_mesh every ``val_mesh_freq`` steps (caught)."""
+        if self.iter_step % self.val_mesh_freq == 0:
+            try:
+                self.validate_mesh()
+            except Exception as e:  # keep training, as the JAX loop does
+                LOG.warning("validate_mesh failed: %s", e, exc_info=True)
+
+    def _phase1_over(self):
+        """Phase 1 of a two-phase run ends once every frame is admitted."""
+        return ("_wo_global_conf" not in self.base_exp_dir and self.pro_iteration == -1
+                and self.current_image == self.dataset.n_images)
+
+    def _finish(self, rows, done, t_start, phase1_done):
+        """The end of the per-step and the planned loop: the history read
+        back once, phase 1's mesh where it ended, the last checkpoint."""
+        self.train_seconds = time.perf_counter() - t_start
+        if done:
+            cols = rows[:done].cpu().numpy()
+            for j, k in enumerate(step_mod.METRIC_NAMES):
+                self.history.setdefault(k, []).extend(cols[:, j].tolist())
+        LOG.info("trained %d steps (%d flow) in %.1f s", done, self.flow_steps,
+                 self.train_seconds)
+        if phase1_done:
+            LOG.info("all %d frames admitted: phase 1 ends", self.current_image)
+            self.validate_mesh()
+        self.save_checkpoint()
+
+    def _train_per_step(self):
+        """The JAX Runner's per-step loop: plan a step, run it, then its
+        events in the JAX loop's order."""
         self.dispatch = "per-step"
         res_step = max(self.end_iter - self.iter_step, 0)
         self._init_perms()
         names = step_mod.METRIC_NAMES
         rows = torch.empty((res_step, len(names)), dtype=torch.float32,
                            device=self.device)
-        timer = StepTimer(res_step) if self.device.type == "cuda" else None
+        timer = StepTimer() if self.device.type == "cuda" else None
         t_start = time.perf_counter()
         rays_per_step = self.batch_size * (2 if self.maintain_shape else 1)
         done = 0
@@ -793,53 +906,112 @@ class Runner:
                     self.gradient_analysis_report(img_id)
                 except Exception as e:  # keep training, as the JAX loop does
                     LOG.warning("gradient_analysis failed: %s", e, exc_info=True)
-
-            if self.iter_step % self.report_freq == 0:
-                m = dict(zip(names, rows[done - 1].tolist()))  # the one sync
-                dt = time.perf_counter() - t_start
-                LOG.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f "
-                         "rays/s=%.0f dir=%s",
-                         self.iter_step, m["loss"], m["color_loss"],
-                         m["eikonal_loss"], m["psnr"],
-                         done * rays_per_step / max(dt, 1e-9), self.base_exp_dir)
-            if self.iter_step % self.val_freq == 0:
-                try:
-                    self.validate_image()
-                except Exception as e:  # keep training through viz errors
-                    LOG.warning("validate_image failed: %s", e, exc_info=True)
-            if self.iter_step % self.pose_freq == 0:
-                try:
-                    self.validate_poses()
-                except Exception as e:
-                    LOG.warning("validate_poses failed: %s", e, exc_info=True)
+            self._events_after(done, rows, t_start, rays_per_step,
+                               f"dir={self.base_exp_dir}")
             self._progressive_update()
-            if self.iter_step % self.val_mesh_freq == 0:
-                try:
-                    self.validate_mesh()
-                except Exception as e:  # keep training, as the JAX loop does
-                    LOG.warning("validate_mesh failed: %s", e, exc_info=True)
+            self._mesh_event()
             self._maybe_regen_perms()
             if self.iter_step % self.save_freq == 0 and self.iter_step > 0:
                 self.save_checkpoint()
-            if ("_wo_global_conf" not in self.base_exp_dir
-                    and self.pro_iteration == -1
-                    and self.current_image == self.dataset.n_images):
+            if self._phase1_over():
                 phase1_done = True
                 break
-
         if timer is not None:
             self.step_ms = timer.finish()
-        self.train_seconds = time.perf_counter() - t_start
-        if done:
-            cols = rows[:done].cpu().numpy()
-            for j, k in enumerate(names):
-                self.history.setdefault(k, []).extend(cols[:, j].tolist())
-        LOG.info("trained %d steps (%d flow) in %.1f s", done, self.flow_steps,
-                 self.train_seconds)
-        if phase1_done:
-            LOG.info("all %d frames admitted: phase 1 ends", self.current_image)
-            self.validate_mesh()
-        self.save_checkpoint()
+        self._finish(rows, done, t_start, phase1_done)
+
+    def planned_steps(self, k, capture=None):
+        """The planned steps of this Runner's step config
+        (``step.PlannedSteps``, chunks of up to k steps)."""
+        return step_mod.PlannedSteps(
+            self.step_cfg, self.images_dev, self.masks_dev, self.intr_inv_dev,
+            self.bbox_dev, k, capture, depths=self.depths_dev)
+
+    def _plan_chunk(self, K):
+        """Up to K steps planned as the per-step loop plans them
+        (``_plan_step``, ``_pro_tick``, ``_maybe_regen_perms`` in its order,
+        consuming the host RNG alike): at most to the next boundary of
+        every frequency and of ``end_iter``, and ending with the step at
+        which a progressive event fires.  Returns ([(packed, use_flow,
+        pixels_pair)], event)."""
+        freqs = [self.report_freq, self.val_freq, self.pose_freq,
+                 self.val_mesh_freq, self.save_freq]
+        if self.occupancy_sampling:
+            freqs.append(self.occ_update_freq)
+        gap = min(f - self.iter_step % f for f in freqs)
+        plan, event = [], False
+        for _ in range(min(K, self.end_iter - self.iter_step, gap)):
+            packed, use_flow, pixels_pair, _ = self._plan_step()
+            plan.append((packed, use_flow, pixels_pair))
+            self.iter_step += 1
+            event = self._pro_tick()
+            if event:
+                break
+            self._maybe_regen_perms()
+        return plan, event
+
+    def _train_planned(self, K):
+        """The JAX Runner's planned path: chunks of K host-planned steps
+        (``_plan_chunk``), each one dispatch (``step.PlannedSteps``: on
+        CUDA the captured photo and flow steps replayed row by row, whose
+        capture or replay raises if it fails); a chunk cut short by an
+        event or ``end_iter`` runs per step, as in JAX.  After a chunk, in
+        the JAX loop's order: the progressive event, the grid refresh, the
+        report line (the chunk's last step), validate_image,
+        validate_poses, validate_mesh (each caught), the checkpoint, and
+        phase 1's end.  ``history`` gets every step's row; ``step_ms`` a
+        chunk's time over its steps, from the end of the first whole chunk
+        (its capture is not a step)."""
+        self.dispatch = f"planned x{K}"
+        self._init_perms()
+        chunk = self.planned = self.planned_steps(K)
+        zero_pix = np.zeros(chunk.rows.shape[1] - chunk.n_packed, np.float32)
+        res_step = max(self.end_iter - self.iter_step, 0)
+        names = step_mod.METRIC_NAMES
+        rows = torch.empty((res_step, len(names)), dtype=torch.float32,
+                           device=self.device)
+        timer, sizes = None, []
+        t_start = time.perf_counter()
+        rays_per_step = self.batch_size * (2 if self.maintain_shape else 1)
+        done = 0
+        phase1_done = False
+        while self.iter_step < self.end_iter:
+            plan, event = self._plan_chunk(K)
+            k = len(plan)
+            if done + k > rows.shape[0]:  # a field reset restarted iter_step
+                rows = torch.cat([rows, rows.new_empty((max(k, done), len(names)))])
+            if k == K:
+                uses = [uf for _, uf, _ in plan]
+                rows[done:done + k] = chunk(self.state, np.stack([
+                    np.concatenate([packed, pix.reshape(-1) if uf else zero_pix])
+                    for packed, uf, pix in plan]), uses)
+                self.flow_steps += sum(uses)
+            else:  # cut short by an event or end_iter: per step, as in JAX
+                for j, (packed, uf, pix) in enumerate(plan):
+                    metrics = self._dispatch(packed, uf, pix)
+                    torch.stack([metrics[n] for n in names], out=rows[done + j])
+            done += k
+            if timer is not None:
+                timer.tick()
+                sizes.append(k)
+            elif k == K and self.device.type == "cuda":
+                timer = StepTimer()
+            if event:
+                self._pro_events()
+                self._maybe_regen_perms()
+            if (self.occupancy_sampling
+                    and self.iter_step % self.occ_update_freq == 0):
+                self.update_occ_grid()
+            self._events_after(done, rows, t_start, rays_per_step, f"(plan x{K})")
+            self._mesh_event()
+            if self.iter_step % self.save_freq == 0 and self.iter_step > 0:
+                self.save_checkpoint()
+            if self._phase1_over():
+                phase1_done = True
+                break
+        if timer is not None:
+            self.step_ms = [ms / n for ms, n in zip(timer.finish(), sizes)]
+        self._finish(rows, done, t_start, phase1_done)
 
     def scan_steps(self, k, capture=None):
         """The scanned steps of this Runner's step config and schedule
@@ -878,34 +1050,13 @@ class Runner:
             rows[done] = scan(self.state, self.current_image)
             if timer is None and self.device.type == "cuda":
                 # from the end of the first chunk: the capture is not a step
-                timer = StepTimer(n_chunks - 1)
+                timer = StepTimer()
             elif timer is not None:
                 timer.tick()
             done += 1
             self.iter_step += k
-            if self.iter_step % self.report_freq == 0:
-                m = dict(zip(names, rows[done - 1].tolist()))  # the one sync
-                dt = time.perf_counter() - t_start
-                LOG.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f "
-                         "rays/s=%.0f (scan x%d)",
-                         self.iter_step, m["loss"], m["color_loss"],
-                         m["eikonal_loss"], m["psnr"],
-                         done * k * self.batch_size / max(dt, 1e-9), k)
-            if self.iter_step % self.val_freq == 0:
-                try:
-                    self.validate_image()
-                except Exception as e:
-                    LOG.warning("validate_image failed: %s", e, exc_info=True)
-            if self.iter_step % self.pose_freq == 0:
-                try:
-                    self.validate_poses()
-                except Exception as e:
-                    LOG.warning("validate_poses failed: %s", e, exc_info=True)
-            if self.iter_step % self.val_mesh_freq == 0:
-                try:
-                    self.validate_mesh()
-                except Exception as e:
-                    LOG.warning("validate_mesh failed: %s", e, exc_info=True)
+            self._events_after(done, rows, t_start, k * self.batch_size, f"(scan x{k})")
+            self._mesh_event()
             if (self.occupancy_sampling
                     and self.iter_step % self.occ_update_freq == 0):
                 self.update_occ_grid()
@@ -935,8 +1086,9 @@ class Runner:
         """The training state as the JAX package's checkpoint leaves:
         [(name, numpy array)] in its ``TrainState`` flatten order (params
         by sorted key; the flat Adam's step, mu, nu; the segment bank,
-        static before train, with the JAX bank's ``progress`` [S] that the
-        port does not keep, written as zeros; the segment Adam; the pose
+        static before train, its static leaves by name, with the JAX bank's
+        ``progress`` [S] that the port does not keep, written as zeros; the
+        segment Adam; the pose
         buffers by key; the PRNG key as uint32[2]; the state's step)."""
         st = self.state
 
@@ -949,10 +1101,10 @@ class Runner:
                 ("opt.nu", arr(st.opt.nu))]
         if st.bank_flat is not None:
             bs = st.bank_static
-            out += [("pose_bank.static.b", arr(bs["b"])),
-                    ("pose_bank.static.init_c2w", arr(bs["init_c2w"])),
-                    ("pose_bank.static.initialized", arr(bs["initialized"], bool)),
-                    ("pose_bank.static.progress", np.zeros(self.n_segments, np.float32))]
+            for k in sorted({*bs, "progress"}):
+                leaf = (np.zeros(self.n_segments, np.float32) if k == "progress"
+                        else arr(bs[k], bool) if k == "initialized" else arr(bs[k]))
+                out.append((f"pose_bank.static.{k}", leaf))
             out += [(f"pose_bank.train.{n}", arr(t))
                     for n, t in convert.flatten(st.bank_layout.views(st.bank_flat))]
             po = st.pose_opt
@@ -1037,10 +1189,10 @@ class Runner:
                                      nu=tensor(v["opt.nu"]))
             if st.bank_flat is not None:
                 st.bank_flat.copy_(tensor(joined("pose_bank.train.")))
-                st.bank_static["b"] = tensor(v["pose_bank.static.b"])
-                st.bank_static["init_c2w"] = tensor(v["pose_bank.static.init_c2w"])
-                st.bank_static["initialized"] = np.array(
-                    v["pose_bank.static.initialized"], bool)
+                for k in st.bank_static:
+                    a = v[f"pose_bank.static.{k}"]
+                    st.bank_static[k] = (np.array(a, bool) if k == "initialized"
+                                         else tensor(a))
                 st.pose_opt = optim.SegAdamState(
                     step=tensor(v["pose_opt.step"], torch.int32),
                     mu=tensor(v["pose_opt.mu"]), nu=tensor(v["pose_opt.nu"]))
@@ -1130,12 +1282,13 @@ class Runner:
 
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
-        return neus.render(
-            generator, self.eval_params(), self.model_cfg, t(rays_o), t(rays_d),
-            t(near), t(far), cos_anneal_ratio=cos_anneal_ratio,
-            background_rgb=(torch.ones((1, 3), device=dev) if self.use_white_bkgd
-                            else None),
-            eval_mode=True)
+        with matmul_precision(self.matmul_precision):
+            return neus.render(
+                generator, self.eval_params(), self.model_cfg, t(rays_o), t(rays_d),
+                t(near), t(far), cos_anneal_ratio=cos_anneal_ratio,
+                background_rgb=(torch.ones((1, 3), device=dev) if self.use_white_bkgd
+                                else None),
+                eval_mode=True)
 
     @torch.no_grad()
     def render_rays_chunked(self, rays_o, rays_d, chunk=None):

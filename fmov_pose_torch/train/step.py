@@ -15,7 +15,8 @@ one row, copied from pinned host memory without blocking
 (``to_device_async``), and so does a flow step's batch of match pixels.
 A pageable copy would stall the stream until the device caught up.
 
-Pose modes: ``seg`` (the segment bank of phase 1), ``gf`` (one global
+Pose modes: ``seg`` (the segment bank of phase 1), ``seg_pixel`` (its
+bank of deep pose nets, ``model.pixel_level``), ``gf`` (one global
 Gaussian-Fourier pose net), ``se3`` (BARF refinement) and ``fixed`` (GT
 poses); the SDF-guided up-sampler or the occupancy grid (``occ_grid`` in
 ``pose_static``).  ``maintain_shape`` adds a second frame's ray batch to
@@ -25,8 +26,11 @@ The scanned form (``ScanPhotoSteps``, the JAX ``make_scan_photo_steps``)
 plans nothing on the host: the schedule comes from a device iteration
 count (``make_device_scalars``), the frame from the state's generator,
 the Adam bias corrections from a device step count, and on CUDA one step
-is a captured graph replayed k times a chunk.  The planned multi-step
-form and ``seg_pixel`` are not ported (ROADMAP queue 1).
+is a captured graph replayed k times a chunk.  The planned form
+(``PlannedSteps``, the JAX ``make_planned_steps``) keeps the host's plan:
+a chunk's packed rows and match pixels go to the device in one copy, and
+on CUDA the photo and the flow step are captured graphs that read their
+row there (``unpack_scalars_dev``), replayed row by row as the plan says.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from fmov_pose_torch.core import lie
 from fmov_pose_torch.core import pose as posealg
 from fmov_pose_torch.data import rays as raygen
 from fmov_pose_torch.poses import picture_pose as pp
+from fmov_pose_torch.poses import pixel_pose as px
 from fmov_pose_torch.render import neus
 from fmov_pose_torch.train import optim
 
@@ -87,7 +92,7 @@ class StepConfig:
     batch_size: int
     H: int
     W: int
-    pose_mode: str                  # "seg" | "gf" | "se3" | "fixed"
+    pose_mode: str                  # "seg" | "seg_pixel" | "gf" | "se3" | "fixed"
     n_segments: int = 1
     segment_img_num: int = 1
     pose_cfg: pp.PoseCfg = pp.PoseCfg()
@@ -105,6 +110,11 @@ class StepConfig:
     only_rotation: bool = False
     occupancy_sampling: bool = False  # importance samples from pose_static["occ_grid"]
     model_cfg: Dict[str, Any] = field(default=None)
+    deep_pose_cfg: Any = None       # pixel_pose.DeepPoseCfg of "seg_pixel"
+
+
+# the pose modes of a segment bank (``TrainState.bank_flat``, segment Adam)
+BANK_MODES = ("seg", "seg_pixel")
 
 
 def make_step_config(model_cfg, **kw) -> StepConfig:
@@ -113,16 +123,17 @@ def make_step_config(model_cfg, **kw) -> StepConfig:
 
 class StepScalars(NamedTuple):
     """Per-iteration inputs: host floats planned by the per-step loop, or
-    0-d device tensors on the scanned steps (``make_device_scalars``)."""
+    0-d device tensors on the scanned steps (``make_device_scalars``) and
+    the planned steps (``unpack_scalars_dev``)."""
     lr: float                # main Adam LR this step
     cos_anneal: float
     main_update: float = 1.0     # 0/1: detach_mesh_at_warm_up gate
     pose_update: float = 1.0     # 0/1: pose nets frozen (mesh warm-up)
     mask_guided: float = 1.0     # 0/1: bbox-guided pixel sampling active
     trans_head_on: float = 1.0   # 0/1: scale-head gate (disable_trans)
-    seg_touch: Optional[np.ndarray] = None   # [S] segments whose Adams step
-    seg_freeze: Optional[np.ndarray] = None  # [S] 1 = trainable, 0 = frozen
-    seg_lr: Optional[np.ndarray] = None      # [S] per-segment LR
+    seg_touch: Any = None    # [S] segments whose Adams step
+    seg_freeze: Any = None   # [S] 1 = trainable, 0 = frozen
+    seg_lr: Any = None       # [S] per-segment LR
 
 
 N_SCALAR_FIELDS = 9
@@ -152,24 +163,54 @@ def unpack_scalars_np(packed: np.ndarray, n_segments: int):
     return scalars, img_id, add_img_id, img_id_corr
 
 
+def unpack_scalars_dev(packed: torch.Tensor, n_segments: int):
+    """``unpack_scalars_np`` of a row on the device, reading nothing back:
+    0-d f32 scalars, the frame ids as int64 tensors of one element, the
+    segment vectors as views of the row."""
+    k, s = N_SCALAR_FIELDS, n_segments
+    scalars = StepScalars(
+        lr=packed[0], cos_anneal=packed[1], main_update=packed[2],
+        pose_update=packed[3], mask_guided=packed[4], trans_head_on=packed[5],
+        seg_touch=packed[k:k + s], seg_freeze=packed[k + s:k + 2 * s],
+        seg_lr=packed[k + 2 * s:k + 3 * s])
+    ids = packed[6:9].to(torch.int64)
+    return scalars, ids[0:1], ids[1:2], ids[2:3]
+
+
+def _pinned(arr) -> torch.Tensor:
+    """A host f32 array in fresh pinned memory (PyTorch's pinned allocator
+    does not hand the block out again before a copy from it is done)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return pinned.copy_(t)
+
+
+def copy_to_device_async_(dst: torch.Tensor, arr) -> torch.Tensor:
+    """``dst`` (f32, on its device) filled from the host array ``arr``: on
+    CUDA through pinned memory without blocking the host."""
+    if dst.device.type != "cuda":
+        return dst.copy_(torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)))
+    return dst.copy_(_pinned(arr), non_blocking=True)
+
+
 def to_device_async(arr, device) -> torch.Tensor:
     """A host f32 array on ``device``: on CUDA staged in fresh pinned
     memory and copied without blocking the host (PyTorch's pinned
     allocator does not hand the block out again before the copy is done)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
     if torch.device(device).type != "cuda":
-        return t.to(device)
-    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    pinned.copy_(t)
-    return pinned.to(device, non_blocking=True)
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)).to(device)
+    return _pinned(arr).to(device, non_blocking=True)
 
 
 def pose_of_frame(cfg: StepConfig, params, pose_bank, pose_static, cam_id):
     """c2w [3, 4] of frame ``cam_id`` under the pose model: a host int, or
-    (gf, se3, fixed; the scanned steps) a device id tensor of one element,
+    (the scanned and the planned steps) a device id tensor of one element,
     gathered with on the device."""
     if cfg.pose_mode == "seg":
         return pp.seg_apply(pose_bank, cfg.pose_cfg, cfg.segment_img_num, cam_id)
+    if cfg.pose_mode == "seg_pixel":
+        return px.seg_deep_apply(pose_bank, cfg.deep_pose_cfg, cfg.segment_img_num,
+                                 cam_id)
     if cfg.pose_mode == "gf":
         return pp.gf_apply({"train": params["pose"], "static": pose_static},
                            cfg.pose_cfg, cam_id)
@@ -180,8 +221,7 @@ def pose_of_frame(cfg: StepConfig, params, pose_bank, pose_static, cam_id):
             refine, raygen.frame_row(pose_static["noise_poses"], cam_id)[:3])
     if cfg.pose_mode == "fixed":
         return raygen.frame_row(pose_static["pose_all"], cam_id)[:3]
-    raise NotImplementedError(
-        f"pose_mode {cfg.pose_mode!r}: seg_pixel is ROADMAP queue 1, item 8")
+    raise ValueError(f"unknown pose_mode {cfg.pose_mode!r}")
 
 
 # the metrics of every step, in the order of the Runner's history columns
@@ -305,9 +345,10 @@ def _flow_loss(cfg: StepConfig, params, pose_bank, pose_static, render_out,
 
 
 def intr_inv_all_K(intr_inv_all, idx):
-    """K [3, 3] of frame ``idx`` from the stored inverse intrinsics
-    (``inv_ex``: no error check, so no device sync)."""
-    return torch.linalg.inv_ex(intr_inv_all[idx][:3, :3]).inverse
+    """K [3, 3] of frame ``idx`` (a host int or a device id) from the
+    stored inverse intrinsics (``inv_ex``: no error check, so no device
+    sync)."""
+    return torch.linalg.inv_ex(raygen.frame_row(intr_inv_all, idx)[:3, :3]).inverse
 
 
 def _flat_gate_masks(layout: convert.ParamLayout, device):
@@ -319,24 +360,26 @@ def _flat_gate_masks(layout: convert.ParamLayout, device):
 
 
 def _flat_bank_masks(layout: convert.ParamLayout, device):
-    """(lin3_trans, lin3_scale) 0/1 vectors over the flat bank order, and
-    the segment index of every position (``optim.seg_index``)."""
+    """(lin3_trans, lin3_scale) 0/1 vectors over the flat bank order (all
+    zero for the deep nets of ``seg_pixel``, which have no such heads),
+    and the segment index of every position (``optim.seg_index``)."""
     return (layout.mask(lambda n: n.startswith("lin3_trans."), device),
             layout.mask(lambda n: n.startswith("lin3_scale."), device),
             optim.seg_index(layout.shapes, device))
 
 
 def _apply_updates(cfg: StepConfig, state: TrainState, flat_g, scalars: StepScalars,
-                   masks, bank_g=None, bank_masks=None, seg_row=None, adam_step=None):
-    """Gate the flat gradient and take one Adam step; in seg mode also the
-    segment Adams.  The gates are exact 0/1 values: main_update zeroes the
+                   masks, adam_step, bank_g=None, bank_masks=None, seg_row=None):
+    """Gate the flat gradient and take one Adam step; in a bank mode also
+    the segment Adams.  The gates are exact 0/1 values: main_update zeroes the
     gradient but still steps (moment drift); pose leaves use the pose
     gate, which is also 0 whenever main_update is; with emphasize_rot the
     lin3_trans head never moves and lin3_scale follows trans_head_on.
     Bank positions take their segment's freeze gate times pose_update;
     ``seg_row`` [3, S] on the device is (touch, freeze, lr).  The scalars
-    are host floats, or 0-d device tensors with ``adam_step`` the device
-    step count of ``optim.adam_update_flat_dev_`` (the scanned steps)."""
+    are host floats or 0-d device tensors; ``adam_step`` is the flat
+    Adam's step count on the device (``optim.adam_update_flat_dev_``),
+    which every loop keeps there, so that all take the same arithmetic."""
     if cfg.pose_mode in ("gf", "se3"):
         m_pose, m_trans, m_scale = masks
         if isinstance(scalars.main_update, torch.Tensor):
@@ -350,12 +393,9 @@ def _apply_updates(cfg: StepConfig, state: TrainState, flat_g, scalars: StepScal
         flat_g = flat_g * gate
     else:
         flat_g = flat_g * scalars.main_update
-    if adam_step is None:
-        optim.adam_update_flat_(flat_g, state.opt, state.flat, scalars.lr)
-    else:
-        optim.adam_update_flat_dev_(flat_g, state.opt, state.flat, scalars.lr, adam_step)
+    optim.adam_update_flat_dev_(flat_g, state.opt, state.flat, scalars.lr, adam_step)
 
-    if cfg.pose_mode == "seg":
+    if cfg.pose_mode in BANK_MODES:
         m_trans, m_scale, idx = bank_masks
         touch, freeze, seg_lr = seg_row
         gate_b = ((freeze * scalars.pose_update)[idx] * (1.0 - m_trans)
@@ -365,46 +405,63 @@ def _apply_updates(cfg: StepConfig, state: TrainState, flat_g, scalars: StepScal
 
 
 def _seg_row(cfg: StepConfig, scalars: StepScalars, device):
-    """The step's (touch, freeze, lr) [3, S] on the device (seg mode)."""
-    if cfg.pose_mode != "seg":
+    """The step's (touch, freeze, lr) [3, S] on the device (bank modes)."""
+    if cfg.pose_mode not in BANK_MODES:
         return None
     return to_device_async(np.stack([scalars.seg_touch, scalars.seg_freeze,
                                      scalars.seg_lr]), device)
 
 
 def _gate_masks(cfg: StepConfig, state: TrainState, cache: dict) -> dict:
-    """The flat (and seg mode's bank) gate masks, built at the first call
-    and kept in ``cache``."""
+    """The flat (and a bank mode's bank) gate masks, built at the first
+    call and kept in ``cache``."""
     if "m" not in cache:
         dev = state.flat.device
         cache["m"] = _flat_gate_masks(state.layout, dev)
-        if cfg.pose_mode == "seg":
+        if cfg.pose_mode in BANK_MODES:
             cache["b"] = _flat_bank_masks(state.bank_layout, dev)
     return cache
 
 
 def _grads_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
-                      loss_of, cache: dict, seg_row=None, adam_step=None):
+                      loss_of, cache: dict, seg_row=None, *, adam_step):
     """Gradients of ``loss_of(params, pose_bank)`` in the flat buffers and
     the gated updates; returns the detached metrics."""
     _gate_masks(cfg, state, cache)
     with torch.enable_grad():
         loss, metrics = loss_of(state.params, state.pose_bank)
-        if cfg.pose_mode == "seg":
+        if cfg.pose_mode in BANK_MODES:
             flat_g, bank_g = torch.autograd.grad(loss, [state.flat, state.bank_flat])
         else:
             (flat_g,), bank_g = torch.autograd.grad(loss, state.flat), None
-    _apply_updates(cfg, state, flat_g, scalars, cache["m"], bank_g, cache.get("b"),
-                   seg_row, adam_step)
+    _apply_updates(cfg, state, flat_g, scalars, cache["m"], adam_step, bank_g,
+                   cache.get("b"), seg_row)
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def _adam_count(state: TrainState, cache: dict) -> torch.Tensor:
+    """The flat Adam's step count on the device for the per-step loop: a
+    0-d int32 kept in ``cache``, set from the host count (a fill, no copy)
+    wherever the two parted (a new Adam, a loaded checkpoint, steps run by
+    another step function), else advanced by the step itself."""
+    count = cache.get("adam_step")
+    if count is None:
+        count = cache["adam_step"] = torch.zeros((), dtype=torch.int32,
+                                                 device=state.flat.device)
+    if cache.get("adam_host") != state.opt.step:
+        count.fill_(state.opt.step)
+    cache["adam_host"] = state.opt.step + 1
+    return count
 
 
 def _step_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
                      loss_of, cache: dict):
-    """One planned step: ``_grads_and_update`` with the host's scalars,
-    then the host step count."""
+    """One planned step: ``_grads_and_update`` with the host's scalars and
+    the device Adam count (``_adam_count``), then the host counts."""
     seg_row = _seg_row(cfg, scalars, state.flat.device)  # its copy overlaps the forward
-    metrics = _grads_and_update(cfg, state, scalars, loss_of, cache, seg_row)
+    metrics = _grads_and_update(cfg, state, scalars, loss_of, cache, seg_row,
+                                adam_step=_adam_count(state, cache))
+    state.opt.step += 1
     state.iter_step += 1
     return metrics
 
@@ -466,23 +523,23 @@ def make_photo_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
     return run_one
 
 
-def make_flow_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
-    """Flow-pair step ``step(state, scalars, img_id, img_id_corr,
-    add_img_id, pixels_pair, add_pixels=None) -> (state, metrics)``: half
-    a batch of rays through the matched pixels of each frame (pixels_pair
-    [B/2, 4] = (x, y) in img_id_corr, (x, y) in img_id; host numpy or a
-    tensor), plus the maintain_shape batch.  Updates in place."""
+def make_flow_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
+    """The flow-pair loss closure used by make_flow_step: half a batch of
+    rays through the matched pixels of each frame (pixels_pair [B/2, 4] =
+    (x, y) in img_id_corr, (x, y) in img_id, a device tensor), plus the
+    maintain_shape batch.  Frame ids are host ints or device ids."""
     K_all = torch.linalg.inv_ex(intr_inv_all[:, :3, :3]).inverse  # once
-    cache = {}
 
-    def loss_fn(params, pose_bank, state, img_id, img_id_corr, add_img_id,
-                pixels_xy, pixels_xy_corr, scalars, add_pixels):
+    def loss_fn(params, state: TrainState, img_id, img_id_corr, add_img_id,
+                pixels_pair, scalars, add_pixels=None, pose_bank=None):
+        pixels_xy_corr, pixels_xy = pixels_pair[:, 0:2], pixels_pair[:, 2:4]
         pose_corr = pose_of_frame(cfg, params, pose_bank, state.pose_static,
                                   img_id_corr)
         pose1 = pose_of_frame(cfg, params, pose_bank, state.pose_static, img_id)
-        ro_c, rv_c = raygen.gen_flow_rays(pixels_xy_corr, intr_inv_all[img_id_corr],
-                                          pose_corr)
-        ro_1, rv_1 = raygen.gen_flow_rays(pixels_xy, intr_inv_all[img_id], pose1)
+        ro_c, rv_c = raygen.gen_flow_rays(
+            pixels_xy_corr, raygen.frame_row(intr_inv_all, img_id_corr), pose_corr)
+        ro_1, rv_1 = raygen.gen_flow_rays(
+            pixels_xy, raygen.frame_row(intr_inv_all, img_id), pose1)
         col_c = raygen.gather_rgb(images, img_id_corr, pixels_xy_corr[:, 1].long(),
                                   pixels_xy_corr[:, 0].long())
         col_1 = raygen.gather_rgb(images, img_id, pixels_xy[:, 1].long(),
@@ -495,21 +552,31 @@ def make_flow_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
                 cfg, state, images, masks, intr_inv_all, bbox_table, params,
                 pose_bank, add_img_id, scalars, add_pixels)], dim=0)
         flow_ctx = (img_id, img_id_corr, pixels_xy, pixels_xy_corr,
-                    K_all[img_id_corr], K_all[img_id])
+                    raygen.frame_row(K_all, img_id_corr), raygen.frame_row(K_all, img_id))
         return _render_and_losses(cfg, state.generator, params, state.pose_static,
                                   data, scalars, flow_ctx=flow_ctx,
                                   pose_bank=pose_bank)
+
+    return loss_fn
+
+
+def make_flow_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
+    """Flow-pair step ``step(state, scalars, img_id, img_id_corr,
+    add_img_id, pixels_pair, add_pixels=None) -> (state, metrics)``
+    (``make_flow_loss``; pixels_pair host numpy or a tensor).  Updates in
+    place."""
+    loss_fn = make_flow_loss(cfg, images, masks, intr_inv_all, bbox_table)
+    cache = {}
 
     def run_one(state: TrainState, scalars: StepScalars, img_id, img_id_corr,
                 add_img_id, pixels_pair, add_pixels=None):
         if not isinstance(pixels_pair, torch.Tensor):
             pixels_pair = to_device_async(pixels_pair, state.flat.device)
-        pixels_xy_corr, pixels_xy = pixels_pair[:, 0:2], pixels_pair[:, 2:4]
         metrics = _step_and_update(
             cfg, state, scalars,
-            lambda params, bank: loss_fn(params, bank, state, img_id, img_id_corr,
-                                         add_img_id, pixels_xy, pixels_xy_corr,
-                                         scalars, add_pixels),
+            lambda params, bank: loss_fn(params, state, img_id, img_id_corr,
+                                         add_img_id, pixels_pair, scalars,
+                                         add_pixels, bank),
             cache)
         return state, metrics
 
@@ -550,6 +617,20 @@ def make_device_scalars(schedule: Dict[str, float], device):
                            trans_head_on=one)
 
     return device_scalars
+
+
+def state_buffers(state: TrainState):
+    """The tensors a step writes (the flat parameters and Adam moments, and
+    in a bank mode the bank and its Adam) and those it only reads (the
+    pose buffers, the bank's static buffers): a captured step keeps their
+    addresses, so a state whose buffers moved needs a new capture."""
+    written = [state.flat, state.opt.mu, state.opt.nu]
+    read = list(state.pose_static.values())
+    if state.bank_flat is not None:
+        po = state.pose_opt
+        written += [state.bank_flat, po.step, po.mu, po.nu]
+        read += [v for v in state.bank_static.values() if isinstance(v, torch.Tensor)]
+    return written, read
 
 
 class ScanCarry(NamedTuple):
@@ -620,15 +701,13 @@ class ScanPhotoSteps:
     def _step_graph(self, state: TrainState, n_images_cur: int):
         """The captured step of (state, n_images_cur), built at its first use."""
         from fmov_pose_torch.train import graph
-        # the graph reads and writes these addresses: a state whose buffers
-        # moved (a checkpoint loaded into new tensors) needs a new capture
-        key = (n_images_cur, id(state.generator), *(t.data_ptr() for t in (
-            state.flat, state.opt.mu, state.opt.nu, *state.pose_static.values())))
+        written, read = state_buffers(state)
+        key = (n_images_cur, id(state.generator), *(t.data_ptr() for t in written + read))
         if self.graph is None or self._graph_key != key:
             _gate_masks(self.cfg, state, self.cache)
             self.graph = graph.StepGraph(
                 lambda: self.step(state, self.carry, n_images_cur), state.generator,
-                [state.flat, state.opt.mu, state.opt.nu, *self.carry])
+                written + list(self.carry))
             self._graph_key = key
         return self.graph
 
@@ -660,3 +739,118 @@ class ScanPhotoSteps:
         state.iter_step += self.k
         state.opt.step += self.k
         return carry.metric_sum / self.k
+
+
+class PlannedSteps:
+    """Chunks of host-planned steps, photo and flow mixed (the counterpart
+    of the JAX ``make_planned_steps``): the Runner plans every step of a
+    chunk on the host (``Runner._plan_step``) and ``chunk(state, rows,
+    use_flow)`` runs them.
+
+    ``rows`` [k, R]: each step's packed row (``pack_scalars_np``, 9 + 3S)
+    followed, with flow on, by its match pixels [B/2, 4] raveled (zeros on
+    a photo row); ``use_flow`` [k]: which steps are flow steps.  The rows
+    go to the device in one pinned copy a chunk (``copy_to_device_async_``)
+    into a buffer of ``k_steps`` rows, and a device cursor says which row a
+    step reads (``unpack_scalars_dev``: nothing is read back).  The flat
+    Adam counts on the device (``optim.adam_update_flat_dev_``), set from
+    the host count before the chunk; the host counts (``state.iter_step``,
+    ``state.opt.step``) advance by k after it.  Each step's metrics go to
+    its row of a device buffer: the call returns them, [k,
+    len(METRIC_NAMES)].
+
+    On CUDA the photo step and (with ``flow_weight > 0``) the flow step
+    are captured into a CUDA graph each at the first call
+    (``train/graph.py``), and the host replays the one each row's flag
+    names; ``capture=False`` runs the same steps eagerly, as the CPU
+    does.  The graphs are taken again when the state's buffers move
+    (``state_buffers``: a field reset, a checkpoint loaded)."""
+
+    def __init__(self, cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
+                 k_steps: int, capture=None, depths=None):
+        if k_steps < 2:
+            raise ValueError(f"planned chunks take at least 2 steps, not {k_steps}")
+        self.cfg, self.k = cfg, int(k_steps)
+        dev = self.device = images.device
+        self.photo_loss = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table,
+                                          depths)
+        self.flow_loss = (make_flow_loss(cfg, images, masks, intr_inv_all, bbox_table)
+                          if cfg.flow_weight > 0 else None)
+        self.n_packed = N_SCALAR_FIELDS + 3 * cfg.n_segments
+        width = self.n_packed + (4 * (cfg.batch_size // 2) if self.flow_loss else 0)
+        self.rows = torch.zeros((self.k, width), dtype=torch.float32, device=dev)
+        self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        self.adam_step = torch.zeros((), dtype=torch.int32, device=dev)
+        self.metrics = torch.zeros((self.k, len(METRIC_NAMES)), dtype=torch.float32,
+                                   device=dev)
+        self.capture = dev.type == "cuda" if capture is None else capture
+        self.cache = {}
+        self.graphs = {}
+        self.captures = 0  # times the steps were captured
+        self._graph_key = None
+
+    def step(self, state: TrainState, use_flow: bool):
+        """The step of row ``cursor``, on ``state`` in place; the cursor
+        advances."""
+        cfg = self.cfg
+        row = self.rows.index_select(0, self.cursor.reshape(1))[0]
+        scalars, img_id, add_img_id, img_id_corr = unpack_scalars_dev(
+            row[:self.n_packed], cfg.n_segments)
+        seg_row = (row[N_SCALAR_FIELDS:self.n_packed].view(3, cfg.n_segments)
+                   if cfg.pose_mode in BANK_MODES else None)
+        if use_flow:
+            pixels = row[self.n_packed:].view(-1, 4)
+
+            def loss_of(params, bank):
+                return self.flow_loss(params, state, img_id, img_id_corr, add_img_id,
+                                      pixels, scalars, pose_bank=bank)
+        else:
+            def loss_of(params, bank):
+                return self.photo_loss(params, state, img_id, scalars,
+                                       add_img_id=add_img_id, pose_bank=bank)
+        metrics = _grads_and_update(cfg, state, scalars, loss_of, self.cache, seg_row,
+                                    adam_step=self.adam_step)
+        self.metrics.index_copy_(0, self.cursor.reshape(1), torch.stack(
+            [metrics[k] for k in METRIC_NAMES])[None])
+        self.cursor.add_(1)
+
+    def _step_graphs(self, state: TrainState):
+        """{use_flow: the captured step}, built at the first use and again
+        when the state's buffers moved."""
+        from fmov_pose_torch.train import graph
+        written, read = state_buffers(state)
+        key = (id(state.generator), *(t.data_ptr() for t in written + read))
+        if self._graph_key != key:
+            self.graphs = {}  # the old captures' memory goes first
+            _gate_masks(self.cfg, state, self.cache)
+            mutable = written + [self.cursor, self.adam_step, self.metrics]
+            for use_flow in ((False, True) if self.flow_loss else (False,)):
+                self.graphs[use_flow] = graph.StepGraph(
+                    lambda uf=use_flow: self.step(state, uf), state.generator, mutable)
+            self.captures += 1
+            self._graph_key = key
+        return self.graphs
+
+    def __call__(self, state: TrainState, rows, use_flow):
+        """len(use_flow) <= k_steps planned steps on ``state`` in place;
+        returns their metrics [k, len(METRIC_NAMES)] (a view of the
+        buffer, valid until the next call)."""
+        k = len(use_flow)
+        if not 0 < k <= self.k or len(rows) != k:
+            raise ValueError(f"a chunk of {len(rows)} rows and {k} flags, at most "
+                             f"{self.k}")
+        if any(use_flow) and self.flow_loss is None:
+            raise ValueError("a flow step planned without flow_weight > 0")
+        copy_to_device_async_(self.rows[:k], rows)
+        self.cursor.zero_()
+        self.adam_step.fill_(state.opt.step)
+        if self.capture:
+            graphs = self._step_graphs(state)
+            for uf in use_flow:
+                graphs[bool(uf)].replay()
+        else:
+            for uf in use_flow:
+                self.step(state, bool(uf))
+        state.iter_step += k
+        state.opt.step += k
+        return self.metrics[:k]

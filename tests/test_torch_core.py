@@ -274,3 +274,154 @@ def test_rays_grid_and_near_far(frames):
     nt, ft = trays.near_far_from_sphere(ot.reshape(-1, 3), dt.reshape(-1, 3))
     _close(nj, nt)
     _close(fj, ft)
+
+
+# ---------------------------------------------------------------------------
+# core/quaternion.py (tests/test_quaternion.py against the JAX functions)
+# ---------------------------------------------------------------------------
+
+def _random_R(n, seed=0):
+    from scipy.spatial.transform import Rotation
+    return Rotation.random(n, random_state=seed).as_matrix().astype(np.float32)
+
+
+def _quats():
+    from fmov_pose_tpu.core import quaternion as jq
+    from fmov_pose_torch.core import quaternion as tq
+    return jq, tq
+
+
+def test_quaternion_R_round_trip_matches_jax():
+    from scipy.spatial.transform import Rotation
+    jq, tq = _quats()
+    R = _random_R(64)
+    q = tq.R_to_q(torch.from_numpy(R))
+    _close(jq.R_to_q(jnp.asarray(R)), q, 1e-6)
+    _close(jq.q_to_R(jnp.asarray(q.numpy())), tq.q_to_R(q), 1e-6)
+    np.testing.assert_allclose(tq.q_to_R(q).numpy(), R, atol=2e-3)
+    # against scipy's, up to the quaternion's sign
+    q_sp = Rotation.from_matrix(R[:32]).as_quat()
+    q_sp = np.concatenate([q_sp[:, 3:], q_sp[:, :3]], axis=-1)
+    sign = np.sign(np.sum(q.numpy()[:32] * q_sp, axis=-1, keepdims=True))
+    np.testing.assert_allclose(q.numpy()[:32], q_sp * sign, atol=2e-3)
+
+
+def test_quaternion_product_invert_matches_jax():
+    from scipy.spatial.transform import Rotation
+    jq, tq = _quats()
+    R = _random_R(16, seed=2)
+    q_sp = Rotation.from_matrix(R).as_quat()
+    q = np.concatenate([q_sp[:, 3:], q_sp[:, :3]], axis=-1).astype(np.float32)
+    qt = torch.from_numpy(q)
+    _close(jq.q_invert(jnp.asarray(q)), tq.q_invert(qt), 1e-6)
+    prod = tq.q_product(qt[:8], qt[8:])
+    _close(jq.q_product(jnp.asarray(q[:8]), jnp.asarray(q[8:])), prod, 1e-6)
+    ident = tq.q_product(qt, tq.q_invert(qt)).numpy()
+    np.testing.assert_allclose(ident, np.tile([1.0, 0, 0, 0], (16, 1)), atol=1e-5)
+    np.testing.assert_allclose(tq.q_to_R(prod).numpy(), R[:8] @ R[8:], atol=1e-5)
+
+
+@pytest.mark.parametrize("u", [0.0, 0.25, 0.5, 1.0])
+def test_quaternion_slerp_matches_jax(u):
+    from scipy.spatial.transform import Rotation
+    jq, tq = _quats()
+    R = _random_R(2, seed=3)
+    q0, q1 = tq.R_to_q(torch.from_numpy(R))
+    got = tq.slerp(q0, q1, u)
+    _close(jq.slerp(jnp.asarray(q0.numpy()), jnp.asarray(q1.numpy()), u), got, 1e-6)
+    if u == 0.5:  # the midpoint is equidistant in rotation angle
+        Rm = tq.q_to_R(got).numpy()
+        d0 = Rotation.from_matrix(R[0].T @ Rm).magnitude()
+        d1 = Rotation.from_matrix(R[1].T @ Rm).magnitude()
+        np.testing.assert_allclose(d0, d1, atol=1e-4)
+    # near-equal quaternions take the linear branch
+    _close(jq.slerp(jnp.asarray(q0.numpy()), jnp.asarray(q0.numpy()), u),
+           tq.slerp(q0, q0.clone(), u), 1e-6)
+
+
+@pytest.mark.parametrize("axis", ["X", "Y", "Z"])
+def test_angle_to_rotation_matrix_matches_jax(axis):
+    jq, tq = _quats()
+    a = np.linspace(-3.0, 3.0, 7).astype(np.float32)
+    _close(jq.angle_to_rotation_matrix(jnp.asarray(a), axis),
+           tq.angle_to_rotation_matrix(torch.from_numpy(a), axis), 1e-6)
+
+
+def test_novel_view_poses_match_jax():
+    jq, tq = _quats()
+    anchor = np.eye(3, 4, dtype=np.float32)
+    anchor[2, 3] = 2.0
+    anchor[:3, :3] = _random_R(1, seed=5)[0]
+    for n, scale in ((12, 1.0), (60, 0.5)):
+        got = tq.get_novel_view_poses(torch.from_numpy(anchor), N=n, scale=scale)
+        assert got.shape == (n, 3, 4)
+        _close(jq.get_novel_view_poses(jnp.asarray(anchor), N=n, scale=scale), got, 1e-5)
+        R = got[:, :, :3].numpy()
+        np.testing.assert_allclose(np.einsum("nij,nik->njk", R, R),
+                                   np.broadcast_to(np.eye(3), (n, 3, 3)), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# utils/misc.py against the JAX copy
+# ---------------------------------------------------------------------------
+
+def _miscs():
+    pytest.importorskip("cv2")
+    from fmov_pose_tpu.utils import misc as jm
+    from fmov_pose_torch.utils import misc as tm
+    return jm, tm
+
+
+def test_misc_numpy_helpers_match_jax():
+    jm, tm = _miscs()
+    rng = np.random.default_rng(0)
+    pred, gt = rng.random((20, 30)) > 0.4, rng.random((20, 30)) > 0.5
+    assert tm.calculate_mask_metrics(pred, gt) == jm.calculate_mask_metrics(pred, gt)
+    assert tm.calculate_mask_metrics(pred * 0, gt) == jm.calculate_mask_metrics(pred * 0, gt)
+    flow = rng.normal(size=(24, 32, 2)) * 3
+    np.testing.assert_array_equal(tm.flow_to_color(flow), jm.flow_to_color(flow))
+    for pose in (rng.normal(size=(4, 4)), np.eye(4)):
+        np.testing.assert_array_equal(tm.normalize_pose_translation(pose),
+                                      jm.normalize_pose_translation(pose))
+    v = rng.normal(size=(100, 3))
+    for a, b in zip(tm.get_center_radius(v), jm.get_center_radius(v)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_misc_cv2_helpers_match_jax():
+    jm, tm = _miscs()
+    rng = np.random.default_rng(1)
+    mask = np.zeros((60, 80), bool)
+    mask[10:50, 15:70] = True
+    for ratio in (0.9, 0.5):
+        got = tm.shrink_mask(mask, ratio)
+        np.testing.assert_array_equal(got, jm.shrink_mask(mask, ratio))
+        assert got.sum() < mask.sum() or ratio > 0.8  # a 1-pixel element at 0.9
+    img1 = rng.integers(0, 255, (40, 50, 3)).astype(np.uint8)
+    img2 = rng.integers(0, 255, (30, 60, 3)).astype(np.uint8)
+    pts1, pts2 = rng.random((120, 2)) * 30, rng.random((120, 2)) * 30
+    np.testing.assert_array_equal(tm.draw_matches(img1, pts1, img2, pts2),
+                                  jm.draw_matches(img1, pts1, img2, pts2))
+
+
+def test_misc_colorize_matches_jax(monkeypatch):
+    matplotlib = pytest.importorskip("matplotlib")
+    import matplotlib.cm as cm
+    jm, tm = _miscs()
+    # the JAX copy asks matplotlib.cm for get_cmap, which matplotlib 3.9
+    # removed; the port reads matplotlib.colormaps, which it stands for
+    monkeypatch.setattr(cm, "get_cmap", lambda name: matplotlib.colormaps[name],
+                        raising=False)
+    rng = np.random.default_rng(2)
+    x, mask = rng.normal(size=(16, 20)), rng.random((16, 20)) > 0.3
+    for kw in ({}, {"mask": mask}, {"cmap_name": "viridis", "mask": mask}):
+        np.testing.assert_array_equal(tm.colorize_np(x, **kw), jm.colorize_np(x, **kw))
+
+
+def test_misc_cluster_matches_jax():
+    pytest.importorskip("sklearn")
+    jm, tm = _miscs()
+    img = np.random.default_rng(3).random((12, 14, 3)).astype(np.float32)
+    (lt, ct), (lj, cj) = tm.cluster_and_color_image(img, 3), jm.cluster_and_color_image(img, 3)
+    np.testing.assert_array_equal(lt, lj)
+    np.testing.assert_array_equal(ct, cj)

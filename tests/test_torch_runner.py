@@ -335,22 +335,59 @@ def test_cli_needs_cuda_unless_given_a_device():
         exp_runner.main(["--mode", "train", "--conf", "unused.conf"])
 
 
-@pytest.mark.parametrize("key,extra,match", [
-    ("progressive = True", "progressive = True\n    plan_chunk = 4", "plan_chunk"),
-    ("pose_type = seg", "pose_type = seg\n    pixel_level = True", "pixel_level")])
-def test_runner_rejects_progressive_conf(tmp_path, key, extra, match):
-    """A progressive seg conf trains (tests/test_torch_progressive.py), but
-    its opt-in planned dispatch and pixel-level banks raise, naming their
-    ROADMAP item, before any data is read."""
+def _precision_conf(tmp_path, value):
+    conf = _tiny_conf(tmp_path, 2)
+    if value is not None:
+        with open(conf) as f:
+            text = f.read().replace("train {", f"train {{\n    matmul_precision = {value}", 1)
+        with open(conf, "w") as f:
+            f.write(text)
+    return conf
+
+
+@pytest.mark.parametrize("value,setting", [("highest", "highest"), ("high", "high"),
+                                           ("default", "medium"), (None, None)])
+def test_matmul_precision_while_training(tmp_path, monkeypatch, value, setting):
+    """``train.matmul_precision`` (the JAX Runner's values) sets PyTorch's
+    f32 matmul precision by ``MATMUL_PRECISION`` while ``train`` and
+    ``eval_render`` run, and restores the caller's after each; without
+    the key the caller's setting stays."""
+    from fmov_pose_torch.render import neus
+    from fmov_pose_torch.train import runner as trunner
+    seen = []
+    render = neus.render
+
+    def recorded(*args, **kwargs):
+        seen.append(torch.get_float32_matmul_precision())
+        return render(*args, **kwargs)
+
+    monkeypatch.setattr(neus, "render", recorded)
+    saved = torch.get_float32_matmul_precision()
+    caller = "medium" if setting == "high" else "high"
+    try:
+        torch.set_float32_matmul_precision(caller)
+        runner = trunner.Runner(_precision_conf(tmp_path, value), device="cpu")
+        assert runner.matmul_precision == setting
+        assert torch.get_float32_matmul_precision() == caller
+        runner.train()
+        n_train = len(seen)
+        rays = torch.tensor([[0.0, 0.0, -2.0]]), torch.tensor([[0.0, 0.0, 1.0]])
+        runner.eval_render(*rays, torch.tensor([[1.0]]), torch.tensor([[3.0]]), 1.0)
+        assert torch.get_float32_matmul_precision() == caller
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert n_train == 2 and len(seen) == 3
+    assert seen == [setting or caller] * 3
+
+
+def test_matmul_precision_rejects_other_values(tmp_path):
+    """Any other value raises ValueError, as in the JAX Runner, and
+    changes no setting."""
     from fmov_pose_torch.train.runner import Runner
-    conf = tmp_path / "prog.conf"
-    conf.write_text(CONF.format(exp_dir=tmp_path / "exp", data_dir=tmp_path)
-                    .replace("pose_type = gf", "pose_type = seg")
-                    .replace("mask_guided_sampling = True",
-                             "mask_guided_sampling = True\n    progressive = True")
-                    .replace(key, extra))
-    with pytest.raises(NotImplementedError, match=match + ".*ROADMAP queue 1"):
-        Runner(str(conf), device="cpu", scene=object())
+    before = torch.get_float32_matmul_precision()
+    with pytest.raises(ValueError, match="matmul_precision must be default/high/highest"):
+        Runner(_precision_conf(tmp_path, "medium"), device="cpu")
+    assert torch.get_float32_matmul_precision() == before
 
 
 def test_port_imports_no_jax():
