@@ -4,8 +4,8 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
     python3 chip_smoke.py train-kernels flat-kernels   # device, build and
                                  # the named kernel phases only, no result line
-    python3 chip_smoke.py planned scan quality   # those run phases only, no
-                                 # result line
+    python3 chip_smoke.py planned scan quality dp   # those run phases only,
+                                 # no result line
 
 Phases, each printing lines as it ends:
   1. device   -- require CUDA; the card, its power limit, CUDA and nvcc
@@ -166,6 +166,29 @@ Phases, each printing lines as it ends:
                  1's orbit errors (``quality.orbit_errors``: each
                  transition's relative rotation error, the degrees a frame
                  learned and true, the radii)
+ 19. dp       -- data parallelism (parallel/dp.py) in child processes of
+                 this script, so that no process group outlives the phase:
+                 (a) two ranks on the one card over gloo (NCCL refuses two
+                 ranks on one device): one data-parallel step on a given
+                 global batch of pixels (perturbation 0, each rank its
+                 rows) against one process on the whole batch, the loss
+                 within 1e-3 and the Adam moments by the leaf rule, on the
+                 fast phase-2 conf as shipped (512 rays, 256 a rank: below
+                 the rays gate, so each rank takes K2/K3 and the f32
+                 color; the loss within 1e-2, the leaf rule reported), on
+                 a copy with 1,024 rays (512 a rank: K4/K5/K8/K9) and on
+                 the fast phase-1 conf (a photo and a flow step, segment
+                 bank, maintain_shape, K2/K3); then Runner.train 50 steps
+                 on each rank of the 1,024-ray copy (grid refreshed after
+                 steps 25 and 50) and of phase 1 with slice 3's schedule:
+                 finite, falling losses, the ranks' states bitwise equal,
+                 the same frame on both in every step and different rays,
+                 rank 1 wrote no file, the kernels once a step on each
+                 rank; (b) one rank over NCCL on confs/ho3d_global_womask.conf:
+                 50 data-parallel scanned steps captured into one graph
+                 with their all-reduces (K1 4 a replay), bitwise the same
+                 chunk eager and the captured chunk without a group;
+                 all-reduces a step, ms a step and peak memory per rank
 The phases before "scan" but "planned" run the per-step loop (slice 1
 sets train.scan_steps off; the other confs are not scan-eligible as cut).
 Then one JSON line of kernel results (each with its launches in its
@@ -2681,6 +2704,420 @@ def phase_bf16(dev, smi, scene, tmp, f32_step_ms, f32_graph_ms):
     return {"per_step": counts["K1"], "scan": scan_counts["K1"]}
 
 
+# data parallelism (parallel/dp.py) on the one card: two ranks in child
+# processes over gloo (NCCL refuses two ranks on one device), then one
+# rank over NCCL with the all-reduces captured into the scanned step
+DP_WORLD = 2
+DP_SCAN_K = 50
+DP_CHILD_TIMEOUT_S = 400
+DP_LOSS_TOL = 1e-3    # a data-parallel step against one process, same kernels
+DP_ROUTE_TOL = 1e-2   # the same where the ranks' smaller batch takes other kernels
+
+
+def _clone_state(st):
+    """A copy of a training state: its own tensors and generator."""
+    import torch
+    from fmov_pose_torch.train import optim
+    gen = torch.Generator(device=st.flat.device)
+    gen.set_state(st.generator.get_state())
+    out = dataclasses.replace(
+        st, flat=st.flat.detach().clone().requires_grad_(True),
+        opt=optim.AdamState(st.opt.step, st.opt.mu.clone(), st.opt.nu.clone()),
+        pose_static={k: v.clone() for k, v in st.pose_static.items()},
+        generator=gen, ray_generator=None)
+    if st.bank_flat is not None:
+        po = st.pose_opt
+        out.bank_flat = st.bank_flat.detach().clone().requires_grad_(True)
+        out.bank_static = dict(st.bank_static)
+        out.pose_opt = optim.SegAdamState(po.step.clone(), po.mu.clone(), po.nu.clone())
+    return out
+
+
+def _state_digest(st):
+    """sha256 of every tensor a step writes or reads (``state_buffers``)."""
+    import hashlib
+    from fmov_pose_torch.train import step as step_mod
+    written, read = step_mod.state_buffers(st)
+    h = hashlib.sha256()
+    for t in written + read:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _moment_rule(runner, ref, got):
+    """The leaf rule on the first Adam moments of two states (after a first
+    step, 0.1 x the gated gradient), the flat leaves and the bank's."""
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.ops import fused_sdf
+    pairs = [(runner.state.layout, ref.opt.mu, got.opt.mu)]
+    if got.bank_flat is not None:
+        pairs.append((runner.state.bank_layout, ref.pose_opt.mu, got.pose_opt.mu))
+    ref_l, got_l = {}, {}
+    for i, (layout, a, b) in enumerate(pairs):
+        ref_l.update({f"{i}.{n}": t for n, t in convert.flatten(layout.views(a.cpu()))})
+        got_l.update({f"{i}.{n}": t for n, t in convert.flatten(layout.views(b.cpu()))})
+    return fused_sdf.leaf_rule(ref_l, got_l)
+
+
+class _CountCollectives:
+    """Counts ``torch.distributed.all_reduce`` calls inside the block."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.n, self._real = 0, dist.all_reduce
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self._real(*a, **kw)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce = self._real
+
+
+def _dp_runner(conf, scene, dev, exp, schedule=None):
+    from fmov_pose_torch.train.runner import Runner
+    runner = Runner(conf, mode="train", case="orbit_smoke", exp_dir=exp, seed=SEED,
+                    device=dev, scene=scene)
+    runner.end_iter, runner.warm_up_end = STEPS, 0.0
+    runner.conf.put("train.scan_steps", False)
+    for key, value in (schedule or {}).items():
+        setattr(runner, key, value)
+        runner.conf.put(f"train.{key}", value)
+    _require(runner.use_dp, f"{conf}: no data parallelism over {DP_WORLD} ranks")
+    return runner
+
+
+def _dp_step_check(name, conf, scene, dev, tmp, rank, flow, tol, once, schedule=None):
+    """One data-parallel photo step (and with ``flow`` one flow step after
+    it) on a given global batch of pixels, perturbation 0, each rank its
+    rows, launching each kernel of ``once`` once and no other; rank 0 also
+    runs the one-process step on the whole batch from the same state.
+    Returns the rank's result (the state's digest, and on rank 0 the
+    losses and the leaf rule on the moments)."""
+    import numpy as np
+    import torch
+    from fmov_pose_torch.train import step as step_mod
+    runner = _dp_runner(conf, scene, dev, os.path.join(tmp, f"dp_rank{rank}", name),
+                        schedule)
+    runner.model_cfg["renderer"] = runner.model_cfg["renderer"]._replace(perturb=0.0)
+    runner.current_image = scene.n_images
+    st = runner.state
+    ref = _clone_state(st) if rank == 0 else None
+    bufs = (runner.images_dev, runner.masks_dev, runner.intr_inv_dev, runner.bbox_dev)
+    B, img_id = runner.batch_size, 0
+    rng = np.random.default_rng(SEED)
+    y0, y1, x0, x1 = (int(v) for v in scene.mask_bboxes[img_id])
+    px, py, apx, apy = (torch.as_tensor(rng.integers(lo, hi, B), device=dev)
+                        for lo, hi in ((x0, x1), (y0, y1), (x0, x1), (y0, y1)))
+    n = B // DP_WORLD
+    mine = slice(rank * n, (rank + 1) * n)
+    S = runner.n_segments
+    scalars = step_mod.StepScalars(
+        lr=runner.learning_rate, cos_anneal=1.0, seg_touch=np.ones(S, np.float32),
+        seg_freeze=np.ones(S, np.float32),
+        seg_lr=np.full(S, runner.pose_lr, np.float32))
+    add = (apx[mine], apy[mine]) if runner.maintain_shape else None
+    add_all = (apx, apy) if runner.maintain_shape else None
+    steps = [("photo", lambda s, fn: fn(s, scalars, img_id, 1, pixels=(px[mine], py[mine]),
+                                        add_pixels=add),
+              lambda s, fn: fn(s, scalars, img_id, 1, pixels=(px, py), add_pixels=add_all))]
+    if flow:
+        pair = runner._sample_flow_pair(1)  # the host RNG: the same on both ranks
+        _require(pair is not None, "no match pairs for frame 1")
+        img, pixels, pixels_corr = pair
+        pp_ = np.concatenate([pixels_corr, pixels], -1)
+        steps.append(("flow", lambda s, fn: fn(s, scalars, img, 1, 0, pp_, add),
+                      lambda s, fn: fn(s, scalars, img, 1, 0, pp_, add_all)))
+    out = {"steps": []}
+    ref_photo = step_mod.make_photo_step(runner.step_cfg, *bufs)
+    ref_flow = step_mod.make_flow_step(runner.step_cfg, *bufs)
+    with torch.no_grad():
+        grid = st.pose_static.get("occ_grid")
+    for kind, dp_call, ref_call in steps:
+        fn = runner.flow_step if kind == "flow" else runner.photo_step
+        _zero_counters()
+        with _CountCollectives() as cc:
+            _, m = dp_call(st, fn)
+        loss = float(m["loss"])
+        res = {"kind": kind, "loss": loss, "digest": _state_digest(st),
+               "collectives": cc.n, "launches": _counters()}
+        _require(all(v == (k in once) for k, v in res["launches"].items()),
+                 f"{name} {kind}: launches {res['launches']}, expected {once} once")
+        if rank == 0:
+            _, mr = ref_call(ref, ref_flow if kind == "flow" else ref_photo)
+            rel = abs(loss - float(mr["loss"])) / abs(float(mr["loss"]))
+            rule = _moment_rule(runner, ref, st)
+            res.update(loss_one_process=float(mr["loss"]), rel=rel,
+                       leaf_rule={k: rule[k] for k in ("ok", "worst", "worst_rel",
+                                                         "failed")})
+            _line("dp", part="gloo", check=f"{name}_{kind}_step_vs_one_process",
+                  rays_per_rank=n, loss_dp=f"{loss:.6f}", loss_one=f"{float(mr['loss']):.6f}",
+                  rel=f"{rel:.2e}", tol=tol, collectives=cc.n,
+                  dp_launches=json.dumps(res["launches"]).replace(" ", ""),
+                  leaf_rule=json.dumps(res["leaf_rule"]).replace(" ", ""))
+            _require(math.isfinite(loss) and rel < tol,
+                     f"{name} {kind}: the data-parallel loss {loss} against {mr['loss']}")
+            _require(rule["ok"] or tol != DP_LOSS_TOL,
+                     f"{name} {kind}: the leaf rule on the moments: {rule}")
+        out["steps"].append(res)
+    out["grid_all_ones"] = bool(grid is None or (grid == 1).all())
+    return out
+
+
+def _dp_train(name, conf, scene, dev, tmp, rank, schedule=None, occ_update_freq=None):
+    """``Runner.train`` of STEPS steps on this rank; its launches (counts
+    zeroed just before), the frames it planned, the first ray batches'
+    digests, the state's digest, the files it wrote, times and memory."""
+    import hashlib
+    import torch
+    from fmov_pose_torch.data import rays as raygen
+    exp = os.path.join(tmp, f"dp_rank{rank}", f"train_{name}")
+    runner = _dp_runner(conf, scene, dev, exp, schedule)
+    if occ_update_freq:
+        runner.occ_update_freq = occ_update_freq
+    plans, rays = [], []
+    plan_step, gen_random_rays = runner._plan_step, raygen.gen_random_rays
+
+    def recorded_plan():
+        out = plan_step()
+        plans.append((out[3], bool(out[1])))
+        return out
+
+    def recorded_rays(*a, **kw):
+        data = gen_random_rays(*a, **kw)
+        if len(rays) < 5:
+            rays.append(hashlib.sha256(data.detach().cpu().numpy().tobytes()).hexdigest())
+        return data
+
+    runner._plan_step, raygen.gen_random_rays = recorded_plan, recorded_rays
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    try:
+        with _CountCollectives() as cc:
+            runner.train()
+    finally:
+        raygen.gen_random_rays = gen_random_rays
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    h = runner.history
+    files = [os.path.relpath(os.path.join(d, f), exp)
+             for d, _, fs in os.walk(runner.base_exp_dir) for f in fs]
+    step_ms = statistics.median(runner.step_ms)
+    _line("dp", part="gloo", check=f"train_{name}", rank=rank, dispatch=repr(runner.dispatch),
+          steps=len(h["loss"]), loss_first=f"{h['loss'][0]:.5f}",
+          loss_last=f"{h['loss'][-1]:.5f}", flow_steps=runner.flow_steps,
+          current_image=runner.current_image, occ_refreshes=runner.occ_refreshes,
+          launches=json.dumps(counts).replace(" ", ""),
+          all_reduces_per_step=f"{cc.n / len(h['loss']):.2f}",
+          median_step_ms=f"{step_ms:.2f}", peak_mem_gib=f"{peak / 2**30:.3f}",
+          files_written=len(files))
+    return {"losses": h["loss"], "color": h["color_loss"], "plans": plans, "rays": rays,
+            "digest": _state_digest(runner.state), "files": files, "counts": counts,
+            "step_ms": step_ms, "peak": peak, "collectives": cc.n,
+            "flow_steps": runner.flow_steps, "current_image": runner.current_image,
+            "occ_refreshes": runner.occ_refreshes, "dispatch": runner.dispatch}
+
+
+def _dp_gloo(dev, scene, tmp, rank):
+    """Part (a), on each of the two ranks."""
+    fast_1024 = os.path.join(tmp, f"fast_1024_rank{rank}.conf")
+    _conf_copy(FAST_CONF, fast_1024, {"batch_size": 2 * 512})
+    out = {
+        # the fast phase-2 conf as shipped: 256 rays x 128 samples a rank,
+        # below the rays gate, so each rank takes K2/K3 and the f32 color
+        "check_phase2_512": _dp_step_check("phase2_512", FAST_CONF, scene, dev, tmp, rank,
+                                           False, DP_ROUTE_TOL, ("K2", "K3")),
+        # 512 rays a rank, the one-card batch: K4/K5/K8/K9 on every rank
+        "check_phase2_1024": _dp_step_check("phase2_1024", fast_1024, scene, dev, tmp,
+                                            rank, False, DP_LOSS_TOL,
+                                            ("K4", "K5", "K8", "K9")),
+        "check_phase1": _dp_step_check("phase1", VIRTUAL_CONF, scene, dev, tmp, rank,
+                                       True, DP_LOSS_TOL, ("K2", "K3"), SLICE3_SCHEDULE),
+        "train_phase2": _dp_train("phase2_1024", fast_1024, scene, dev, tmp, rank,
+                                  occ_update_freq=OCC_UPDATE_FREQ),
+        "train_phase1": _dp_train("phase1", VIRTUAL_CONF, scene, dev, tmp, rank,
+                                  SLICE3_SCHEDULE),
+    }
+    return out
+
+
+def _dp_nccl(dev, scene, tmp):
+    """Part (b): one rank over NCCL, the data-parallel scanned step on the
+    reference conf captured with its all-reduces, against the same chunk
+    eager and against the scanned chunk without a group, from one state."""
+    import torch
+    runner = _scan_runner(CONF, os.path.join(tmp, "dp_nccl"), scene, dev)
+    n_cur = runner.current_image
+    before = _scan_state(runner)
+    res, times = {}, {}
+    for mode in ("eager", "graph", "no_group"):
+        _set_scan_state(runner, before)
+        runner.use_dp = mode != "no_group"  # a group of one, which use_dp's rule leaves off
+        # the captured modes as the backend decides (dp.capturable: NCCL on CUDA)
+        scan = runner.scan_steps(DP_SCAN_K, capture=False if mode == "eager" else None)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counters()
+        with _CountCollectives() as cc:
+            mean = scan(runner.state, n_cur)
+        torch.cuda.synchronize()
+        counts = _counters()
+        peak = torch.cuda.max_memory_allocated(dev)
+        res[mode] = (_scan_state(runner), mean.clone(), scan.carry.frames.clone(), counts,
+                     cc.n, peak, scan)
+        if mode != "eager":  # a second chunk, timed
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            scan(runner.state, n_cur)
+            b.record()
+            b.synchronize()
+            times[mode] = a.elapsed_time(b) / DP_SCAN_K
+    (s_e, m_e, f_e, c_e, n_e, _, _), (s_g, m_g, f_g, c_g, n_g, peak_g, scan_g) = \
+        res["eager"], res["graph"]
+    s_n, m_n, f_n, c_n, _, peak_n, _ = res["no_group"]
+    from fmov_pose_torch.train import graph as graph_mod
+    per_replay = graph_mod.launches_by_kernel(scan_g.graph.per_replay)
+    differ_eager, differ_plain = _state_differ(s_e, s_g), _state_differ(s_g, s_n)
+    line = dict(part="nccl", check="captured_dp_scan", conf=os.path.relpath(CONF, ROOT),
+                k=DP_SCAN_K, backend="nccl", world=1, captured=scan_g.capture,
+                graph_vs_eager_differ=json.dumps(differ_eager).replace(" ", ""),
+                graph_vs_no_group_differ=json.dumps(differ_plain).replace(" ", ""),
+                metrics_bitwise=bool(torch.equal(m_e, m_g) and torch.equal(m_g, m_n)),
+                frames_equal=bool(torch.equal(f_e, f_g) and torch.equal(f_g, f_n)),
+                all_reduces_per_step=f"{n_e / DP_SCAN_K:.2f}",
+                per_replay=json.dumps(per_replay).replace(" ", ""),
+                launches=json.dumps(c_g).replace(" ", ""),
+                dp_graph_ms_per_step=f"{times['graph']:.3f}",
+                no_group_graph_ms_per_step=f"{times['no_group']:.3f}",
+                peak_mem_gib_dp=f"{peak_g / 2**30:.3f}",
+                peak_mem_gib_no_group=f"{peak_n / 2**30:.3f}")
+    _line("dp", **line)
+    _require(scan_g.capture and per_replay.get("K1") == 4,
+             f"the NCCL scanned step was not captured with K1 4 a replay: {per_replay}")
+    _require(not differ_eager and not differ_plain and line["metrics_bitwise"]
+             and line["frames_equal"],
+             f"the captured data-parallel chunk differs: {differ_eager} {differ_plain}")
+    _require(n_e == 2 * DP_SCAN_K, f"{n_e} all-reduces in {DP_SCAN_K} eager steps")
+    return {"counts": c_g, "per_replay": per_replay, "ms": times, "peak": peak_g,
+            "collectives_per_step": n_e / DP_SCAN_K}
+
+
+def _dp_child(argv):
+    """``chip_smoke.py _dp_rank PART RANK WORLD PORT TMP``: one rank of the
+    dp phase (PART gloo or nccl); writes its result to TMP."""
+    import pickle
+    import torch
+    part, rank, world, port, tmp = argv[0], int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
+    sys.path.insert(0, ROOT)
+    from fmov_pose_torch.device import disable_tf32
+    from fmov_pose_torch.parallel import dp
+    disable_tf32()
+    dp.initialize(f"localhost:{port}", world, rank, part)
+    try:
+        dev = dp.local_device()
+        torch.cuda.set_device(dev)
+        with open(os.path.join(tmp, "scene.pkl"), "rb") as f:
+            scene = pickle.load(f)
+        out = _dp_gloo(dev, scene, tmp, rank) if part == "gloo" else _dp_nccl(dev, scene, tmp)
+        with open(os.path.join(tmp, f"dp_{part}_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dp.shutdown()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_spawn(part, world, tmp):
+    """The ranks of ``part`` as child processes of this script, started
+    together; their results.  A rank that fails or outlives
+    DP_CHILD_TIMEOUT_S fails the phase."""
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "_dp_rank", part,
+                               str(r), str(world), str(port), tmp], cwd=ROOT)
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=DP_CHILD_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    _require(all(p.returncode == 0 for p in procs),
+             f"dp {part}: ranks exited {[p.returncode for p in procs]}")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"dp_{part}_rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, time.perf_counter() - t0
+
+
+def phase_dp(dev, smi, scene, tmp):
+    """Data parallelism on the card: (a) two ranks over gloo, each its own
+    process on the one H100; (b) one rank over NCCL, the scanned step
+    captured with its all-reduces.  Returns the launches of each run."""
+    import pickle
+    import numpy as np
+    with open(os.path.join(tmp, "scene.pkl"), "wb") as f:
+        pickle.dump(scene, f)
+    outs, seconds = _dp_spawn("gloo", DP_WORLD, tmp)
+    for check in ("check_phase2_512", "check_phase2_1024", "check_phase1"):
+        d = [[s["digest"] for s in o[check]["steps"]] for o in outs]
+        _require(d[0] == d[1], f"dp {check}: the ranks' states differ after a step")
+    counts = {}
+    for name, once in (("train_phase2", ("K4", "K5", "K8", "K9")),
+                       ("train_phase1", ("K2", "K3"))):
+        r0, r1 = outs[0][name], outs[1][name]
+        frames_equal = [p[0] for p in r0["plans"]] == [p[0] for p in r1["plans"]]
+        rays_differ = all(a != b for a, b in zip(r0["rays"], r1["rays"]))
+        _line("dp", part="gloo", check=f"{name}_ranks", ranks=DP_WORLD,
+              bitwise_equal_state=r0["digest"] == r1["digest"],
+              frames_equal=frames_equal, rays_differ=rays_differ,
+              rank1_files=len(r1["files"]), rank0_files=len(r0["files"]),
+              ms_per_step=json.dumps([round(r["step_ms"], 3) for r in (r0, r1)]),
+              peak_mem_gib=json.dumps([round(r["peak"] / 2**30, 3) for r in (r0, r1)]),
+              all_reduces_per_step=r0["collectives"] / STEPS,
+              timing="two ranks time-slice one card: no scaling figure", card=repr(smi))
+        _require(r0["digest"] == r1["digest"], f"dp {name}: the ranks' states differ")
+        _require(frames_equal and rays_differ and len(r0["rays"]) == 5,
+                 f"dp {name}: frames {frames_equal}, rays differ {rays_differ}")
+        _require(not r1["files"] and r0["files"], f"dp {name}: rank 1 wrote {r1['files']}")
+        losses = np.asarray(r0["losses"])
+        _require(len(losses) == STEPS and np.all(np.isfinite(losses)),
+                 f"dp {name}: losses {losses}")
+        color = np.asarray(r0["color"])
+        if name == "train_phase1":  # frame 0's photo steps: admissions add new frames
+            color = np.asarray([c for c, (img, fl) in zip(color, r0["plans"])
+                                if img == 0 and not fl])
+        _require(len(color) >= 20 and color[-10:].mean() < color[:10].mean(),
+                 f"dp {name}: the color loss did not fall: {color}")
+        for k, v in r0["counts"].items():
+            want = STEPS if k in once else 0
+            _require(v == want and r1["counts"][k] == want,
+                     f"dp {name}: {k} launched {v} and {r1['counts'][k]} times")
+        counts[f"dp_gloo_{DP_WORLD}_ranks_{name}_{STEPS}_steps"] = {
+            k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+    _require(outs[0]["train_phase1"]["flow_steps"] >= 1
+             and outs[0]["train_phase1"]["current_image"] >= 4,
+             "dp phase 1: no flow step or too few admissions")
+    (nccl,), seconds_b = _dp_spawn("nccl", 1, tmp)
+    counts[f"dp_nccl_scan_{DP_SCAN_K}_steps"] = nccl["counts"]
+    _line("dp", part="summary", gloo_seconds=f"{seconds:.1f}", nccl_seconds=f"{seconds_b:.1f}",
+          nccl_dp_graph_ms=f"{nccl['ms']['graph']:.3f}",
+          nccl_no_group_graph_ms=f"{nccl['ms']['no_group']:.3f}", card=repr(smi))
+    return counts
+
+
 KERNEL_PHASES = {"kernels": phase_kernels, "train-kernels": phase_train_kernels,
                  "flat-kernels": phase_flat_kernels, "color-kernels": phase_color_kernels}
 
@@ -2694,11 +3131,13 @@ def _scene():
     return scene
 
 
-RUN_PHASES = ("planned", "scan", "bf16", "quality")
+RUN_PHASES = ("planned", "scan", "bf16", "quality", "dp")
 
 
 def main(argv):
     import torch
+    if argv[:1] == ["_dp_rank"]:  # a rank of the dp phase, started by it
+        return _dp_child(argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
@@ -2716,7 +3155,7 @@ def main(argv):
             if name in KERNEL_PHASES:
                 KERNEL_PHASES[name](dev)
         with tempfile.TemporaryDirectory() as tmp:
-            if {"planned", "scan", "bf16"} & set(argv):
+            if {"planned", "scan", "bf16", "dp"} & set(argv):
                 scene = _scene()
             if "planned" in argv:
                 phase_planned(dev, smi, scene, tmp)
@@ -2729,6 +3168,8 @@ def main(argv):
                 phase_bf16(dev, smi, scene, tmp, f32_ms, float("nan"))
             if "quality" in argv:
                 phase_quality(dev, smi, tmp)
+            if "dp" in argv:
+                phase_dp(dev, smi, scene, tmp)
         return 0
     k1 = phase_kernels(dev)
     train_k = phase_train_kernels(dev)
@@ -2751,6 +3192,7 @@ def main(argv):
         scans = phase_scan(dev, smi, scene, tmp)
         bf16 = phase_bf16(dev, smi, scene, tmp, slice1_ms,
                           scans["reference"]["graph_ms"])
+        dps = phase_dp(dev, smi, scene, tmp)
         phase_quality(dev, smi, tmp)
     leaked = [m for m in ("jax", "fmov_pose_tpu") if m in sys.modules]
     _require(not leaked, f"the port's path imported {leaked}")
@@ -2800,6 +3242,8 @@ def main(argv):
                         "launches": launches, **res[name]})
         if key in bake_chunk:
             kernels[-1]["bake_chunk"] = bake_chunk[key]
+    for key, kernel in zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"), kernels):
+        kernel["launches"].update({run: c[key] for run, c in dps.items()})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

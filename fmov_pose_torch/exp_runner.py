@@ -38,6 +38,16 @@ phase-2 Runner).  Any other mode raises ``NotImplementedError``.
 ``--gradient_analysis`` logs the per-loss gradient report during
 training.  ``--mcube_threshold`` and ``--ori_cam_path`` are parsed and
 unused, as in the JAX CLI.
+
+Data parallelism, as the JAX CLI runs it: with ``FMOV_DISTRIBUTED=1`` each
+process is one rank (``FMOV_COORDINATOR``/``FMOV_NUM_PROCESSES``/
+``FMOV_PROCESS_ID``, or the variables ``torchrun`` sets), on
+``cuda:(rank mod device_count)`` unless ``device`` is given; the Runners
+split the ray batch over the ranks (``parallel/dp.py``), and rank 0 writes
+the files:
+
+    FMOV_DISTRIBUTED=1 torchrun --nproc_per_node 2 -m fmov_pose_torch.exp_runner \\
+        --mode train --conf CONF --case CASE --global_conf GLOBAL_CONF
 """
 
 import argparse
@@ -78,10 +88,14 @@ def main(argv=None, device=None):
     args = parser.parse_args(argv)
 
     from fmov_pose_torch.device import require_cuda
+    from fmov_pose_torch.parallel import dp
     from fmov_pose_torch.train.runner import Runner
 
+    # data parallelism (FMOV_DISTRIBUTED=1, e.g. under torchrun): one rank a
+    # process, each on its own card
+    dp.maybe_initialize_distributed()
     if device is None:
-        device = require_cuda(args.gpu)
+        device = dp.local_device() if dp.world_size() > 1 else require_cuda(args.gpu)
     logging.getLogger(__name__).info("device: %s", device)
 
     def reboot_runner(case, new_exp_dir):
@@ -182,4 +196,8 @@ def main(argv=None, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    from fmov_pose_torch.parallel import dp as _dp
+    try:
+        main()
+    finally:
+        _dp.shutdown()

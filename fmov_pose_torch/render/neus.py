@@ -204,10 +204,13 @@ def render_core_outside(params, model_cfg, rays_o, rays_d, z_vals, sample_dist):
 
 def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
                 background_alpha=None, background_sampled_color=None,
-                background_rgb=None, cos_anneal_ratio=1.0, eval_mode=False):
+                background_rgb=None, cos_anneal_ratio=1.0, eval_mode=False,
+                eikonal_parts=False):
     """SDF -> alpha -> composite; the NeRF++ background's alpha and colors
     [B, N + n_outside] (``render_core_outside`` on the sorted union of the
-    z-values) are mixed in outside the unit sphere and appended."""
+    z-values) are mixed in outside the unit sphere and appended.
+    ``eikonal_parts``: ``gradient_error`` is the pair (numerator,
+    denominator) instead of their ratio."""
     batch_size, n_samples = z_vals.shape
     dists = torch.cat(
         [z_vals[..., 1:] - z_vals[..., :-1],
@@ -293,7 +296,11 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
     gradient_error_raw = (grad_norm - 1.0) ** 2
     eik_num = (relax_inside_sphere * gradient_error_raw).sum()
     eik_den = relax_inside_sphere.sum()
-    gradient_error = eik_num / (eik_den + 1e-5)
+    if eikonal_parts:
+        # a data-parallel caller sums both over the ranks
+        gradient_error = (eik_num, eik_den)
+    else:
+        gradient_error = eik_num / (eik_den + 1e-5)
 
     return {
         "color": color,
@@ -313,14 +320,15 @@ def render_core(params, model_cfg, rays_o, rays_d, z_vals, sample_dist,
 def render(generator, params, model_cfg, rays_o, rays_d, near, far,
            perturb_overwrite: float = -1.0, background_rgb=None,
            cos_anneal_ratio: float = 1.0, eval_mode: bool = False,
-           occ_grid=None):
+           occ_grid=None, eikonal_parts: bool = False):
     """Full hierarchical render; returns the JAX module's output dict.
 
     ``generator``: the ``torch.Generator`` for the stratified perturbation
     (unused when the perturbation is 0): the inside draw [B, 1], then the
     outside one [B, n_outside].  ``occ_grid``: an occupancy grid
     [R, R, R] that places the importance samples instead of the SDF-guided
-    up-sampler."""
+    up-sampler.  ``eikonal_parts``: ``gradient_error`` is (numerator,
+    denominator), the JAX ``eikonal_parts``, for a data-parallel caller."""
     cfg: RenderCfg = model_cfg["renderer"]
     batch_size = rays_o.shape[0]
     dev = rays_o.device
@@ -392,7 +400,7 @@ def render(generator, params, model_cfg, rays_o, rays_d, near, far,
         background_alpha=background_alpha,
         background_sampled_color=background_sampled_color,
         background_rgb=background_rgb, cos_anneal_ratio=cos_anneal_ratio,
-        eval_mode=eval_mode)
+        eval_mode=eval_mode, eikonal_parts=eikonal_parts)
 
     weights = ret_fine["weights"]
     weights_sum = weights.sum(dim=-1, keepdim=True)

@@ -14,11 +14,11 @@ What a graph needs of the step it captures:
   buffers, the device counters), and is updated in place;
 * nothing in it reads a value back to the host or copies host memory to
   the device (frame ids, gates and counts are device tensors there);
-* its random draws come from a generator registered with the graph, so
+* its random draws come from generators registered with the graph, so
   that every replay draws anew (``register_generator_state``): a replay
-  takes the generator's next offsets exactly as the eager step would, so
+  takes each generator's next offsets exactly as the eager step would, so
   a replayed step and an eager one from the same state and generator
-  state draw the same numbers;
+  states draw the same numbers;
 * the host tables a kernel wrapper passes at launch (layer tables, the
   workspace pointer tables) are read into the launch's arguments at
   capture, and the workspaces live in the graph's memory pool.
@@ -28,8 +28,11 @@ steps: they build what PyTorch and the kernels' libraries set up at their
 first use, which a capture cannot; every step after the first runs with
 synchronising operations made errors, which names the operation a capture
 would fail on), restores the state and the generator to where they were,
-then captures one step.  A failed capture or replay
-raises with its cause: there is no return to eager steps.
+then captures one step.  A data-parallel step's NCCL all-reduces
+(``parallel/dp.py``) are captured with it: the warm-up's steps run them
+first, which sets up NCCL's communicator, as a capture cannot.  A failed
+capture or replay raises with its cause: there is no return to eager
+steps.
 
 Launch counts: a kernel wrapper counts a launch when it runs
 (``fused_sdf.LAUNCHES*``, ``fused_color.LAUNCHES*``, ``LAUNCH_SIZES``).
@@ -113,27 +116,28 @@ class StepGraph:
     """``fn()``, one training step, as a CUDA graph: warmed up, captured
     once, replayed by ``replay()``.
 
-    ``generator``: the state's CUDA generator, registered with the graph.
-    ``mutable``: every tensor the step writes; the warm-up's steps are
-    undone by copying them back, with the generator's state.  ``fn`` is
+    ``generators``: the state's CUDA generators (``TrainState.generators``),
+    each registered with the graph.  ``mutable``: every tensor the step
+    writes; the warm-up's steps are undone by copying them back, with the
+    generators' states.  ``fn`` is
     not kept past the capture: a step that holds its graph would
     otherwise keep both, and the graph's memory, alive until the garbage
     collector breaks the cycle."""
 
-    def __init__(self, fn, generator: torch.Generator, mutable, warmup: int = WARMUP_STEPS):
+    def __init__(self, fn, generators, mutable, warmup: int = WARMUP_STEPS):
         self.device = mutable[0].device
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph captures CUDA work, not {self.device}")
         try:
-            self._capture(fn, generator, list(mutable), warmup)
+            self._capture(fn, list(generators), list(mutable), warmup)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the training step failed: "
                                f"{type(e).__name__}: {e}") from e
 
-    def _capture(self, fn, generator, mutable, warmup):
+    def _capture(self, fn, generators, mutable, warmup):
         dev = self.device
         saved = [t.detach().clone() for t in mutable]
-        gen_state = generator.get_state()
+        gen_states = [g.get_state() for g in generators]
         side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = _launch_counters()
@@ -148,17 +152,19 @@ class StepGraph:
         with torch.no_grad():
             for t, s in zip(mutable, saved):
                 t.copy_(s)
-        generator.set_state(gen_state)
+        for g, state in zip(generators, gen_states):
+            g.set_state(state)
         del saved
 
         self.graph = torch.cuda.CUDAGraph()
         register = getattr(self.graph, "register_generator_state", None)
         if register is None:
             raise RuntimeError(
-                f"torch {torch.__version__} cannot register the state's generator "
+                f"torch {torch.__version__} cannot register the state's generators "
                 f"with a CUDA graph (CUDAGraph.register_generator_state): every "
                 f"replay would draw the same frames and rays")
-        register(generator)
+        for g in generators:
+            register(g)
         before = _launch_counters()
         with torch.cuda.graph(self.graph, stream=side):
             fn()

@@ -72,9 +72,24 @@ f32 matmul precision (``MATMUL_PRECISION``: ``highest`` full f32,
 ``high`` TF32, ``default`` ``"medium"``) while ``train`` and
 ``eval_render`` run, and restores the caller's setting after them; the
 CUDA kernels ignore it, as the Pallas kernels do; with the key absent the
-setting is left alone (full f32 unless the caller changed it).  Data
-parallelism (``train.data_parallel``) is not ported: the port runs on
-one device.
+setting is left alone (full f32 unless the caller changed it).
+
+Data parallelism (``parallel/dp.py``) follows the JAX Runner: launched as
+one of several ranks (``FMOV_DISTRIBUTED=1``, ``torchrun``), the Runner
+joins the process group before any device use and runs on
+``cuda:(rank mod device_count)``; ``train.data_parallel`` (on by default
+with more than one rank) splits the ray batch over the ranks when the
+batch and its half divide by their number (``use_dp``).  Under it the
+per-step loop takes the data-parallel photo and flow steps, the scan path
+the data-parallel scanned steps (captured with their all-reduces under
+NCCL, eager under gloo), and the planned path is not taken, as in JAX.
+Every rank runs every step and every host decision alike (the same seed,
+the same host RNG), so the curriculum, the rotation reset, the occupancy
+refresh and the field resets agree; the state is broadcast from rank 0 at
+the start and after a checkpoint is loaded (``dp.replicate_tree``).  The
+host's writes are rank 0's (``is_main``): checkpoints, meshes, validation
+images, pose files, the phase-2 dataset and the source backup; the other
+ranks wait for the phase-2 dataset at a barrier.
 """
 
 from __future__ import annotations
@@ -87,11 +102,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fmov_pose_torch import convert
 from fmov_pose_torch.data import hocon
 from fmov_pose_torch.data import rays as raygen
 from fmov_pose_torch.fields import nets
+from fmov_pose_torch.parallel import dp
 from fmov_pose_torch.poses import picture_pose as pp
 from fmov_pose_torch.poses import pixel_pose as px
 from fmov_pose_torch.pipeline import meshio
@@ -174,9 +191,12 @@ class Runner:
         data_dir.  ``is_continue``: resume from the latest checkpoint under
         <exp>/checkpoints, or start afresh with a warning when there is
         none, as the JAX Runner does."""
+        # data parallelism: join the process group before any device use
+        dp.maybe_initialize_distributed()
+        self.is_main = dp.is_main()
         if device is None:
-            from fmov_pose_torch.device import require_cuda
-            device = require_cuda()
+            device = dp.local_device()
+        self.seed = seed
         self.case = case
         self.mode = mode
         self.conf_path = conf_path
@@ -233,6 +253,12 @@ class Runner:
         self.val_mesh_freq = t.get_int("val_mesh_freq")
         self.pose_freq = conf.get_int("train.pose_freq", 1000)
         self.batch_size = t.get_int("batch_size")
+        world = dp.world_size()
+        self.use_dp = (conf.get_bool("train.data_parallel", world > 1) and world > 1
+                       and self.batch_size % world == 0
+                       and (self.batch_size // 2) % world == 0)
+        if self.use_dp:
+            LOG.info("data-parallel over %d ranks (%s)", world, dist.get_backend())
         self.validate_resolution_level = t.get_int("validate_resolution_level")
         self.learning_rate = t.get_float("learning_rate")
         self.learning_rate_alpha = t.get_float("learning_rate_alpha")
@@ -353,7 +379,7 @@ class Runner:
                 LOG.warning("--is_continue: no checkpoint under %s, starting from "
                             "scratch (check --global_conf: it changes the exp dir)",
                             ckpt_dir)
-        if mode.startswith("train"):
+        if mode.startswith("train") and self.is_main:
             self.file_backup()
 
         n_override = conf.get_int("dataset.n_images", self.dataset.n_images)
@@ -441,6 +467,15 @@ class Runner:
                 for k, v in bank["static"].items()}
             self.state.pose_opt = optim.seg_adam_init(
                 bank_flat.detach(), bank_layout.shapes, self.n_segments)
+        if self.use_dp:
+            dp.attach_rank_generator(self.state, seed)
+            dp.replicate_tree(self._replicated())
+
+    def _replicated(self):
+        """The state every rank holds alike: its tensors and the shared
+        generator (not a rank's own, ``TrainState.ray_generator``)."""
+        written, read = step_mod.state_buffers(self.state)
+        return [*written, *read, self.state.generator]
 
     def _build_steps(self):
         self.step_cfg = step_mod.make_step_config(
@@ -467,9 +502,14 @@ class Runner:
             occupancy_sampling=self.occupancy_sampling,
         )
         bufs = (self.images_dev, self.masks_dev, self.intr_inv_dev, self.bbox_dev)
-        self.photo_step = step_mod.make_photo_step(self.step_cfg, *bufs,
-                                                   depths=self.depths_dev)
-        self.flow_step = step_mod.make_flow_step(self.step_cfg, *bufs)
+        if self.use_dp:
+            self.photo_step = dp.make_dp_photo_step(self.step_cfg, *bufs,
+                                                    depths=self.depths_dev)
+            self.flow_step = dp.make_dp_flow_step(self.step_cfg, *bufs)
+        else:
+            self.photo_step = step_mod.make_photo_step(self.step_cfg, *bufs,
+                                                       depths=self.depths_dev)
+            self.flow_step = step_mod.make_flow_step(self.step_cfg, *bufs)
 
     # ------------------------------------------------------------------
     # pose queries (host)
@@ -552,12 +592,17 @@ class Runner:
         return self.rng.permutation(self.current_image)
 
     def _sample_flow_pair(self, img_id_corr: int):
-        """A partner frame and a batch of its matches, or None."""
+        """A partner frame and a batch of its matches, or None.  The
+        partners are a set, iterated as the JAX Runner iterates it; under
+        data parallelism in sorted order, the one order every rank shares
+        (a set of strings iterates in the order of the process's salted
+        string hash)."""
         d = self.dataset
         name_corr = d.index_to_frame[img_id_corr]
         if name_corr not in d.flow_pairs:
             return None
-        pairs_idx = [d.frame_to_index[n] for n in d.flow_pairs[name_corr]]
+        names = d.flow_pairs[name_corr]
+        pairs_idx = [d.frame_to_index[n] for n in (sorted(names) if self.use_dp else names)]
         pairs_idx = [i for i in pairs_idx
                      if i < self.current_image
                      and abs(i - img_id_corr) <= self.flow_interval]
@@ -795,11 +840,10 @@ class Runner:
 
     def _plan_eligible(self):
         """k > 1 when the loop can run chunks of k host-planned steps (the
-        JAX Runner's rule): ``train.plan_chunk`` > 1 and no gradient report
-        (the JAX rule also excludes data parallelism, which the port does
-        not run)."""
+        JAX Runner's rule): ``train.plan_chunk`` > 1, no data parallelism
+        and no gradient report."""
         k = self.conf.get_int("train.plan_chunk", 1)
-        if k <= 1 or self.gradient_analysis:
+        if k <= 1 or self.use_dp or self.gradient_analysis:
             return 0
         return k
 
@@ -813,7 +857,9 @@ class Runner:
         metric of every step, or of every chunk on the scan path, read back
         once at the end) and, on CUDA, ``self.step_ms`` (times from events
         between steps; between chunks, a chunk's time over its steps, on
-        the scan and the planned path).  Runs at ``train.matmul_precision``."""
+        the scan and the planned path).  Runs at ``train.matmul_precision``.
+        Under data parallelism ``dispatch`` also names the ranks and, on
+        the scan path, whether the chunk's step was captured."""
         with matmul_precision(self.matmul_precision):
             k = self._scan_eligible()
             if k:
@@ -879,7 +925,7 @@ class Runner:
     def _train_per_step(self):
         """The JAX Runner's per-step loop: plan a step, run it, then its
         events in the JAX loop's order."""
-        self.dispatch = "per-step"
+        self.dispatch = "per-step" + self._dp_tag()
         res_step = max(self.end_iter - self.iter_step, 0)
         self._init_perms()
         names = step_mod.METRIC_NAMES
@@ -1013,9 +1059,19 @@ class Runner:
             self.step_ms = [ms / n for ms, n in zip(timer.finish(), sizes)]
         self._finish(rows, done, t_start, phase1_done)
 
+    def _dp_tag(self, capture=None):
+        """The data-parallel part of ``dispatch``: the ranks and, given
+        ``capture``, whether the step is captured."""
+        if not self.use_dp:
+            return ""
+        how = "" if capture is None else (", captured" if capture else ", eager")
+        return f" ({dp.world_size()} ranks{how})"
+
     def scan_steps(self, k, capture=None):
         """The scanned steps of this Runner's step config and schedule
-        (``step.ScanPhotoSteps``, k steps a call)."""
+        (``step.ScanPhotoSteps``, k steps a call; under data parallelism
+        ``dp.make_dp_scan_photo_steps``, captured where the backend allows
+        unless ``capture`` says otherwise)."""
         schedule = {
             "learning_rate": self.learning_rate,
             "learning_rate_alpha": self.learning_rate_alpha,
@@ -1023,6 +1079,10 @@ class Runner:
             "anneal_end": self.anneal_end,
             "mask_guided": 1.0 if self.mask_guided_sampling else 0.0,
         }
+        if self.use_dp:
+            return dp.make_dp_scan_photo_steps(
+                self.step_cfg, self.images_dev, self.masks_dev, self.intr_inv_dev,
+                self.bbox_dev, schedule, k, depths=self.depths_dev, capture=capture)
         return step_mod.ScanPhotoSteps(
             self.step_cfg, self.images_dev, self.masks_dev, self.intr_inv_dev,
             self.bbox_dev, schedule, k, capture, depths=self.depths_dev)
@@ -1037,8 +1097,8 @@ class Runner:
         validate_mesh (each caught), the grid refresh, the checkpoint; a
         checkpoint at the end.  ``history`` gets one row a chunk, its mean;
         ``step_ms`` the chunks' times."""
-        self.dispatch = f"scan x{k}"
         scan = self.scan = self.scan_steps(k)
+        self.dispatch = f"scan x{k}" + self._dp_tag(scan.capture)
         n_chunks = max(self.end_iter - self.iter_step, 0) // k
         names = step_mod.METRIC_NAMES
         rows = torch.empty((n_chunks, len(names)), dtype=torch.float32,
@@ -1119,12 +1179,19 @@ class Runner:
     def save_checkpoint(self):
         """<exp>/checkpoints/ckpt_{current_image:06d}_{iter_step:06d}.ckpt:
         the state's leaves, the JAX Runner's host meta, and the device
-        generator's state (so a resumed port run continues its stream)."""
+        generator's state (so a resumed port run continues its stream);
+        under data parallelism also every rank's own generator's, gathered
+        from the ranks, and written by rank 0 alone."""
         meta = self._host_meta()
         meta["generator_state"] = self.state.generator.get_state().numpy().copy()
         meta["generator_device"] = self.device.type
+        if self.use_dp:
+            meta["rank_generator_states"] = dp.gather_generator_states(
+                self.state.ray_generator)
         path = os.path.join(self.base_exp_dir, "checkpoints",
                             f"ckpt_{self.current_image:06d}_{self.iter_step:06d}.ckpt")
+        if not self.is_main:
+            return path
         ckpt.save_checkpoint(path, [a for _, a in self.state_leaves()], meta)
         LOG.info("checkpoint saved: %s", path)
         return path
@@ -1171,7 +1238,11 @@ class Runner:
         by name and shape (``_read_leaves``).  The device generator: a port
         file restores its state; a JAX file's PRNG key (uint32[2]) cannot
         reproduce JAX's stream in PyTorch, so the generator is seeded from
-        it deterministically, (key[0] << 32) | key[1]."""
+        it deterministically, (key[0] << 32) | key[1].  Under data
+        parallelism the state is then broadcast from rank 0
+        (``dp.replicate_tree``), and each rank's own generator takes its
+        state from the file, or without one for this number of ranks is
+        seeded anew (``dp.attach_rank_generator``)."""
         leaves, meta, fmt = ckpt.load_checkpoint(path)
         v = self._read_leaves(leaves)
         st, dev = self.state, self.device
@@ -1207,6 +1278,12 @@ class Runner:
         else:
             key = v["key"].astype(np.uint64)
             st.generator.manual_seed(int((key[0] << np.uint64(32)) | key[1]))
+        if self.use_dp:
+            dp.replicate_tree(self._replicated())
+            states = meta.get("rank_generator_states")
+            dp.attach_rank_generator(st, self.seed)
+            if states is not None and len(states) == dp.world_size():
+                st.ray_generator.set_state(torch.from_numpy(np.array(states[dp.rank()])))
         self.iter_step = int(meta["iter_step"])
         self.current_image = int(meta["current_image"])
         self.current_pose_mlp_index = int(meta["current_pose_mlp_index"])
@@ -1226,7 +1303,14 @@ class Runner:
         """The zero level set of the SDF inside the object's bounds, as
         <exp>/meshes/{current_image:08d}_{step:08d}_{res}_{mode}.ply; with
         ``use_norml_color`` colored by its normals.  Returns the path;
-        ``self.mesh_seconds`` holds the time of each stage."""
+        ``self.mesh_seconds`` holds the time of each stage.  Under data
+        parallelism rank 0 alone extracts and writes it (the others return
+        its path)."""
+        step_tag = self.iter_step - (self.iter_step % self.val_mesh_freq)
+        name = f"{self.current_image:08d}_{step_tag:08d}_{resolution}_{self.mode}.ply"
+        path = os.path.join(self.base_exp_dir, "meshes", name)
+        if not self.is_main:
+            return path
         seconds = {}
         bound_min = np.asarray(self.dataset.object_bbox_min) * mesh_scale
         bound_max = np.asarray(self.dataset.object_bbox_max) * mesh_scale
@@ -1244,9 +1328,6 @@ class Runner:
         if use_norml_color and len(vertices):
             colors = geometry.normal_colors(params, self.model_cfg, vertices, self.device)
         seconds["normals"] = time.perf_counter() - t0
-        step_tag = self.iter_step - (self.iter_step % self.val_mesh_freq)
-        name = f"{self.current_image:08d}_{step_tag:08d}_{resolution}_{self.mode}.ply"
-        path = os.path.join(self.base_exp_dir, "meshes", name)
         t0 = time.perf_counter()
         meshio.write_ply(path, vertices, triangles, vertex_colors=colors)
         seconds["write"] = time.perf_counter() - t0
@@ -1340,10 +1421,14 @@ class Runner:
         truth) and <exp>/normals/ PNGs named
         {current_image:08d}_{iter_step:08d}_0_{idx}.png; returns the PSNR
         against the frame's file, or the stacked image with
-        ``return_img``."""
+        ``return_img``.  Under data parallelism the other ranks than 0 draw
+        the frame (the host RNG stays the same on every rank) and return
+        None."""
         import cv2 as cv
         if idx < 0:
             idx = int(self.rng.integers(self.current_image))
+        if not self.is_main:
+            return None
         if resolution_level < 0:
             resolution_level = self.validate_resolution_level
         pose = self.query_pose(idx)[:3]
@@ -1400,6 +1485,8 @@ class Runner:
             return float("inf"), float("inf"), float("inf"), gt, est
         LOG.info("ate=%.5f rpe_trans=%.5f rpe_rot=%.4f deg", ate, rpe_trans,
                  np.rad2deg(rpe_rot))
+        if not self.is_main:  # rank 0 owns the pose files
+            return ate, rpe_trans, rpe_rot, gt, est
         pose_dir = os.path.join(self.base_exp_dir, "poses")
         os.makedirs(pose_dir, exist_ok=True)
         try:
@@ -1672,6 +1759,8 @@ class Runner:
         self.current_image = max(self.current_image - 10, 1)
         self.validate_poses()
         pose_dir = os.path.join(self.base_exp_dir, "poses")
+        if not self.is_main:  # rank 0 owns the pose files
+            return pose_dir
         os.makedirs(pose_dir, exist_ok=True)
         poses = self.query_poses(self.current_image)
         np.save(os.path.join(pose_dir, f"pred_poses_{self.iter_step}.npy"), poses)
@@ -1686,15 +1775,16 @@ class Runner:
 
     def save_poses_simple(self, align_dir=None):
         """{frame name: c2w [4, 4]} of the admitted frames as
-        <exp>/poses_<iter_step>.npy, or <align_dir>/<case>_poses.npy;
-        returns the path."""
+        <exp>/poses_<iter_step>.npy, or <align_dir>/<case>_poses.npy
+        (rank 0's file); returns the path."""
         poses = self.query_poses(self.current_image)
         out = {self.dataset.index_to_frame[i]: poses[i]
                for i in range(self.current_image)}
         save_path = (os.path.join(align_dir, f"{self.case}_poses.npy")
                      if align_dir else
                      os.path.join(self.base_exp_dir, f"poses_{self.iter_step}.npy"))
-        np.save(save_path, out)
+        if self.is_main:
+            np.save(save_path, out)
         return save_path
 
     def save_aligned_poses(self, save_dataset=True, normalize_trans=True,
@@ -1707,10 +1797,23 @@ class Runner:
         wrote at its end, or a new 64^3 one.  The ground truth for the
         ATE is ./data/HO3Dv3/ann/<case>.npz unless the conf names ML
         intrinsics.  Returns the alignment's (ATE, RPE trans, RPE rot), or
-        None without a ground truth."""
-        from fmov_pose_torch.pipeline import align
+        None without a ground truth.  Under data parallelism rank 0 aligns
+        and writes, the other ranks return None, and every rank leaves
+        after a barrier, once the dataset is written (the JAX Runner has
+        every rank align and write it)."""
         if self.current_image != self.dataset.n_images:
             self.current_image = max(self.current_image - 10, 1)
+        result = None
+        if self.is_main:
+            result = self._align(save_dataset, normalize_trans, tgt_dir, save_meta,
+                                 global_mask_dir)
+        dp.barrier()
+        return result
+
+    def _align(self, save_dataset, normalize_trans, tgt_dir, save_meta,
+               global_mask_dir):
+        """``save_aligned_poses``'s alignment and writes, on one rank."""
+        from fmov_pose_torch.pipeline import align
         img_names = [self.dataset.index_to_frame[i] for i in range(self.current_image)]
         poses = self.query_poses(range(self.current_image))
         Ks = self.dataset.intrinsics_all

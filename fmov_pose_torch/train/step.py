@@ -41,6 +41,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fmov_pose_torch import convert
 from fmov_pose_torch.core import lie
@@ -61,7 +62,11 @@ class TrainState:
     trainable leaves raveled in ``bank_flat`` (``bank_layout`` order,
     requires grad), its static buffers ``bank_static`` (bands, init
     poses, the host ``initialized`` flags) and the segment Adam
-    ``pose_opt``."""
+    ``pose_opt``.  ``ray_generator``: under data parallelism
+    (``parallel/dp.py``) this rank's own generator for its rays and render
+    perturbation, while ``generator`` stays the one every rank shares (the
+    scanned steps' frame draws); None elsewhere, where ``generator``
+    draws everything."""
     flat: torch.Tensor
     layout: convert.ParamLayout
     opt: optim.AdamState
@@ -72,6 +77,17 @@ class TrainState:
     bank_layout: Optional[convert.ParamLayout] = None
     bank_static: Optional[Dict[str, Any]] = None
     pose_opt: Optional[optim.SegAdamState] = None
+    ray_generator: Optional[torch.Generator] = None
+
+    @property
+    def rays_generator(self) -> torch.Generator:
+        """The generator of the ray draws and the render's perturbation."""
+        return self.generator if self.ray_generator is None else self.ray_generator
+
+    def generators(self):
+        """Every generator a step draws from (a captured step registers
+        each)."""
+        return [self.generator] + ([] if self.ray_generator is None else [self.ray_generator])
 
     @property
     def params(self):
@@ -230,10 +246,19 @@ METRIC_NAMES = ("loss", "color_loss", "eikonal_loss", "mask_loss", "flow_loss",
 
 
 def _render_and_losses(cfg: StepConfig, generator, params, pose_static, data,
-                       scalars: StepScalars, flow_ctx=None, pose_bank=None):
+                       scalars: StepScalars, flow_ctx=None, pose_bank=None, group=None):
     """Render a ray batch and assemble the objective: color, eikonal,
     mask, unit-sphere, given ``flow_ctx`` the flow loss, and given a depth
-    column in ``data`` (its 11th) and ``depth_weight`` the depth loss."""
+    column in ``data`` (its 11th) and ``depth_weight`` the depth loss.
+
+    ``group``: a ``torch.distributed`` process group (the JAX
+    ``axis_name``), ``data`` this rank's share of the batch.  Every ratio
+    loss then takes its numerator from this rank's rays and its
+    denominator summed over the ranks (every denominator is free of
+    gradient: the mask, the eikonal sphere mask, the unit-sphere
+    ``outside``, the depth ``valid``, the counts), so the ranks' gradients
+    sum to the whole batch's; the metrics are the whole batch's, from one
+    all-reduce of the denominators and the detached numerators."""
     rays_o, rays_d = data[:, :3], data[:, 3:6]
     true_rgb, mask = data[:, 6:9], data[:, 9:10]
     depth_gt = data[:, 10:11] if data.shape[1] > 10 else None
@@ -245,65 +270,96 @@ def _render_and_losses(cfg: StepConfig, generator, params, pose_static, data,
         mask = (mask > 0.5).to(torch.float32)
     else:
         mask = torch.ones_like(mask)
-    mask_sum = mask.sum() + 1e-5
-    n_rays = float(rays_o.shape[0])
+    world = 1 if group is None else dist.get_world_size(group)
+    n_rays = float(rays_o.shape[0] * world)
 
     render_params = {k: v for k, v in params.items()
                      if k in ("sdf", "color", "nerf", "variance")}
     occ_grid = pose_static.get("occ_grid") if cfg.occupancy_sampling else None
     out = neus.render(generator, render_params, cfg.model_cfg, rays_o, rays_d,
                       near, far, background_rgb=background_rgb,
-                      cos_anneal_ratio=scalars.cos_anneal, occ_grid=occ_grid)
+                      cos_anneal_ratio=scalars.cos_anneal, occ_grid=occ_grid,
+                      eikonal_parts=True)
 
+    # the sums over this batch's rays (num) and the denominators (den)
     color_fine = out["color_fine"]
-    color_error = (color_fine - true_rgb) * mask
-    color_loss = torch.abs(color_error).sum() / mask_sum
-    psnr = 20.0 * torch.log10(
-        1.0 / torch.sqrt(((color_fine - true_rgb) ** 2 * mask).sum()
-                         / (mask_sum * 3.0)))
-
-    eikonal_loss = out["gradient_error"]
-
     w_sum = torch.clamp(out["weight_sum"], 1e-3, 1.0 - 1e-3)
     bce = -(mask * torch.log(w_sum) + (1.0 - mask) * torch.log(1.0 - w_sum))
-    mask_loss = bce.sum() / n_rays
-
-    zero = torch.zeros((), device=data.device)
-    unit_sphere_loss = zero
+    eik_num, eik_den = out["gradient_error"]
+    num = {"color": torch.abs((color_fine - true_rgb) * mask).sum(),
+           "sq": ((color_fine - true_rgb) ** 2 * mask).sum(),
+           "eik": eik_num, "bce": bce.sum(),
+           "cdf": (out["cdf_fine"][:, :1] * mask).sum(),
+           "weight_max": (out["weight_max"] * mask).sum()}
+    den = {"mask": mask.sum(), "eik": eik_den}
     if cfg.unit_sphere_weight > 0:
         pts = out["pts"]
         weights_flat = out["weights"][:, :pts.shape[0] // rays_o.shape[0]]
         outside = (torch.linalg.norm(pts, dim=-1) > 1.0).to(
             torch.float32).reshape(weights_flat.shape)
-        unit_sphere_loss = ((torch.abs(weights_flat) * outside).sum()
-                            / (outside.sum() + 1e-8) * cfg.unit_sphere_weight)
-
-    flow_loss = zero
-    if flow_ctx is not None:
-        flow_loss = _flow_loss(cfg, params, pose_bank, pose_static, out, flow_ctx)
-
-    depth_loss = zero
+        num["unit"] = (torch.abs(weights_flat) * outside).sum()
+        den["outside"] = outside.sum()
     if cfg.depth_weight > 0.0 and depth_gt is not None:
         # masked L1 over the in-mask rays with a depth, a validity weight
-        # keeping the batch's shape; numerator and denominator apart
+        # keeping the batch's shape
         valid = ((mask > 0.5) & (depth_gt > 0)).to(torch.float32)
-        num = (torch.abs(out["depth_fine"] - depth_gt) * valid).sum()
-        depth_loss = num / (valid.sum() + 1e-8) * cfg.depth_weight
+        num["depth"] = (torch.abs(out["depth_fine"] - depth_gt) * valid).sum()
+        den["valid"] = valid.sum()
+    flow_loss = None
+    if flow_ctx is not None:
+        flow = _flow_loss(cfg, params, pose_bank, pose_static, out, flow_ctx, group)
+        if group is None:
+            flow_loss = flow
+        else:
+            num["flow0"], num["flow1"], den["flow"] = flow
 
+    if group is None:
+        glob_num, glob_den = num, den
+    else:
+        sums = torch.stack([v.detach() for v in (*num.values(), *den.values())])
+        dist.all_reduce(sums, group=group)
+        glob_num = dict(zip(num, sums[:len(num)]))
+        glob_den = dict(zip(den, sums[len(num):]))
+    total, terms = _loss_terms(cfg, num, glob_den, n_rays, flow_loss, data.device)
+    if group is not None:  # the whole batch's terms, for the metrics
+        _, terms = _loss_terms(cfg, glob_num, glob_den, n_rays, None, data.device)
+
+    mask_sum = glob_den["mask"] + 1e-5
+    psnr = 20.0 * torch.log10(1.0 / torch.sqrt(glob_num["sq"] / (mask_sum * 3.0)))
+    metrics = {
+        **terms, "psnr": psnr,
+        "s_val": out["s_val"].mean(),
+        "cdf": glob_num["cdf"] / mask_sum,
+        "weight_max": glob_num["weight_max"] / mask_sum,
+    }
+    return total, metrics
+
+
+def _loss_terms(cfg: StepConfig, num, den, n_rays: float, flow_loss, device):
+    """(total, {"loss", each loss term}) from the sums ``num`` and the
+    denominators ``den`` of ``_render_and_losses``.  The flow loss: from
+    its two sums and their count where ``num`` has them (a group), else
+    ``flow_loss`` as given (one device), or 0."""
+    mask_sum = den["mask"] + 1e-5
+    zero = torch.zeros((), device=device)
+    color_loss = num["color"] / mask_sum
+    eikonal_loss = num["eik"] / (den["eik"] + 1e-5)
+    mask_loss = num["bce"] / n_rays
+    unit_sphere_loss = (num["unit"] / (den["outside"] + 1e-8) * cfg.unit_sphere_weight
+                        if "unit" in num else zero)
+    if "flow0" in num:
+        flow_loss = (num["flow0"] / den["flow"] + num["flow1"] / den["flow"]) * cfg.flow_weight
+    elif flow_loss is None:
+        flow_loss = zero
+    depth_loss = (num["depth"] / (den["valid"] + 1e-8) * cfg.depth_weight
+                  if "depth" in num else zero)
     total = (color_loss + eikonal_loss * cfg.igr_weight
              + mask_loss * cfg.mask_weight + unit_sphere_loss + flow_loss
              + depth_loss)
-
-    metrics = {
-        "loss": total, "color_loss": color_loss, "eikonal_loss": eikonal_loss,
-        "mask_loss": mask_loss, "flow_loss": flow_loss,
-        "unit_sphere_loss": unit_sphere_loss, "depth_loss": depth_loss,
-        "psnr": psnr,
-        "s_val": out["s_val"].mean(),
-        "cdf": (out["cdf_fine"][:, :1] * mask).sum() / mask_sum,
-        "weight_max": (out["weight_max"] * mask).sum() / mask_sum,
-    }
-    return total, metrics
+    return total, {"loss": total, "color_loss": color_loss,
+                   "eikonal_loss": eikonal_loss, "mask_loss": mask_loss,
+                   "flow_loss": flow_loss, "unit_sphere_loss": unit_sphere_loss,
+                   "depth_loss": depth_loss}
 
 
 def _project_to_pixels(pts, c2w, K):
@@ -315,9 +371,12 @@ def _project_to_pixels(pts, c2w, K):
 
 
 def _flow_loss(cfg: StepConfig, params, pose_bank, pose_static, render_out,
-               flow_ctx):
+               flow_ctx, group=None):
     """Bidirectional expected-pixel reprojection loss: each half-batch's
-    weighted samples projected into the other frame against its matches."""
+    weighted samples projected into the other frame against its matches.
+    With a ``group``: the two directions' sums of absolute errors and
+    their count on this rank (a tensor), for ``_render_and_losses`` to
+    reduce."""
     img_id, img_id_corr, pixels_xy, pixels_xy_corr, K0, K1 = flow_ctx
     n_rays = render_out["weights"].shape[0]
     pts = render_out["pts"].reshape(n_rays, -1, 3)
@@ -341,6 +400,9 @@ def _flow_loss(cfg: StepConfig, params, pose_bank, pose_static, render_out,
     # img_id-frame surface points -> corr frame's pixels vs match pixels
     pix1 = _project_to_pixels(pts1, c2w_0, K0).reshape(B2, n_samples, 2)
     err1 = ((pix1 - pixels_xy_corr[:, None, :]) * w1[:, :, None]).sum(dim=1)
+    if group is not None:
+        return (torch.abs(err0).sum(), torch.abs(err1).sum(),
+                err0.new_tensor(float(err0.numel())))
     return (torch.abs(err0).mean() + torch.abs(err1).mean()) * cfg.flow_weight
 
 
@@ -424,9 +486,12 @@ def _gate_masks(cfg: StepConfig, state: TrainState, cache: dict) -> dict:
 
 
 def _grads_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
-                      loss_of, cache: dict, seg_row=None, *, adam_step):
+                      loss_of, cache: dict, seg_row=None, *, adam_step, group=None):
     """Gradients of ``loss_of(params, pose_bank)`` in the flat buffers and
-    the gated updates; returns the detached metrics."""
+    the gated updates; returns the detached metrics.  With a process
+    ``group`` the gradients (the flat one and a bank mode's bank one, in
+    one buffer) are summed over its ranks before the update, so every rank
+    applies the same one."""
     _gate_masks(cfg, state, cache)
     with torch.enable_grad():
         loss, metrics = loss_of(state.params, state.pose_bank)
@@ -434,6 +499,11 @@ def _grads_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
             flat_g, bank_g = torch.autograd.grad(loss, [state.flat, state.bank_flat])
         else:
             (flat_g,), bank_g = torch.autograd.grad(loss, state.flat), None
+    if group is not None:
+        grads = flat_g if bank_g is None else torch.cat([flat_g, bank_g])
+        dist.all_reduce(grads, group=group)
+        if bank_g is not None:
+            flat_g, bank_g = grads[:flat_g.numel()], grads[flat_g.numel():]
     _apply_updates(cfg, state, flat_g, scalars, cache["m"], adam_step, bank_g,
                    cache.get("b"), seg_row)
     return {k: v.detach() for k, v in metrics.items()}
@@ -455,12 +525,12 @@ def _adam_count(state: TrainState, cache: dict) -> torch.Tensor:
 
 
 def _step_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
-                     loss_of, cache: dict):
+                     loss_of, cache: dict, group=None):
     """One planned step: ``_grads_and_update`` with the host's scalars and
     the device Adam count (``_adam_count``), then the host counts."""
     seg_row = _seg_row(cfg, scalars, state.flat.device)  # its copy overlaps the forward
     metrics = _grads_and_update(cfg, state, scalars, loss_of, cache, seg_row,
-                                adam_step=_adam_count(state, cache))
+                                adam_step=_adam_count(state, cache), group=group)
     state.opt.step += 1
     state.iter_step += 1
     return metrics
@@ -471,22 +541,24 @@ def _maintain_rays(cfg, state, images, masks, intr_inv_all, bbox_table, params,
     """The maintain_shape batch: random rays of frame ``add_img_id``."""
     pose_a = pose_of_frame(cfg, params, pose_bank, state.pose_static, add_img_id)
     return raygen.gen_random_rays(
-        state.generator, images, masks, intr_inv_all, pose_a, add_img_id,
+        state.rays_generator, images, masks, intr_inv_all, pose_a, add_img_id,
         cfg.batch_size, bbox_table, cfg.mask_guided_patch_size,
         cfg.mask_guided_sampling, cfg.H, cfg.W,
         mask_guided_active=scalars.mask_guided, pixels=add_pixels, depths=depths)
 
 
 def make_photo_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
-                    depths=None):
+                    depths=None, group=None):
     """The photometric loss closure used by make_photo_step; ``depths``
-    (z-depth maps [N, H, W]) adds each ray's depth to its batch."""
+    (z-depth maps [N, H, W]) adds each ray's depth to its batch; ``group``
+    as in ``_render_and_losses`` (``cfg.batch_size`` is then this rank's
+    share)."""
 
     def loss_fn(params, state: TrainState, img_id, scalars, pixels=None,
                 add_img_id=0, add_pixels=None, pose_bank=None):
         pose0 = pose_of_frame(cfg, params, pose_bank, state.pose_static, img_id)
         data = raygen.gen_random_rays(
-            state.generator, images, masks, intr_inv_all, pose0, img_id,
+            state.rays_generator, images, masks, intr_inv_all, pose0, img_id,
             cfg.batch_size, bbox_table, cfg.mask_guided_patch_size,
             cfg.mask_guided_sampling, cfg.H, cfg.W,
             mask_guided_active=scalars.mask_guided, pixels=pixels, depths=depths)
@@ -494,21 +566,22 @@ def make_photo_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
             data = torch.cat([data, _maintain_rays(
                 cfg, state, images, masks, intr_inv_all, bbox_table, params,
                 pose_bank, add_img_id, scalars, add_pixels, depths)], dim=0)
-        return _render_and_losses(cfg, state.generator, params,
+        return _render_and_losses(cfg, state.rays_generator, params,
                                   state.pose_static, data, scalars,
-                                  pose_bank=pose_bank)
+                                  pose_bank=pose_bank, group=group)
 
     return loss_fn
 
 
 def make_photo_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
-                    depths=None):
+                    depths=None, group=None):
     """Photometric step ``step(state, scalars, img_id, add_img_id=0,
     pixels=None, add_pixels=None) -> (state, metrics)``; ``pixels`` /
     ``add_pixels`` replace the random pixel draws of the frame's and the
-    maintain_shape batch with given (px, py) ids; ``depths`` as in
-    ``make_photo_loss``.  Updates in place."""
-    loss_fn = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table, depths)
+    maintain_shape batch with given (px, py) ids; ``depths`` and
+    ``group`` as in ``make_photo_loss``.  Updates in place."""
+    loss_fn = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table, depths,
+                              group)
     cache = {}
 
     def run_one(state: TrainState, scalars: StepScalars, img_id, add_img_id=0,
@@ -517,17 +590,20 @@ def make_photo_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
             cfg, state, scalars,
             lambda params, bank: loss_fn(params, state, img_id, scalars, pixels,
                                          add_img_id, add_pixels, bank),
-            cache)
+            cache, group)
         return state, metrics
 
     return run_one
 
 
-def make_flow_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
+def make_flow_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
+                   group=None):
     """The flow-pair loss closure used by make_flow_step: half a batch of
     rays through the matched pixels of each frame (pixels_pair [B/2, 4] =
     (x, y) in img_id_corr, (x, y) in img_id, a device tensor), plus the
-    maintain_shape batch.  Frame ids are host ints or device ids."""
+    maintain_shape batch.  Frame ids are host ints or device ids.
+    ``group`` as in ``_render_and_losses``: ``pixels_pair`` holds this
+    rank's rows of the pairs."""
     K_all = torch.linalg.inv_ex(intr_inv_all[:, :3, :3]).inverse  # once
 
     def loss_fn(params, state: TrainState, img_id, img_id_corr, add_img_id,
@@ -553,19 +629,20 @@ def make_flow_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
                 pose_bank, add_img_id, scalars, add_pixels)], dim=0)
         flow_ctx = (img_id, img_id_corr, pixels_xy, pixels_xy_corr,
                     raygen.frame_row(K_all, img_id_corr), raygen.frame_row(K_all, img_id))
-        return _render_and_losses(cfg, state.generator, params, state.pose_static,
-                                  data, scalars, flow_ctx=flow_ctx,
-                                  pose_bank=pose_bank)
+        return _render_and_losses(cfg, state.rays_generator, params,
+                                  state.pose_static, data, scalars, flow_ctx=flow_ctx,
+                                  pose_bank=pose_bank, group=group)
 
     return loss_fn
 
 
-def make_flow_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
+def make_flow_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
+                   group=None):
     """Flow-pair step ``step(state, scalars, img_id, img_id_corr,
     add_img_id, pixels_pair, add_pixels=None) -> (state, metrics)``
     (``make_flow_loss``; pixels_pair host numpy or a tensor).  Updates in
     place."""
-    loss_fn = make_flow_loss(cfg, images, masks, intr_inv_all, bbox_table)
+    loss_fn = make_flow_loss(cfg, images, masks, intr_inv_all, bbox_table, group)
     cache = {}
 
     def run_one(state: TrainState, scalars: StepScalars, img_id, img_id_corr,
@@ -577,7 +654,7 @@ def make_flow_step(cfg: StepConfig, images, masks, intr_inv_all, bbox_table):
             lambda params, bank: loss_fn(params, state, img_id, img_id_corr,
                                          add_img_id, pixels_pair, scalars,
                                          add_pixels, bank),
-            cache)
+            cache, group)
         return state, metrics
 
     return run_one
@@ -663,18 +740,23 @@ class ScanPhotoSteps:
     does.  The host counts (``state.iter_step``, ``state.opt.step``)
     advance by ``k_steps`` after the steps; the device counts are set from
     them before.  ``step`` is one step alone: the tests give it the
-    frame and the pixels (``img_id``, ``pixels``) instead of the draws."""
+    frame and the pixels (``img_id``, ``pixels``) instead of the draws.
+    ``group``: the data-parallel step (``parallel/dp.py``,
+    ``make_dp_scan_photo_steps``), its all-reduces inside the captured
+    step; the frame comes from the generator the ranks share."""
 
     def __init__(self, cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
-                 schedule: Dict[str, float], k_steps: int, capture=None, depths=None):
+                 schedule: Dict[str, float], k_steps: int, capture=None, depths=None,
+                 group=None):
         if cfg.pose_mode not in ("fixed", "gf", "se3") or cfg.flow_weight > 0 \
                 or cfg.maintain_shape:
             raise ValueError(f"scanned steps take a fixed, gf or se3 pose without "
                              f"flow or maintain_shape, not {cfg.pose_mode!r}")
         self.cfg, self.k = cfg, int(k_steps)
+        self.group = group
         self.device = images.device
         self.loss_fn = make_photo_loss(cfg, images, masks, intr_inv_all, bbox_table,
-                                       depths)
+                                       depths, group)
         self.device_scalars = make_device_scalars(schedule, self.device)
         self.capture = self.device.type == "cuda" if capture is None else capture
         self.cache = {}
@@ -694,7 +776,7 @@ class ScanPhotoSteps:
         metrics = _grads_and_update(
             self.cfg, state, scalars,
             lambda params, bank: self.loss_fn(params, state, img_id, scalars, pixels),
-            self.cache, adam_step=carry.adam_step)
+            self.cache, adam_step=carry.adam_step, group=self.group)
         carry.metric_sum.add_(torch.stack([metrics[k] for k in METRIC_NAMES]))
         carry.iter_step.add_(1)
 
@@ -702,11 +784,12 @@ class ScanPhotoSteps:
         """The captured step of (state, n_images_cur), built at its first use."""
         from fmov_pose_torch.train import graph
         written, read = state_buffers(state)
-        key = (n_images_cur, id(state.generator), *(t.data_ptr() for t in written + read))
+        gens = state.generators()
+        key = (n_images_cur, *map(id, gens), *(t.data_ptr() for t in written + read))
         if self.graph is None or self._graph_key != key:
             _gate_masks(self.cfg, state, self.cache)
             self.graph = graph.StepGraph(
-                lambda: self.step(state, self.carry, n_images_cur), state.generator,
+                lambda: self.step(state, self.carry, n_images_cur), gens,
                 written + list(self.carry))
             self._graph_key = key
         return self.graph
@@ -819,14 +902,15 @@ class PlannedSteps:
         when the state's buffers moved."""
         from fmov_pose_torch.train import graph
         written, read = state_buffers(state)
-        key = (id(state.generator), *(t.data_ptr() for t in written + read))
+        gens = state.generators()
+        key = (*map(id, gens), *(t.data_ptr() for t in written + read))
         if self._graph_key != key:
             self.graphs = {}  # the old captures' memory goes first
             _gate_masks(self.cfg, state, self.cache)
             mutable = written + [self.cursor, self.adam_step, self.metrics]
             for use_flow in ((False, True) if self.flow_loss else (False,)):
                 self.graphs[use_flow] = graph.StepGraph(
-                    lambda uf=use_flow: self.step(state, uf), state.generator, mutable)
+                    lambda uf=use_flow: self.step(state, uf), gens, mutable)
             self.captures += 1
             self._graph_key = key
         return self.graphs

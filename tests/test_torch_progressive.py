@@ -249,12 +249,14 @@ def test_load_K_Rt_from_P_recovers_the_camera():
 
 
 def test_no_module_imports_the_jax_package():
-    """No import of jax or fmov_pose_tpu anywhere in the port's sources or
+    """No import of jax, fmov_pose_tpu or __graft_entry__ (which imports
+    JAX) anywhere in the port's sources, parallel/ included, or
     chip_smoke.py, inside functions included (cv2 only inside functions)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "fmov_pose_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    assert os.path.join(REPO, "fmov_pose_torch", "parallel", "dp.py") in files
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -266,7 +268,8 @@ def test_no_module_imports_the_jax_package():
                 continue
             for mod in mods:
                 top = mod.split(".")[0]
-                assert top not in ("jax", "jaxlib", "fmov_pose_tpu"), (path, mod)
+                assert top not in ("jax", "jaxlib", "fmov_pose_tpu", "__graft_entry__"), \
+                    (path, mod)
                 if top == "cv2":
                     assert node.col_offset > 0, (path, "cv2 at module level")
 
