@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main paths once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
-    python3 chip_smoke.py train-kernels flat-kernels   # device, build and
-                                 # the named kernel phases only, no result line
+    python3 chip_smoke.py train-kernels flat-kernels wgrad   # device, build
+                                 # and the named kernel phases only, no result line
     python3 chip_smoke.py planned scan quality dp   # those run phases only,
                                  # no result line
 
@@ -45,6 +45,13 @@ Phases, each printing lines as it ends:
                  built from K4's outputs, K6 and K7 also bitwise equal over
                  two launches; CUDA-event times of the wrapper, the kernel alone
                  and the plain version
+     wgrad    -- the weight-gradient stage of K5, K3, K9 and K7 (wgrad.cu)
+                 alone at their shapes (M = 65,536 / 32,768 / 65,536 /
+                 65,536) on the workspace their per-point pass filled:
+                 twice bitwise, against its plain version (WGRAD_TOL),
+                 also on positive operands; CUDA-event times of the stage,
+                 the plain version and one torch.mm a layer (the library
+                 yardstick), and its bound
   7. slice    -- Runner trains confs/ho3d_global_womask.conf for 50 steps on
                  an in-memory 8-frame 480x640 orbit scene: finite losses, a
                  falling color loss, K1 launched 4 times per step
@@ -192,7 +199,9 @@ Phases, each printing lines as it ends:
 The phases before "scan" but "planned" run the per-step loop (slice 1
 sets train.scan_steps off; the other confs are not scan-eligible as cut).
 Then one JSON line of kernel results (each with its launches in its
-paths' runs, its time, its plain version's, and its bound on the card),
+paths' runs, its time, its plain version's, and its bound on the card;
+the weight-gradient stage's entry "weight_grads" with its library time,
+its launches those of K3, K5, K7 and K9, and each shape under "shapes"),
 the nvidia-smi line, and the last line {"ok": true, "device": {...}}.  Any failure raises: there is no CPU
 fallback and no switch to the plain version.  Imports nothing of JAX and
 nothing of the JAX package, and checks that at the end.
@@ -222,7 +231,7 @@ OCC_UPDATE_FREQ = 25
 SEED = 0
 TIMING_REPS = 20
 SOURCES = ("sdf_fwd", "sdf_flat", "sdf_fwd_grad", "sdf_bwd", "color_ray",
-           "color_sample")
+           "color_sample", "wgrad")
 # slice 4: the fast phase-2 conf with the NeRF++ background's samples a ray
 # of the public NeuS womask conf and of scripts/parity_check.py's "p2_bg"
 N_OUTSIDE = 32
@@ -296,7 +305,7 @@ def phase_device():
 
 
 def phase_build():
-    from fmov_pose_torch.ops import build, fused_color, fused_sdf
+    from fmov_pose_torch.ops import build, fused_color, fused_sdf, wgrad
     t0 = time.perf_counter()
     build.build_all(SOURCES)
     fused_sdf._lib()
@@ -304,13 +313,14 @@ def phase_build():
     fused_sdf._rays_lib()
     fused_color._lib()
     fused_color._sample_lib()
+    wgrad._lib()
     total = time.perf_counter() - t0
     for name in SOURCES:
         info = build.BUILD_INFO[name]
         regs = [l.strip() for l in info["log"].splitlines()
                 if "registers" in l or "spill" in l]
         per_point = {k: v for k, v in _ptxas_entries(info["log"]).items()
-                     if k in PER_POINT}
+                     if k in PER_POINT + STAGE}
         _line("build", kernel=name, nvcc_seconds=f"{info['seconds']:.2f}",
               ptxas=repr(" | ".join(regs)),
               **{k: json.dumps(v).replace(" ", "") for k, v in per_point.items()})
@@ -323,6 +333,8 @@ PER_POINT = ("sdf_fwd_kernel", "sdf_fwd_grad_kernel", "sdf_fwd_grad_flat_kernel"
              "sdf_bwd_kernel",
              "sdf_bwd_flat_kernel", "color_fwd_kernel", "color_sample_fwd_kernel",
              "color_bwd_kernel", "color_sample_bwd_kernel")
+# the weight-gradient stage of K3/K5/K7/K9 (wgrad.cu), also on the build line
+STAGE = ("wgrad_kernel",)
 
 
 def _kernel_name(mangled):
@@ -894,6 +906,181 @@ def phase_color_kernels(dev):
                               **_bound(*_color_sample_work(cfg_c, M, key == "K7"))}
     return main
 
+# The weight-gradient stage against its plain version: f32 sums of the same
+# bf16 products in another order over up to 131,072 rows.  Each element's
+# |error| over S = sum_r |a_r b_r| (the sum of the magnitudes): a correct
+# sum in any order stays within (adds a split, ~1,200 at K5) x 2^-23 of S,
+# 1.4e-4 even with every rounding one way; on positive operands, where S
+# is |dW| itself, a missing or repeated 64-row stage moves dW by >= 4.9e-4
+# of S (64 of at most 131,072 rows).  The bias sums add in the same order
+# on both sides: bitwise.
+WGRAD_TOL = 2e-4
+WGRAD_TOL_DESC = (f"max|err|/sum_r|a_r*b_r|<={WGRAD_TOL}_on_the_pass's_operands_"
+                  f"and_on_positive_operands;db_bitwise")
+# K5's and K9's shape (the fast phase-2 conf, 512 rays x 128 samples), K3's
+# (the fast phase-1 conf, 1,024 rays x 32) and K7's (the fast conf's
+# samples with the background); the stage's times at these shapes
+WGRAD_SHAPES = (("K5", 65536), ("K3", 32768), ("K9", 65536), ("K7", 65536))
+
+
+def _wgrad_work(stage):
+    """(FLOPs, bytes) of the stage: 2 rows ni nj a job; bytes: each bf16
+    operand read once, the f32 partials of the bias and column-0 sums read
+    once, dw and db written once."""
+    flops = sum(2 * j.a.shape[0] * j.ni * j.nj for j in stage.jobs)
+    nbytes = sum(2 * j.a.shape[0] * (j.ni + j.nj) for j in stage.jobs)
+    nbytes += 4 * (stage.total + stage.dbpart.numel() + stage.dbpart.shape[1])
+    if stage.cbpart is not None:
+        nbytes += 4 * stage.cbpart.numel()
+    return flops, nbytes
+
+
+def _wgrad_scale(stage):
+    """S = |A|^T |B| per element of dw (plus the column-0 partials')."""
+    import torch
+    from fmov_pose_torch.ops import wgrad
+    absd = wgrad.Stage([wgrad.Job(j.a.abs(), j.b.abs(), j.ni, j.nj) for j in stage.jobs],
+                       stage.KS, stage.dwpart, stage.dbpart.abs(),
+                       None if stage.cbpart is None else stage.cbpart.abs(),
+                       stage.cb_off, stage.cb_ld)
+    return torch.clamp(wgrad.weight_grads_plain(absd)[0], min=1e-30)
+
+
+def _wgrad_check(name, stage, what):
+    """The stage twice (bitwise) against its plain version: the errors."""
+    import torch
+    from fmov_pose_torch.ops import wgrad
+    dw, db = wgrad.launch(stage)
+    dw2, db2 = wgrad.launch(stage)
+    torch.cuda.synchronize()
+    same = torch.equal(dw, dw2) and torch.equal(db, db2)
+    rdw, rdb = wgrad.weight_grads_plain(stage)
+    err = (dw.double() - rdw.double()).abs()
+    rel = float((err / _wgrad_scale(stage).double()).max())
+    res = {"max_abs": float(err.max()), "max_over_S": rel,
+           "max_rel_to_max_ref": float(err.max()) / max(float(rdw.abs().max()), 1e-30),
+           "db_bitwise": bool(torch.equal(db, rdb)), "bitwise_run_to_run": same,
+           "finite": bool(dw.isfinite().all())}
+    res["ok"] = (rel <= WGRAD_TOL and res["db_bitwise"] and same and res["finite"])
+    _line("wgrad", name=name, operands=what, errors=json.dumps(res, sort_keys=True),
+          tol=WGRAD_TOL_DESC, ok=res["ok"])
+    _require(res["ok"], f"the weight-gradient stage at {name}'s shape ({what}) "
+                        f"disagrees with its plain version: {res}")
+    return res
+
+
+def _loop_ms(fn, n=10, reps=5):
+    """CUDA-event median over reps of n back-to-back calls, per call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def phase_wgrad(dev):
+    """The weight-gradient stage of K5, K3, K9 and K7 at their main-path
+    shapes: the backward's per-point pass once fills the workspace
+    (random cotangents on seeded weights), then the stage alone, twice
+    bitwise, against its plain version (and once more on positive
+    operands written over the same workspace); CUDA-event times of the
+    stage, its plain version and the library yardstick (one
+    ``torch.mm(A.t(), B, out_dtype=float32)`` a layer on the same bf16
+    operands, summed; ``torch.mm`` in bf16 if out_dtype is refused), and
+    its bound.  Launch counts are restored: these launches compare, they
+    are no path's."""
+    import numpy as np
+    import torch
+    from fmov_pose_torch import convert
+    from fmov_pose_torch.fields import nets
+    from fmov_pose_torch.ops import fused_color, fused_sdf, wgrad
+    launches = wgrad.LAUNCHES
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)  # noqa: E731
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+
+    def sdf_pack(conf):
+        cfg = model_cfg(conf, "sdf_network")
+        ws, bs = fused_sdf.materialize(convert.to_torch(convert.to_numpy(
+            nets.init_sdf(rng, cfg)), dev), cfg)
+        return cfg, fused_sdf.RaysPack(ws, bs, cfg)
+
+    def color_pack():
+        cfg = model_cfg(FAST_CONF, "rendering_network")
+        cws, cbs = fused_color.materialize(convert.to_torch(convert.to_numpy(
+            nets.init_color(rng, cfg)), dev), cfg)
+        return cfg, fused_color.RayPack(cws, cbs, cfg)
+
+    def fill(key, M):
+        x = (rand(M, 3) * 2 - 1) * 0.9
+        if key == "K5":
+            _, pk = sdf_pack(FAST_CONF)
+            return fused_sdf.bwd_pass(pk, x, randn(M, pk.n_out), randn(M),
+                                      randn(M, 3))[-1]
+        if key == "K3":
+            cfg, pk = sdf_pack(VIRTUAL_CONF)
+            xe = fused_sdf.pe_parts(x * pk.scale, pk.multires)[0].contiguous()
+            return fused_sdf.bwd_flat_pass(pk, xe, randn(M, pk.n_out),
+                                           randn(M, xe.shape[1]))[-1]
+        _, cpk = color_pack()
+        if key == "K7":
+            return fused_color.bwd_sample_pass(cpk, randn(M, cpk.d_in),
+                                               randn(M, 3))[-1]
+        B, N = M // 128, 128
+        d = randn(M, 3)
+        return fused_color.bwd_pass(cpk, randn(M, 257), x, d / d.norm(dim=-1, keepdim=True),
+                                    randn(M, 3), rand(B, N) / N, randn(B, 3))[-1]
+
+    def library(stage):
+        try:
+            for j in stage.jobs[:1]:
+                torch.mm(j.a[:, :j.ni].t(), j.b[:, :j.nj], out_dtype=torch.float32)
+            kw, how = {"out_dtype": torch.float32}, "torch.mm_bf16_in_f32_out"
+        except (TypeError, RuntimeError):
+            kw, how = {}, "torch.mm_bf16_in_bf16_out"
+        return (lambda: [torch.mm(j.a[:, :j.ni].t(), j.b[:, :j.nj], **kw)
+                         for j in stage.jobs]), how
+
+    res = {}
+    with torch.no_grad():
+        for key, M in WGRAD_SHAPES:
+            stage = fill(key, M)
+            torch.cuda.synchronize()
+            err = _wgrad_check(key, stage, "pass")
+            lib_fn, how = library(stage)
+            t_kernel = _loop_ms(lambda: wgrad.launch(stage))
+            t_plain = _loop_ms(lambda: wgrad.weight_grads_plain(stage), n=2)
+            t_lib = _loop_ms(lib_fn)
+            flops, nbytes = _wgrad_work(stage)
+            bound = _bound(flops, nbytes)
+            bound["library_ms"] = t_lib
+            plan = wgrad.plan(wgrad.job_dims(stage.jobs), stage.KS)
+            _line("wgrad", name=key, M=M, KS=stage.KS, blocks=len(plan["blocks"]),
+                  stages=plan["stages"], kernel_ms=f"{t_kernel:.4f}",
+                  plain_ms=f"{t_plain:.4f}", library_ms=f"{t_lib:.4f}", library=how,
+                  bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+                  share_of_bound=f"{bound['bound_ms'] / t_kernel:.3f}",
+                  operand_GB=f"{nbytes / 1e9:.4f}", GFLOP=f"{flops / 1e9:.2f}",
+                  max_abs_err=f"{err['max_abs']:.3e}", tol=WGRAD_TOL_DESC)
+            for j in stage.jobs:  # positive operands in place: S = |dW|
+                j.a.copy_(rand(*j.a.shape))
+                j.b.copy_(rand(*j.b.shape))
+            _wgrad_check(key, stage, "positive")
+            res[key] = {"M": M, "max_abs_err": err["max_abs"], "ms": t_kernel,
+                        "plain_ms": t_plain, "library": how, **bound}
+            del stage
+    wgrad.LAUNCHES = launches
+    return res
+
 
 def _history_lines(phase, runner, smi, fallback=None, **extra):
     """The run's loss lines; requires finite losses and a color loss whose
@@ -1001,16 +1188,30 @@ def phase_slice(dev, smi, scene, tmp):
 
 
 def _counters():
-    from fmov_pose_torch.ops import fused_color, fused_sdf
-    return {"K1": fused_sdf.LAUNCHES, "K2": fused_sdf.LAUNCHES_K2,
-            "K3": fused_sdf.LAUNCHES_K3, "K4": fused_sdf.LAUNCHES_K4,
-            "K5": fused_sdf.LAUNCHES_K5, "K6": fused_color.LAUNCHES_K6,
-            "K7": fused_color.LAUNCHES_K7, "K8": fused_color.LAUNCHES_K8,
-            "K9": fused_color.LAUNCHES_K9}
+    """K1-K9's launch counts since the last ``_zero_counters``; requires
+    the weight-gradient stage's count (``wgrad.LAUNCHES``) to equal K3 +
+    K5 + K7 + K9's, so that every run's stage launches are its backward
+    kernels' (the kernels line reports them so)."""
+    from fmov_pose_torch.ops import fused_color, fused_sdf, wgrad
+    counts = {"K1": fused_sdf.LAUNCHES, "K2": fused_sdf.LAUNCHES_K2,
+              "K3": fused_sdf.LAUNCHES_K3, "K4": fused_sdf.LAUNCHES_K4,
+              "K5": fused_sdf.LAUNCHES_K5, "K6": fused_color.LAUNCHES_K6,
+              "K7": fused_color.LAUNCHES_K7, "K8": fused_color.LAUNCHES_K8,
+              "K9": fused_color.LAUNCHES_K9}
+    backward = sum(counts[k] for k in STAGE_OF)
+    _require(wgrad.LAUNCHES == backward,
+             f"the weight-gradient stage launched {wgrad.LAUNCHES} times against "
+             f"{backward} launches of K3/K5/K7/K9")
+    return counts
+
+
+# the kernels whose backward launches the weight-gradient stage once each
+STAGE_OF = ("K3", "K5", "K7", "K9")
 
 
 def _zero_counters():
-    from fmov_pose_torch.ops import fused_color, fused_sdf
+    from fmov_pose_torch.ops import fused_color, fused_sdf, wgrad
+    wgrad.LAUNCHES = 0
     fused_sdf.LAUNCH_SIZES.clear()
     fused_sdf.LAUNCHES = fused_sdf.LAUNCHES_K2 = fused_sdf.LAUNCHES_K3 = 0
     fused_sdf.LAUNCHES_K4 = fused_sdf.LAUNCHES_K5 = 0
@@ -3119,7 +3320,8 @@ def phase_dp(dev, smi, scene, tmp):
 
 
 KERNEL_PHASES = {"kernels": phase_kernels, "train-kernels": phase_train_kernels,
-                 "flat-kernels": phase_flat_kernels, "color-kernels": phase_color_kernels}
+                 "flat-kernels": phase_flat_kernels, "color-kernels": phase_color_kernels,
+                 "wgrad": phase_wgrad}
 
 
 def _scene():
@@ -3175,6 +3377,7 @@ def main(argv):
     train_k = phase_train_kernels(dev)
     flat_k = phase_flat_kernels(dev)
     sample_k = phase_color_kernels(dev)
+    stage_k = phase_wgrad(dev)
     scene = _scene()
     with tempfile.TemporaryDirectory() as tmp:
         k1_launches, runner1 = phase_slice(dev, smi, scene, tmp)
@@ -3244,6 +3447,22 @@ def main(argv):
             kernels[-1]["bake_chunk"] = bake_chunk[key]
     for key, kernel in zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"), kernels):
         kernel["launches"].update({run: c[key] for run, c in dps.items()})
+    # the weight-gradient stage: once a launch of K3/K5/K7/K9 in every run
+    # (``_counters`` requires it), its numbers at K5's shape, each shape's
+    # under "shapes"
+    by_key = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"), kernels))
+    runs = {}
+    for key in STAGE_OF:
+        for run, n in by_key[key]["launches"].items():
+            runs[run] = runs.get(run, 0) + n
+    kernels.append({"name": "weight_grads", "route": "cuda", "source": csrc + "wgrad.cu",
+                    "replaces": "fmov_pose_tpu/ops/fused_sdf.py:845",
+                    "also_replaces": ["fmov_pose_tpu/ops/fused_sdf.py:499",
+                                      "fmov_pose_tpu/ops/fused_color.py:139",
+                                      "fmov_pose_tpu/ops/fused_color.py:452"],
+                    "launches": runs,
+                    **{k: v for k, v in stage_k["K5"].items() if k not in ("M", "library")},
+                    "shapes": stage_k})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,17 +17,17 @@
 // zbar_{l-1} = inpbar [X_l > 0]; at layer 0 the input cotangent splits
 // into pts, PE(dirs) (through PE'), normals (shared memory, for the ubar
 // stage) and the feature columns (featbar).  Weight gradients X_l^T ZB_l
-// over all samples and the bias sums go through atb_kernel /
-// reduce_kernel (train_common.cuh).  This file holds the input and output
-// stages.
+// over all samples and the bias sums are the weight-gradient stage
+// (wgrad.cu), which launch_bwd runs after this pass.  This file holds the
+// input and output stages.
 //
 // What bounds them: ~0.6 MFLOP of bf16 products per sample forward and
 // ~1.8 backward at 4x256 (289 inputs), against ~1.1 KB of inputs per
 // sample, so the products: 0.036 ms for K8 and 0.108 ms for K9 at M =
 // 65,536 on an H100.  Far from it: the mma.sync loop stops at a barrier
 // every 32 weight rows and the tensor cores idle through the epilogues
-// and the input stage (PERF.md); K9's weight-gradient product (atb_kernel,
-// wmma from device memory) is a second pass over X_l and ZB_l.
+// and the input stage (PERF.md); K9's weight-gradient stage (wgrad.cu,
+// TMA and wgmma, bound by those bytes) is a second pass over X_l and ZB_l.
 
 #include "color_train.cuh"
 
@@ -255,29 +255,26 @@ int fmov_color_ray_fwd(const float* sdf_out, int d_sdf, const float* pts,
   return (int)cudaGetLastError();
 }
 
-// ptrs: X_0..X_{L-1}, ZB_0..ZB_{L-1}, DBPART [G x n_bias], DWPART [KS x sum
-// in_w np] (fused_color.py launch_bwd).  dw: the padded [in_w x np] blocks
-// concatenated; db: the padded biases.  Returns a cudaError_t.
+// K9's per-point pass.  ptrs: X_0..X_{L-1}, ZB_0..ZB_{L-1}, DBPART [G x
+// n_bias], then DWPART, which only the weight-gradient stage reads
+// (fused_color.py launch_bwd).  Returns a cudaError_t.
 int fmov_color_ray_bwd(const float* sdf_out, int d_sdf, const float* pts,
                        const float* dirs, const float* nrm, const float* wts,
                        const float* ct, int M, int M_pad, int N, const void* w,
                        const float* bias, const int* meta, int n_lin, int mv,
-                       const unsigned long long* ptrs, int G, int KS,
-                       float* featbar, float* ubar, float* dweights, float* dw,
-                       float* db, void* stream) {
+                       const unsigned long long* ptrs, int G, float* featbar,
+                       float* ubar, float* dweights, void* stream) {
   ColorArgs a;
   int e = color_setup(a, sdf_out, d_sdf, pts, dirs, nrm, wts, M, M_pad, N, w,
                       bias, meta, n_lin, mv, ptrs, true, G);
   if (e) return e;
-  if (KS < 1) return (int)cudaErrorInvalidValue;
   a.ct = ct;
   a.featbar = featbar;
   a.ubar = ubar;
   a.dweights = dweights;
-  float* dwpart = reinterpret_cast<float*>(ptrs[2 * n_lin + 1]);
-  return color_bwd_launch(color_bwd_kernel, a, a.k,
-                          align128((size_t)TILE_M * (6 + a.npe) * 4), dwpart, G, KS,
-                          dw, db, (cudaStream_t)stream);
+  return color_pass_launch<ColorBwdSeq>(color_bwd_kernel, a, a.k,
+                                        align128((size_t)TILE_M * (6 + a.npe) * 4), G,
+                                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

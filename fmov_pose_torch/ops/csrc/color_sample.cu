@@ -34,7 +34,8 @@
 // the products.  Neither overlaps (the mma.sync loop stops at a barrier
 // every 32 weight rows, and the tensor cores idle during the epilogues and
 // the input stage), and K7's weight gradients are a second pass over the
-// stored X_l and ZB_l (atb_kernel).
+// stored X_l and ZB_l (the weight-gradient stage, wgrad.cu, bound by
+// those bytes).
 
 #include "color_train.cuh"
 
@@ -140,26 +141,25 @@ int fmov_color_sample_fwd(const float* xc, int d_in, int M, int M_pad,
                                         (cudaStream_t)stream);
 }
 
-// K7.  ptrs: X_0..X_{L-1}, ZB_0..ZB_{L-1}, DBPART [G x n_bias], DWPART [KS x
-// sum in_w np] (fused_color.py launch_bwd_sample).  dw: the padded [in_w x
-// np] blocks concatenated; db: the padded biases.  Returns a cudaError_t.
+// K7's per-point pass.  ptrs: X_0..X_{L-1}, ZB_0..ZB_{L-1}, DBPART [G x
+// n_bias], then DWPART, which only the weight-gradient stage reads
+// (fused_color.py launch_bwd_sample).  Returns a cudaError_t.
 int fmov_color_sample_bwd(const float* xc, const float* ct, int d_in, int M,
                           int M_pad, const void* w, const float* bias,
                           const int* meta, int n_lin,
-                          const unsigned long long* ptrs, int G, int KS,
-                          float* xcbar, float* dw, float* db, void* stream) {
+                          const unsigned long long* ptrs, int G, float* xcbar,
+                          void* stream) {
   SampleArgs a;
   int p;
   int e = color_core_setup(a.k, w, bias, meta, n_lin, d_in, M, M_pad, ptrs, true, &p);
   if (e) return e;
-  if (G < 1 || KS < 1) return (int)cudaErrorInvalidValue;
+  if (G < 1) return (int)cudaErrorInvalidValue;
   a.xc = xc;
   a.ct = ct;
   a.rgb = nullptr;
   a.xcbar = xcbar;
-  float* dwpart = reinterpret_cast<float*>(ptrs[p]);
-  return color_bwd_launch(color_sample_bwd_kernel, a, a.k, 0, dwpart, G, KS, dw, db,
-                          (cudaStream_t)stream);
+  return color_pass_launch<ColorBwdSeq>(color_sample_bwd_kernel, a, a.k, 0, G,
+                                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

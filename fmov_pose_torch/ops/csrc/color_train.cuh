@@ -17,9 +17,10 @@
 // from its caller), and the bias sums.  color_bwd_tile then descends:
 // inpbar_l = ZB_l W_l^T, ZB_{l-1} = inpbar_l [X_l > 0]; at layer 0 the
 // caller's stage takes the input cotangent.  ZB_l also goes row-major to
-// the workspace, where the weight gradients X_l^T ZB_l over all samples go
-// through atb_kernel / reduce_kernel; those and the bias sums are taken in
-// a fixed order, so they are the same from run to run.  The forward
+// the workspace, where the weight gradients X_l^T ZB_l over all samples are
+// the weight-gradient stage's (wgrad.cu), which the Python wrappers launch
+// after the pass; those and the bias sums are taken in a fixed order, so
+// they are the same from run to run.  The forward
 // writes nothing but its output.
 
 #pragma once
@@ -379,33 +380,6 @@ inline int color_core_setup(ColorCore& k, const void* w, const float* bias,
   return 0;
 }
 
-// Launches the weight-gradient products X_l^T ZB_l over the M_pad rows
-// (dwpart: KS partial sums of the padded [in_w x np] blocks,
-// concatenated) and the reduction into dw and db (the G bias partials).
-// Returns a cudaError_t.
-inline int color_weight_grads(const ColorCore& k, float* dwpart, int G, int KS,
-                              float* dw, float* db, cudaStream_t st) {
-  AtbArgs t;
-  t.n_jobs = k.n_lin;
-  t.KS = KS;
-  int total = 0;
-  for (int l = 0; l < k.n_lin; ++l) {
-    AtbJob& J = t.job[l];
-    const Layer& L = k.L[l];
-    J.a = k.X[l];
-    J.b = k.ZB[l];
-    J.rows = k.M_pad;
-    J.lda = L.kp;
-    J.ldb = L.np;
-    J.ni = L.in_w;
-    J.nj = L.np;
-    J.out = dwpart + total;
-    total += L.in_w * L.np;
-  }
-  return weight_grads(t, dwpart, total, dw, k.dbpart, G, k.n_bias, db, nullptr, 0, 0,
-                      1, st);
-}
-
 // Host side of the per-point pass: `kernel` on G blocks (one per SM at
 // most) with the shared memory of Seq's carve and `rest` bytes of the
 // caller's own.  Returns a cudaError_t.
@@ -419,17 +393,6 @@ inline int color_pass_launch(Kernel kernel, const Args& a, const ColorCore& k,
   if (k.M <= 0) return 0;
   kernel<<<G, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
-}
-
-// A backward launch: the per-point pass, then the weight-gradient product
-// and reduction.  Returns a cudaError_t.
-template <class Kernel, class Args>
-inline int color_bwd_launch(Kernel kernel, const Args& a, const ColorCore& k,
-                            size_t rest, float* dwpart, int G, int KS, float* dw,
-                            float* db, cudaStream_t st) {
-  const int e = color_pass_launch<ColorBwdSeq>(kernel, a, k, rest, G, st);
-  if (e || k.M <= 0) return e;
-  return color_weight_grads(k, dwpart, G, KS, dw, db, st);
 }
 
 }  // namespace fmov_train

@@ -20,9 +20,10 @@
 //   5. xbar = scale sum over the PE columns of (XEB PE' + ct_grad DIN PE'').
 // The weight gradients are then dW_l = [FB_l; X_l]^T [D_l; ZB_l], the
 // Phase A and Phase B terms stacked over 2 M_pad rows (X_{L-1}^T ZB_{L-1}
-// for the last layer, plus the column-0 term), computed by atb_kernel and
-// reduced with the per-block bias sums by reduce_kernel
-// (train_common.cuh).  Three launches.
+// for the last layer, plus the column-0 term): the weight-gradient stage
+// (wgrad.cu: wgrad_kernel on TMA and wgmma, then reduce_kernel with the
+// per-block bias sums), which launch_bwd runs after this pass.  Three
+// launches.
 //
 // The per-point pass (steps 1-4) is sdf_bwd_tile (sdf_pipe.cuh): the
 // weights stream through a cp.async ring across products and tiles, the
@@ -30,15 +31,15 @@
 // product's A operand stays in shared memory (ping-pong), and the f32
 // per-point arrays are stored in the warps' fragment order.
 //
-// What bounds it: ~4.4 MFLOP of per-point products and ~2.3 MFLOP of
-// weight-gradient products a point at 8x256 would take ~0.45 ms at M =
-// 65,536 at the bf16 peak; what sets the time is memory.  The per-point
-// pass writes and reads back ~5 GB of intermediates (bf16 operands of the
-// weight-gradient product, f32 sigmoids, d_l and Hessian terms) in the
-// workspace, and its epilogues, where that traffic happens, do not overlap
-// the tensor cores; the weight-gradient product reads the bf16 operands
-// once more.  Determinism: one block per SM with fixed tiles, column sums
-// in fixed order, split-K partials reduced in order.
+// What bounds it: ~4.4 MFLOP of per-point products a point at 8x256
+// would take ~0.29 ms at M = 65,536 at the bf16 peak; what sets the time
+// is memory.  The per-point pass writes and reads back ~5 GB of
+// intermediates (bf16 operands of the weight-gradient product, f32
+// sigmoids, d_l and Hessian terms) in the workspace, and its epilogues,
+// where that traffic happens, do not overlap the tensor cores.  The
+// weight-gradient stage reads the 1.08 GB of bf16 operands once more and
+// is bound by those bytes (wgrad.cu).  Determinism: one block per SM with
+// fixed tiles, column sums in fixed order.
 
 #include "sdf_pipe.cuh"
 
@@ -88,22 +89,22 @@ using namespace fmov_train;
 
 extern "C" {
 
-// ptrs: the workspace table of sdf_bwd_launch (sdf_pipe.cuh).  dw: the
-// padded per-layer [in_w x np] blocks, concatenated; db: the padded
-// biases.  Returns a cudaError_t (0 = launched).
+// ptrs: the workspace table of sdf_bwd_launch (sdf_pipe.cuh).  The pass
+// alone: the workspace's operands and partial sums are the weight-gradient
+// stage's input.  Returns a cudaError_t (0 = launched).
 int fmov_sdf_bwd(const float* x, const float* ct_out, const float* ct_sdf,
                  const float* ct_grad, int M, int M_pad, int n_out, float scale,
                  const void* w, const float* bias, const float* wlast,
                  const int* meta, int n_lin, int skip, int multires,
-                 const unsigned long long* ptrs, int G, int KS, float* xbar,
-                 float* dw, float* db, void* stream) {
+                 const unsigned long long* ptrs, int G, float* xbar,
+                 void* stream) {
   BwdArgs a;
   SdfArgs& s = a.s;
   int max_k, max_n, n_bias;
   int e = sdf_setup(s, meta, n_lin, skip, multires, M, M_pad, scale, &max_k,
                     &max_n, &n_bias);
   if (e) return e;
-  if (n_out != s.L[n_lin - 1].n || G < 1 || KS < 1) return (int)cudaErrorInvalidValue;
+  if (n_out != s.L[n_lin - 1].n || G < 1) return (int)cudaErrorInvalidValue;
   s.x = x;
   s.w = static_cast<const bf16*>(w);
   s.bias = bias;
@@ -113,8 +114,7 @@ int fmov_sdf_bwd(const float* x, const float* ct_out, const float* ct_sdf,
   a.ct_grad = ct_grad;
   a.xbar = xbar;
   a.n_out = n_out;
-  return sdf_bwd_launch(sdf_bwd_kernel, a, n_bias, ptrs, G, KS, dw, db,
-                        (cudaStream_t)stream);
+  return sdf_bwd_launch(sdf_bwd_kernel, a, n_bias, ptrs, G, (cudaStream_t)stream);
 }
 
 }  // extern "C"

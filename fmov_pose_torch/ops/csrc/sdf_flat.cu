@@ -31,9 +31,11 @@
 // which is bound by the intermediates it stages there (sigmoids, the
 // gradient chain, the Hessian term, the bf16 operands of the weight
 // gradients), read back only by the block that wrote them.  Weight
-// gradients: one product per layer over all points, split over K and
-// reduced in a fixed order, so run to run the result is the same (the
-// Pallas kernel summed them over a sequential grid).
+// gradients: one product per layer over all points, the weight-gradient
+// stage (wgrad.cu, bound by the bytes of those operands), which
+// launch_bwd_flat runs after the pass; split over the rows and reduced in
+// a fixed order, so run to run the result is the same (the Pallas kernel
+// summed them over a sequential grid).
 
 #include "sdf_pipe.cuh"
 
@@ -110,22 +112,22 @@ int fmov_sdf_fwd_grad_flat(const float* xe, int M, int M_pad, float scale,
                                 out, n_out, d_inputs);
 }
 
-// K3.  ptrs: the workspace table of sdf_bwd_launch (sdf_pipe.cuh).  dw:
-// the padded per-layer [in_w x np] blocks, concatenated; db: the padded
-// biases.  Returns a cudaError_t (0 = launched).
+// K3's per-point pass.  ptrs: the workspace table of sdf_bwd_launch
+// (sdf_pipe.cuh), whose operands and partial sums the weight-gradient
+// stage reads next.  Returns a cudaError_t (0 = launched).
 int fmov_sdf_bwd_flat(const float* xe, const float* ybar, const float* gbar,
                       int M, int M_pad, int n_out, float scale, const void* w,
                       const float* bias, const float* wlast, const int* meta,
                       int n_lin, int skip, int multires,
-                      const unsigned long long* ptrs, int G, int KS,
-                      float* xebar, float* dw, float* db, void* stream) {
+                      const unsigned long long* ptrs, int G, float* xebar,
+                      void* stream) {
   BwdArgs a;
   SdfArgs& s = a.s;
   int max_k, max_n, n_bias;
   int e = sdf_setup(s, meta, n_lin, skip, multires, M, M_pad, scale, &max_k,
                     &max_n, &n_bias);
   if (e) return e;
-  if (n_out != s.L[n_lin - 1].n || G < 1 || KS < 1) return (int)cudaErrorInvalidValue;
+  if (n_out != s.L[n_lin - 1].n || G < 1) return (int)cudaErrorInvalidValue;
   s.xe_in = xe;
   s.gbar_in = gbar;
   s.w = static_cast<const bf16*>(w);
@@ -136,7 +138,7 @@ int fmov_sdf_bwd_flat(const float* xe, const float* ybar, const float* gbar,
   a.ct_grad = nullptr;
   a.xbar = xebar;
   a.n_out = n_out;
-  return sdf_bwd_launch(sdf_bwd_flat_kernel, a, n_bias, ptrs, G, KS, dw, db,
+  return sdf_bwd_launch(sdf_bwd_flat_kernel, a, n_bias, ptrs, G,
                         (cudaStream_t)stream);
 }
 

@@ -537,18 +537,17 @@ __device__ __forceinline__ void bwd_block_end(const BwdArgs& a, const BwdSmem& m
     a.cbpart[(size_t)blockIdx.x * ncb + i] = m.CBACC[i];
 }
 
-// Host side of a backward launch: unpacks the workspace pointer table,
-// launches `kernel` (the per-point pass, one block per SM at most) and the
-// weight-gradient product and reduction (train_common.cuh).
+// Host side of a backward launch: unpacks the workspace pointer table and
+// launches `kernel` (the per-point pass, one block per SM at most).  The
+// weight-gradient stage (wgrad.cu) runs next, launched by the caller.
 // ptrs: AB_0..AB_{L-1} ([FB_l; X_l], 2 M_pad rows of kp(l)), BB_0..BB_{L-1}
 // ([D_l; ZB_l], 2 M_pad rows of np(l)), SIG_0..SIG_{L-2}, DS_1..DS_{L-2},
-// ZC_0..ZC_{L-2}, DBPART [G x n_bias], CBPART [G x np(L-2)], DWPART
-// [KS x sum in_w np] (fused_sdf.py _bwd_workspace).  Returns a
-// cudaError_t.
+// ZC_0..ZC_{L-2}, DBPART [G x n_bias], CBPART [G x np(L-2)], then DWPART,
+// which only the stage reads (fused_sdf.py bwd_workspace_specs).  Returns
+// a cudaError_t.
 template <class Kernel>
 inline int sdf_bwd_launch(Kernel kernel, BwdArgs& a, int n_bias,
-                          const unsigned long long* ptrs, int G, int KS,
-                          float* dw, float* db, cudaStream_t st) {
+                          const unsigned long long* ptrs, int G, cudaStream_t st) {
   SdfArgs& s = a.s;
   const int n_lin = s.n_lin;
   const int M_pad = s.M_pad;
@@ -572,40 +571,15 @@ inline int sdf_bwd_launch(Kernel kernel, BwdArgs& a, int n_bias,
   for (int l = 0; l < n_lin - 1; ++l) a.ZC[l] = reinterpret_cast<float*>(ptrs[p++]);
   a.dbpart = reinterpret_cast<float*>(ptrs[p++]);
   a.cbpart = reinterpret_cast<float*>(ptrs[p++]);
-  float* dwpart = reinterpret_cast<float*>(ptrs[p++]);
   a.n_bias = n_bias;
 
-  const int ncb = s.L[n_lin - 2].np;
   const size_t smem = bwd_smem_bytes(a);
   cudaError_t ce = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
   if (s.M <= 0) return 0;
   kernel<<<G, THREADS, smem, st>>>(a);
-  ce = cudaGetLastError();
-  if (ce != cudaSuccess) return (int)ce;
-
-  AtbArgs t;
-  t.n_jobs = n_lin;
-  t.KS = KS;
-  int total = 0;
-  for (int l = 0; l < n_lin; ++l) {
-    AtbJob& J = t.job[l];
-    const Layer& L = s.L[l];
-    const bool only_b = l == n_lin - 1;  // no Phase A product
-    J.a = only_b ? s.X[l] : a.FB[l];
-    J.b = only_b ? a.ZB[l] : s.D[l];
-    J.rows = only_b ? M_pad : 2 * M_pad;
-    J.lda = L.kp;
-    J.ldb = L.np;
-    J.ni = L.in_w;
-    J.nj = L.np;
-    J.out = dwpart + total;
-    total += L.in_w * L.np;
-  }
-  const int cb_off = total - s.L[n_lin - 1].in_w * s.L[n_lin - 1].np;
-  return weight_grads(t, dwpart, total, dw, a.dbpart, G, n_bias, db, a.cbpart,
-                      ncb, cb_off, s.L[n_lin - 1].np, st);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -41,8 +41,10 @@ composite); the backward kernels K9/K7 recompute the forward through the
 same tile code, keep the ReLU masks as bits in shared memory, and write
 each layer's input X_l and output cotangent ZB_l to the workspace
 (``_workspace``) for the weight gradients, which are one product per layer
-over all samples, split over K and reduced in a fixed order.  K8's per-ray
-composite is a second, small launch (a ray's samples may span two tiles).
+over all samples: the weight-gradient stage (``wgrad.py``,
+``csrc/wgrad.cu``), split over the rows and reduced in a fixed order.
+K8's per-ray composite is a second, small launch (a ray's samples may span
+two tiles).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from fmov_pose_torch.core.embedder import positional_encode
-from fmov_pose_torch.ops import fused_sdf, packing
+from fmov_pose_torch.ops import fused_sdf, packing, wgrad
 
 LAUNCHES_K6 = 0
 LAUNCHES_K7 = 0
@@ -101,12 +103,16 @@ def _mlp(ws, bs, xc):
     return acts, torch.sigmoid(h)
 
 
-def _descend(ws, acts, zbar):
+def _descend(ws, acts, zbar, operands=None):
     """From the cotangent zbar of the last pre-activation: (the input
-    cotangent, dws, dbs), the backward kernels' descent."""
+    cotangent, dws, dbs), the backward kernels' descent.  ``operands``, a
+    dict, receives each weight product's operands (acts[l], zbar_l) at
+    l."""
     n_lin = len(ws)
     dws, dbs = [None] * n_lin, [None] * n_lin
     for l in range(n_lin - 1, -1, -1):
+        if operands is not None:
+            operands[l] = (acts[l], zbar)
         dws[l] = _bdot(acts[l].T, zbar)
         dbs[l] = zbar.sum(0)
         ibar = _bdot(zbar, ws[l].T)
@@ -121,11 +127,12 @@ def color_fwd_plain(ws, bs, xc):
     return _mlp(ws, bs, xc)[1]
 
 
-def color_bwd_plain(ws, bs, xc, ct):
+def color_bwd_plain(ws, bs, xc, ct, operands=None):
     """K7's arithmetic, the hand derivation of the JAX ``_make_bwd_kernel``:
-    ct [M, 3] -> (xcbar [M, d_in], dws, dbs)."""
+    ct [M, 3] -> (xcbar [M, d_in], dws, dbs); ``operands`` as in
+    ``_descend``."""
     acts, c = _mlp(ws, bs, xc)
-    return _descend(ws, acts, ct * c * (1.0 - c))
+    return _descend(ws, acts, ct * c * (1.0 - c), operands)
 
 
 def color_ray_fwd_plain(ws, bs, sdf_out, pts, dirs, normals, weights, cfg):
@@ -136,16 +143,17 @@ def color_ray_fwd_plain(ws, bs, sdf_out, pts, dirs, normals, weights, cfg):
     return (c.reshape(B, N, 3) * weights[:, :, None]).sum(1)
 
 
-def color_ray_bwd_plain(ws, bs, sdf_out, pts, dirs, normals, weights, ct, cfg):
+def color_ray_bwd_plain(ws, bs, sdf_out, pts, dirs, normals, weights, ct, cfg,
+                        operands=None):
     """K9's arithmetic, the hand derivation: ct [B, 3] -> (featbar
     [M, d_sdf] with column 0 zero, pts_bar, dirs_bar, normals_bar,
-    d_weights [B, N], dws, dbs)."""
+    d_weights [B, N], dws, dbs); ``operands`` as in ``_descend``."""
     xc, vjac = _inputs(sdf_out, pts, dirs, normals, cfg)
     acts, c = _mlp(ws, bs, xc)
     B, N = weights.shape
     d_weights = (c.reshape(B, N, 3) * ct[:, None, :]).sum(2)
     cbar = (ct[:, None, :] * weights[:, :, None]).reshape(-1, 3)
-    ibar, dws, dbs = _descend(ws, acts, cbar * c * (1.0 - c))
+    ibar, dws, dbs = _descend(ws, acts, cbar * c * (1.0 - c), operands)
     n_pe = vjac.shape[1]
     featbar = torch.cat([torch.zeros_like(ibar[:, :1]), ibar[:, 6 + n_pe:]], -1)
     dirs_bar = fused_sdf.dim_sum(ibar[:, 3:3 + n_pe] * vjac)
@@ -180,8 +188,8 @@ def _lib():
             vp, ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp]
         lib.fmov_color_ray_fwd.restype = ci
         lib.fmov_color_ray_bwd.argtypes = [
-            vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci, ci,
-            vp, vp, vp, vp, vp, vp]
+            vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci,
+            vp, vp, vp, vp]
         lib.fmov_color_ray_bwd.restype = ci
         lib.fmov_train_error_string.argtypes = [ci]
         lib.fmov_train_error_string.restype = ctypes.c_char_p
@@ -247,36 +255,45 @@ def launch_fwd(pk: RayPack, sdf_out, pts, dirs, normals, weights):
     return color
 
 
-def launch_bwd(pk: RayPack, sdf_out, pts, dirs, normals, weights, ct):
-    """K9 on pre-packed weights: ct [B, 3] -> (featbar [M, d_sdf], ubar
-    [M, 9] = [pts | dirs | normals] cotangents, d_weights [B, N], dw_pad,
-    db_pad); the only place that counts LAUNCHES_K9."""
-    global LAUNCHES_K9
+def bwd_pass(pk: RayPack, sdf_out, pts, dirs, normals, weights, ct):
+    """K9's per-point pass alone, on pre-packed weights: (featbar [M,
+    d_sdf], ubar [M, 9], d_weights [B, N], the weight-gradient stage on the
+    workspace it filled)."""
     M, B, N, dev = _check(pk, sdf_out, pts, dirs, normals, weights)
     fused_sdf._check_cuda_rows("ct", ct, 3, B, dev)
     M_pad = packing.round_up(max(M, 1), packing.TILE_M)
     G = fused_sdf._grid(dev, M_pad // packing.TILE_M)
-    KS = fused_sdf._split_k(dev, pk.meta, M_pad)
+    KS = fused_sdf._split_k(dev, pk.table, M_pad, False)
     ws_ = _workspace(pk, M_pad, dev, True, G, KS)
     featbar = torch.empty_like(sdf_out)
     ubar = torch.empty((M, 9), dtype=torch.float32, device=dev)
     d_weights = torch.empty((B, N), dtype=torch.float32, device=dev)
-    dw_pad = torch.empty(packing.dw_elems(pk.meta), dtype=torch.float32, device=dev)
-    db_pad = torch.empty(int(pk.table[:, 1].sum()), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K9):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = lib.fmov_color_ray_bwd(
             sdf_out.data_ptr(), sdf_out.shape[1], pts.data_ptr(), dirs.data_ptr(),
             normals.data_ptr(), weights.data_ptr(), ct.data_ptr(), M, M_pad, N,
             pk.w_buf.data_ptr(), pk.b_buf.data_ptr(),
             pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin, pk.multires_view,
-            ws_.table.ctypes.data_as(ctypes.c_void_p), G, KS,
-            featbar.data_ptr(), ubar.data_ptr(), d_weights.data_ptr(),
-            dw_pad.data_ptr(), db_pad.data_ptr(), stream)
+            ws_.table.ctypes.data_as(ctypes.c_void_p), G, featbar.data_ptr(),
+            ubar.data_ptr(), d_weights.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     fused_sdf._raise_on(lib, err, "color_ray_bwd", M)
+    return featbar, ubar, d_weights, wgrad.color_stage(ws_, pk.table, KS)
+
+
+def launch_bwd(pk: RayPack, sdf_out, pts, dirs, normals, weights, ct):
+    """K9 on pre-packed weights: ct [B, 3] -> (featbar [M, d_sdf], ubar
+    [M, 9] = [pts | dirs | normals] cotangents, d_weights [B, N], dw_pad,
+    db_pad): the per-point pass, then the weight-gradient stage; the only
+    place that counts LAUNCHES_K9."""
+    global LAUNCHES_K9
+    with torch.profiler.record_function(PROFILE_K9):
+        featbar, ubar, d_weights, stage = bwd_pass(pk, sdf_out, pts, dirs, normals,
+                                                   weights, ct)
+        dw_pad, db_pad = wgrad.launch(stage)
     LAUNCHES_K9 += 1
-    fused_sdf.LAUNCH_SIZES["K9", M] += 1
+    fused_sdf.LAUNCH_SIZES["K9", pts.shape[0]] += 1
     return featbar, ubar, d_weights, dw_pad, db_pad
 
 
@@ -307,10 +324,9 @@ def _sample_lib():
     return fused_sdf._typed(build.library("color_sample"), {
         # (xc, d_in, M, M_pad, w, b, meta, n_lin, ptrs, G, rgb, stream)
         "fmov_color_sample_fwd": [vp, ci, ci, ci, vp, vp, vp, ci, vp, ci, vp, vp],
-        # (xc, ct, d_in, M, M_pad, w, b, meta, n_lin, ptrs, G, KS, xcbar,
-        #  dw, db, stream)
-        "fmov_color_sample_bwd": [vp, vp, ci, ci, ci, vp, vp, vp, ci, vp, ci, ci,
-                                  vp, vp, vp, vp]})
+        # (xc, ct, d_in, M, M_pad, w, b, meta, n_lin, ptrs, G, xcbar, stream)
+        "fmov_color_sample_bwd": [vp, vp, ci, ci, ci, vp, vp, vp, ci, vp, ci, vp,
+                                  vp]})
 
 
 def _check_sample(pk, xc, ct=None):
@@ -345,29 +361,36 @@ def launch_fwd_sample(pk: RayPack, xc):
     return rgb
 
 
-def launch_bwd_sample(pk: RayPack, xc, ct):
-    """K7 on pre-packed weights: ct [M, 3] -> (xcbar [M, d_in], dw_pad,
-    db_pad) in the packed layout; the only place that counts LAUNCHES_K7."""
-    global LAUNCHES_K7
+def bwd_sample_pass(pk: RayPack, xc, ct):
+    """K7's per-point pass alone, on pre-packed weights: (xcbar [M, d_in],
+    the weight-gradient stage on the workspace it filled)."""
     M, dev = _check_sample(pk, xc, ct)
     M_pad = packing.round_up(max(M, 1), packing.TILE_M)
     G = fused_sdf._grid(dev, M_pad // packing.TILE_M)
-    KS = fused_sdf._split_k(dev, pk.meta, M_pad)
+    KS = fused_sdf._split_k(dev, pk.table, M_pad, False)
     ws_ = _workspace(pk, M_pad, dev, True, G, KS)
     xcbar = torch.empty((M, pk.d_in), dtype=torch.float32, device=dev)
-    dw_pad = torch.empty(packing.dw_elems(pk.meta), dtype=torch.float32, device=dev)
-    db_pad = torch.empty(int(pk.table[:, 1].sum()), dtype=torch.float32, device=dev)
     lib = _sample_lib()
-    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K7):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = lib.fmov_color_sample_bwd(
             xc.data_ptr(), ct.data_ptr(), pk.d_in, M, M_pad, pk.w_buf.data_ptr(),
             pk.b_buf.data_ptr(), pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin,
-            ws_.table.ctypes.data_as(ctypes.c_void_p), G, KS, xcbar.data_ptr(),
-            dw_pad.data_ptr(), db_pad.data_ptr(), stream)
+            ws_.table.ctypes.data_as(ctypes.c_void_p), G, xcbar.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     fused_sdf._raise_on(lib, err, "color_sample_bwd", M)
+    return xcbar, wgrad.color_stage(ws_, pk.table, KS)
+
+
+def launch_bwd_sample(pk: RayPack, xc, ct):
+    """K7 on pre-packed weights: ct [M, 3] -> (xcbar [M, d_in], dw_pad,
+    db_pad) in the packed layout: the per-point pass, then the
+    weight-gradient stage; the only place that counts LAUNCHES_K7."""
+    global LAUNCHES_K7
+    with torch.profiler.record_function(PROFILE_K7):
+        xcbar, stage = bwd_sample_pass(pk, xc, ct)
+        dw_pad, db_pad = wgrad.launch(stage)
     LAUNCHES_K7 += 1
-    fused_sdf.LAUNCH_SIZES["K7", M] += 1
+    fused_sdf.LAUNCH_SIZES["K7", xc.shape[0]] += 1
     return xcbar, dw_pad, db_pad
 
 

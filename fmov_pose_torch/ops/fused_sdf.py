@@ -61,7 +61,7 @@ from torch.autograd.function import once_differentiable
 from fmov_pose_torch import convert
 from fmov_pose_torch.core.embedder import positional_encode
 from fmov_pose_torch.fields import nets
-from fmov_pose_torch.ops import packing
+from fmov_pose_torch.ops import packing, wgrad
 from fmov_pose_torch.ops.packing import round_up
 
 LAUNCHES = 0
@@ -316,8 +316,9 @@ def sdf_apply_fused(params, cfg, x):
 # and the weight-gradient operands (``bwd_workspace_specs``; ~40 KB per
 # point); K5 recomputes the forward instead of keeping K4's.  K5's weight
 # gradients are one product per layer over all points (``[fbar; inp]^T @
-# [e; zbar]``, the Phase A and B terms stacked), split over K and reduced
-# in a fixed order: run to run the result is the same.
+# [e; zbar]``, the Phase A and B terms stacked): the weight-gradient stage
+# (``wgrad.py``, ``csrc/wgrad.cu``) after the per-point pass, split over
+# the rows and reduced in a fixed order: run to run the result is the same.
 #
 # K2 and K3 (``csrc/sdf_flat.cu``) replace ``_make_fwd_grad_kernel`` and
 # ``_make_bwd_kernel_biased`` (``_sdf_forward_grad_impl`` /
@@ -461,11 +462,14 @@ def sdf_fwd_grad_plain(ws, bs, x, cfg):
     return out, dim_sum(d_inputs * jac)
 
 
-def _bwd_core(ws, bs, xe, ybar, gbar, skip):
+def _bwd_core(ws, bs, xe, ybar, gbar, skip, operands=None):
     """The hand derivation transcribed (``ops/fused_sdf.py:407-434`` of
     the JAX package): the VJP of (z_{L-1}, d_inputs) given their
     cotangents ybar [M, d_out] and gbar [M, pe_dim] -> (xebar, dws, dbs,
-    d_inputs)."""
+    d_inputs).  ``operands``, a dict, receives the weight products'
+    operands: at l, [(fbar_l, d_l) of Phase A (l < L-1), (inp_l, zbar_l)
+    of Phase B], and at "col" the rows whose column sums are the last
+    layer's column-0 term."""
     n_lin = len(ws)
     inps, sigs = _forward_chain(ws, bs, xe, skip)
     ds, d_inputs = _grad_chain(ws, xe, sigs, skip)
@@ -479,11 +483,15 @@ def _bwd_core(ws, bs, xe, ybar, gbar, skip):
         fbar = (torch.cat([dbar * _INV_SQRT2, gbar * _INV_SQRT2], -1)
                 if l == skip else dbar)
         sp = sigs[l]
+        if operands is not None:
+            operands[l] = [(fbar, ds[l + 1] * sp)]
         dws[l] = _bdot(fbar.T, ds[l + 1] * sp)
         ebar = _bdot(fbar, ws[l])
         dbar = ebar * sp
         zbar_chain[l] = ebar * ds[l + 1] * (100.0 * sp * (1.0 - sp))
     col_bar = dbar.sum(0)
+    if operands is not None:
+        operands["col"] = dbar
     dws[n_lin - 1] = torch.zeros_like(ws[-1])
     dws[n_lin - 1][:, 0] = col_bar
 
@@ -491,6 +499,8 @@ def _bwd_core(ws, bs, xe, ybar, gbar, skip):
     xebar = torch.zeros_like(xe)
     zbar = ybar
     for l in range(n_lin - 1, -1, -1):
+        if operands is not None:
+            operands.setdefault(l, []).append((inps[l], zbar))
         dws[l] = dws[l] + _bdot(inps[l].T, zbar)
         dbs[l] = zbar.sum(0)
         inpbar = _bdot(zbar, ws[l].T)
@@ -507,24 +517,26 @@ def _bwd_core(ws, bs, xe, ybar, gbar, skip):
     return xebar, dws, dbs, d_inputs
 
 
-def sdf_bwd_flat_plain(ws, bs, xe, ybar, gbar, cfg):
+def sdf_bwd_flat_plain(ws, bs, xe, ybar, gbar, cfg, operands=None):
     """K3's arithmetic: xe, ybar [M, d_out] (the cotangent of the raw last
     layer, its sdf column already divided by scale) and gbar [M, pe_dim]
-    (the cotangent of d_inputs) -> (xebar [M, pe_dim], dws, dbs)."""
-    xebar, dws, dbs, _ = _bwd_core(ws, bs, xe, ybar, gbar, _skip(cfg))
+    (the cotangent of d_inputs) -> (xebar [M, pe_dim], dws, dbs);
+    ``operands`` as in ``_bwd_core``."""
+    xebar, dws, dbs, _ = _bwd_core(ws, bs, xe, ybar, gbar, _skip(cfg), operands)
     return xebar, dws, dbs
 
 
-def sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg):
+def sdf_bwd_plain(ws, bs, x, ct_out, ct_sdf, ct_grad, cfg, operands=None):
     """K5's arithmetic: the cotangents ct_out [M, d_out], ct_sdf [M]
     (sdf_bn's, flattened) and ct_grad [M, 3] -> (xbar [M, 3], dws, dbs):
-    K3's core with the encoding's derivatives around it."""
+    K3's core with the encoding's derivatives around it; ``operands`` as
+    in ``_bwd_core``."""
     scale = cfg.get("scale", 1.0)
     xe, jac, d2, dims = pe_parts(x * scale, cfg["multires"])
     ybar = torch.cat([(ct_out[:, :1] + ct_sdf[:, None]) / scale, ct_out[:, 1:]], -1)
     ct_grad_G = ct_grad[:, dims]
     xebar, dws, dbs, d_inputs = _bwd_core(ws, bs, xe, ybar, ct_grad_G * jac,
-                                          _skip(cfg))
+                                          _skip(cfg), operands)
     xsbar = dim_sum(xebar * jac + ct_grad_G * d_inputs * d2)
     return xsbar * scale, dws, dbs
 
@@ -595,10 +607,10 @@ _FWD_GRAD_ARGS = [_VP, _CI, _CI, _CF, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP, _C
                   _VP, _CI, _VP, _VP, _VP]
 _FWD_GRAD_FLAT_ARGS = _FWD_GRAD_ARGS[:15] + [_VP, _VP]
 # (x, ct_out, ct_sdf, ct_grad, M, M_pad, n_out, scale, w, b, wlast, meta,
-#  n_lin, skip, multires, ptrs, G, KS, xbar, dw, db, stream); K3 takes
-#  (xe, ybar, gbar) for the first four and xebar for xbar
+#  n_lin, skip, multires, ptrs, G, xbar, stream); K3 takes (xe, ybar,
+#  gbar) for the first four and xebar for xbar
 _BWD_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CF, _VP, _VP, _VP, _VP, _CI, _CI,
-             _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP]
+             _CI, _VP, _CI, _VP, _VP]
 _BWD_FLAT_ARGS = _BWD_ARGS[1:]
 
 
@@ -734,20 +746,16 @@ def launch_fwd_grad(pk: RaysPack, x: torch.Tensor):
     return out, sdf, grad
 
 
-def _split_k(device, meta, rows: int) -> int:
-    """Row splits of the weight-gradient product: about 4 blocks per SM
-    over all layers' 64x64 output tiles, at least 512 rows a split."""
-    t = packing.layer_table(meta)
-    tiles = int(sum(-(-in_w // 64) * -(-np_ // 64) for np_, in_w in zip(t[:, 1], t[:, 7])))
+def _split_k(device, table, M_pad: int, sdf: bool) -> int:
+    """Row splits of the weight-gradient stage on this device's SMs
+    (``wgrad.split_k``) for K5/K3's (``sdf``) or K9/K7's layer table."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // tiles), rows // 512))
+    return wgrad.split_k(sms, wgrad.table_dims(table, M_pad, sdf))
 
 
-def launch_bwd(pk: RaysPack, x, ct_out, ct_sdf, ct_grad):
-    """K5 on pre-packed weights: the cotangents of (out, sdf [M], grad)
-    -> (xbar [M, 3], dw_pad, db_pad) in the packed layout; the only place
-    that counts LAUNCHES_K5."""
-    global LAUNCHES_K5
+def bwd_pass(pk: RaysPack, x, ct_out, ct_sdf, ct_grad):
+    """K5's per-point pass alone, on pre-packed weights: (xbar [M, 3], the
+    weight-gradient stage on the workspace it filled)."""
     M = x.shape[0]
     dev = x.device
     _check_cuda_rows("x", x, 3, M, dev)
@@ -756,23 +764,32 @@ def launch_bwd(pk: RaysPack, x, ct_out, ct_sdf, ct_grad):
     _check_cuda_rows("ct_grad", ct_grad, 3, M, dev)
     M_pad = packing.round_up(max(M, 1), packing.TILE_M)
     G = _grid(dev, M_pad // packing.TILE_M)
-    KS = _split_k(dev, pk.meta, 2 * M_pad)
-    ws_, n_bias = _bwd_workspace(pk, M_pad, G, KS, dev)
+    KS = _split_k(dev, pk.table, M_pad, True)
+    ws_, _ = _bwd_workspace(pk, M_pad, G, KS, dev)
     xbar = torch.empty((M, 3), dtype=torch.float32, device=dev)
-    dw_pad = torch.empty(packing.dw_elems(pk.meta), dtype=torch.float32, device=dev)
-    db_pad = torch.empty(n_bias, dtype=torch.float32, device=dev)
     _, lib = _rays_lib()
-    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K5):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = lib.fmov_sdf_bwd(
             x.data_ptr(), ct_out.data_ptr(), ct_sdf.data_ptr(), ct_grad.data_ptr(),
             M, M_pad, pk.n_out, pk.scale, pk.w_buf.data_ptr(), pk.b_buf.data_ptr(),
             pk.wlast.data_ptr(), pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin,
-            pk.skip, pk.multires, ws_.table.ctypes.data_as(ctypes.c_void_p),
-            G, KS, xbar.data_ptr(), dw_pad.data_ptr(), db_pad.data_ptr(), stream)
+            pk.skip, pk.multires, ws_.table.ctypes.data_as(ctypes.c_void_p), G,
+            xbar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "sdf_bwd", M)
+    return xbar, wgrad.sdf_stage(ws_, pk.table, M_pad, KS)
+
+
+def launch_bwd(pk: RaysPack, x, ct_out, ct_sdf, ct_grad):
+    """K5 on pre-packed weights: the cotangents of (out, sdf [M], grad)
+    -> (xbar [M, 3], dw_pad, db_pad) in the packed layout: the per-point
+    pass, then the weight-gradient stage; the only place that counts
+    LAUNCHES_K5."""
+    global LAUNCHES_K5
+    with torch.profiler.record_function(PROFILE_K5):
+        xbar, stage = bwd_pass(pk, x, ct_out, ct_sdf, ct_grad)
+        dw_pad, db_pad = wgrad.launch(stage)
     LAUNCHES_K5 += 1
-    LAUNCH_SIZES["K5", M] += 1
+    LAUNCH_SIZES["K5", x.shape[0]] += 1
     return xbar, dw_pad, db_pad
 
 
@@ -810,11 +827,9 @@ def launch_fwd_grad_flat(pk: RaysPack, xe: torch.Tensor):
     return out, d_inputs
 
 
-def launch_bwd_flat(pk: RaysPack, xe, ybar, gbar):
-    """K3 on pre-packed weights: xe, ybar [M, d_out] and gbar [M, pe_dim]
-    -> (xebar [M, pe_dim], dw_pad, db_pad) in the packed layout; the only
-    place that counts LAUNCHES_K3."""
-    global LAUNCHES_K3
+def bwd_flat_pass(pk: RaysPack, xe, ybar, gbar):
+    """K3's per-point pass alone, on pre-packed weights: (xebar [M, pe_dim],
+    the weight-gradient stage on the workspace it filled)."""
     M = xe.shape[0]
     dev = xe.device
     pe_dim = _pe_width(pk)
@@ -823,23 +838,32 @@ def launch_bwd_flat(pk: RaysPack, xe, ybar, gbar):
     _check_cuda_rows("gbar", gbar, pe_dim, M, dev)
     M_pad = packing.round_up(max(M, 1), packing.TILE_M)
     G = _grid(dev, M_pad // packing.TILE_M)
-    KS = _split_k(dev, pk.meta, 2 * M_pad)
-    ws_, n_bias = _bwd_workspace(pk, M_pad, G, KS, dev)
+    KS = _split_k(dev, pk.table, M_pad, True)
+    ws_, _ = _bwd_workspace(pk, M_pad, G, KS, dev)
     xebar = torch.empty((M, pe_dim), dtype=torch.float32, device=dev)
-    dw_pad = torch.empty(packing.dw_elems(pk.meta), dtype=torch.float32, device=dev)
-    db_pad = torch.empty(n_bias, dtype=torch.float32, device=dev)
     lib = _flat_lib()
-    with torch.cuda.device(dev), torch.profiler.record_function(PROFILE_K3):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = lib.fmov_sdf_bwd_flat(
             xe.data_ptr(), ybar.data_ptr(), gbar.data_ptr(), M, M_pad, pk.n_out,
             pk.scale, pk.w_buf.data_ptr(), pk.b_buf.data_ptr(), pk.wlast.data_ptr(),
             pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin, pk.skip, pk.multires,
-            ws_.table.ctypes.data_as(ctypes.c_void_p), G, KS, xebar.data_ptr(),
-            dw_pad.data_ptr(), db_pad.data_ptr(), stream)
+            ws_.table.ctypes.data_as(ctypes.c_void_p), G, xebar.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "sdf_bwd_flat", M)
+    return xebar, wgrad.sdf_stage(ws_, pk.table, M_pad, KS)
+
+
+def launch_bwd_flat(pk: RaysPack, xe, ybar, gbar):
+    """K3 on pre-packed weights: xe, ybar [M, d_out] and gbar [M, pe_dim]
+    -> (xebar [M, pe_dim], dw_pad, db_pad) in the packed layout: the
+    per-point pass, then the weight-gradient stage; the only place that
+    counts LAUNCHES_K3."""
+    global LAUNCHES_K3
+    with torch.profiler.record_function(PROFILE_K3):
+        xebar, stage = bwd_flat_pass(pk, xe, ybar, gbar)
+        dw_pad, db_pad = wgrad.launch(stage)
     LAUNCHES_K3 += 1
-    LAUNCH_SIZES["K3", M] += 1
+    LAUNCH_SIZES["K3", xe.shape[0]] += 1
     return xebar, dw_pad, db_pad
 
 

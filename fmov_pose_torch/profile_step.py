@@ -35,8 +35,8 @@ K4/K5 and the per-sample K6/K7, the background blocking K8/K9).
   conf the up-sampler's four K1 launches), each with its device time per
   step, its share of the busy time and its rank among the ops of ``top``.
 * ``split``: each range's device time per step by kernel name (e.g. K9's
-  per-point ``color_bwd_kernel``, its ``atb_kernel`` and its
-  ``reduce_kernel``), the kernels tied to the range through the
+  per-point ``color_bwd_kernel`` and its weight-gradient stage's
+  ``wgrad_kernel`` and ``reduce_kernel``), the kernels tied to the range through the
   correlation ids of the launches made inside it.
 
 Needs CUDA; raises without it.  ``--trace`` also writes the Chrome trace.

@@ -35,7 +35,8 @@ capture or replay raises with its cause: there is no return to eager
 steps.
 
 Launch counts: a kernel wrapper counts a launch when it runs
-(``fused_sdf.LAUNCHES*``, ``fused_color.LAUNCHES*``, ``LAUNCH_SIZES``).
+(``fused_sdf.LAUNCHES*``, ``fused_color.LAUNCHES*``, ``wgrad.LAUNCHES``,
+``LAUNCH_SIZES``).
 The warm-up's launches ran and stay counted; the capture's did not run
 and are taken back; each replay adds the launches the capture recorded
 (``per_replay``), since a replay runs those kernels once more.
@@ -63,8 +64,8 @@ def _side_stream(device) -> torch.cuda.Stream:
 def _launch_counters():
     """{(module, name): count} of every kernel wrapper's launch counter,
     and a copy of the launches by (kernel, M)."""
-    from fmov_pose_torch.ops import fused_color, fused_sdf
-    counts = {(mod, name): getattr(mod, name) for mod in (fused_sdf, fused_color)
+    from fmov_pose_torch.ops import fused_color, fused_sdf, wgrad
+    counts = {(mod, name): getattr(mod, name) for mod in (fused_sdf, fused_color, wgrad)
               for name in dir(mod) if name.startswith("LAUNCHES")}
     return counts, collections.Counter(fused_sdf.LAUNCH_SIZES)
 
@@ -87,10 +88,14 @@ def _add_counts(delta, times: int = 1):
 
 
 def launches_by_kernel(delta) -> dict:
-    """{"K1": n, ...} of a count delta (``per_replay``, ``warmup_launches``)."""
+    """{"K1": n, ...} of a count delta (``per_replay``, ``warmup_launches``):
+    K1-K9; the weight-gradient stage, launched once by each of K3, K5, K7
+    and K9, is left out."""
+    from fmov_pose_torch.ops import fused_sdf
     out = {}
-    for (_, name), n in delta[0].items():
-        out["K1" if name == "LAUNCHES" else name.split("_")[-1]] = n
+    for (mod, name), n in delta[0].items():
+        if mod is fused_sdf or name != "LAUNCHES":
+            out["K1" if name == "LAUNCHES" else name.split("_")[-1]] = n
     return out
 
 

@@ -1,7 +1,8 @@
 """The workspace of K5 and K3, the second-order SDF backward
 (``fmov_pose_torch/ops/fused_sdf.py``, ``bwd_workspace_specs``), and the
 build line of ``chip_smoke.py`` that reports the per-point kernels on the
-pipeline (K1, K4, K2, K5, K3, and the color MLP's K8, K6, K9 and K7).
+pipeline (K1, K4, K2, K5, K3, and the color MLP's K8, K6, K9 and K7) and
+the weight-gradient stage's ``wgrad_kernel``.
 
 The kernels read the workspace through a pointer table in the order of
 ``sdf_bwd_launch`` (``ops/csrc/sdf_pipe.cuh``): AB_l ([FB_l; X_l]),
@@ -103,14 +104,14 @@ ptxas info    : Compiling entry function '_ZN10fmov_train12_GLOBAL__N_114sdf_bwd
 ptxas info    : Function properties for _ZN10fmov_train12_GLOBAL__N_114sdf_bwd_kernelENS_7BwdArgsE
     32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 251 registers, used 1 barriers, 32 bytes cumulative stack size
-ptxas info    : Compiling entry function '_ZN10fmov_train13reduce_kernelEPKfiiPfS2_iiS3_S2_iii' for 'sm_90a'
-ptxas info    : Function properties for _ZN10fmov_train13reduce_kernelEPKfiiPfS2_iiS3_S2_iii
+ptxas info    : Compiling entry function '_ZN7fmov_wg13reduce_kernelEPKfiiPfS2_iiS3_S2_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN7fmov_wg13reduce_kernelEPKfiiPfS2_iiS3_S2_iii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 32 registers, used 0 barriers
-ptxas info    : Compiling entry function '_ZN10fmov_train10atb_kernelENS_7AtbArgsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN10fmov_train10atb_kernelENS_7AtbArgsE
+ptxas info    : Compiling entry function '_ZN7fmov_wg12wgrad_kernelENS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN7fmov_wg12wgrad_kernelENS_4ArgsE
     8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
-ptxas info    : Used 48 registers, used 1 barriers, 9216 bytes smem
+ptxas info    : Used 168 registers, used 1 barriers
 """
 
 
@@ -121,7 +122,8 @@ def test_build_line_names_the_per_point_kernels():
     assert got == {
         "sdf_bwd_kernel": {"registers": 251, "spill_stores": 0, "spill_loads": 0},
         "reduce_kernel": {"registers": 32, "spill_stores": 0, "spill_loads": 0},
-        "atb_kernel": {"registers": 48, "spill_stores": 4, "spill_loads": 8}}
+        "wgrad_kernel": {"registers": 168, "spill_stores": 4, "spill_loads": 8}}
+    assert chip_smoke.STAGE == ("wgrad_kernel",)
     assert chip_smoke._kernel_name(
         "_ZN10fmov_train12_GLOBAL__N_119sdf_bwd_flat_kernelENS_7BwdArgsE") \
         == "sdf_bwd_flat_kernel"

@@ -6,8 +6,8 @@ layer table their per-point pass walks (``ColorFwdSeq`` and
 The kernels read the workspace through a pointer table.  The backward K9
 and K7 read it in the order of ``color_core_setup``: X_0..X_{L-1},
 ZB_0..ZB_{L-1} (bf16, row-major, the operands of the weight-gradient
-product ``atb_kernel`` reads), DBPART, then DWPART, which K9 takes at
-index 2 L + 1 and K7 after ZB and DBPART.  The ReLU masks stay in shared
+stage, ``wgrad.py``), DBPART, then DWPART, which only that stage reads
+(``wgrad.color_stage``).  The ReLU masks stay in shared
 memory, so the table holds only what the weight gradients need.  The
 forward K8 and K6 keep every layer's input in shared memory:
 ``color_core_setup`` reads no pointer for a forward, K8's table is only
