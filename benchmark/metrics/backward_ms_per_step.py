@@ -1,0 +1,12 @@
+"""``backward_ms_per_step``: device ms a step of the backward
+(``torch.autograd.grad``: the kernels' backward passes and their weight-
+gradient stage too), from each step's ``fmov_mark_backward`` to its
+``fmov_mark_update`` (``phases.phase_ms``: the ops that start between
+the two marks, on any stream, the marks left out, over the profiled sub-
+window's steps). None without marks (a program without them, the CPU)."""
+
+from benchmark import phases
+
+
+def read(run):
+    return phases.phase_ms(run, "backward")

@@ -32,7 +32,9 @@ then captures one step.  A data-parallel step's NCCL all-reduces
 (``parallel/dp.py``) are captured with it: the warm-up's steps run them
 first, which sets up NCCL's communicator, as a capture cannot.  A failed
 capture or replay raises with its cause: there is no return to eager
-steps.
+steps.  The whole is the span ``fmov::capture``, its warm-up
+``fmov::warmup`` (``tracing.span``); the step's device marks are kernel
+nodes of the graph.
 
 Launch counts: a kernel wrapper counts a launch when it runs
 (``fused_sdf.LAUNCHES*``, ``fused_color.LAUNCHES*``, ``wgrad.LAUNCHES``,
@@ -47,6 +49,8 @@ from __future__ import annotations
 import collections
 
 import torch
+
+from fmov_pose_torch import tracing
 
 WARMUP_STEPS = 2
 _SIDE_STREAMS = {}  # device -> the stream every capture warms up and captures on
@@ -139,6 +143,7 @@ class StepGraph:
             raise RuntimeError(f"CUDA graph capture of the training step failed: "
                                f"{type(e).__name__}: {e}") from e
 
+    @tracing.span("fmov::capture")
     def _capture(self, fn, generators, mutable, warmup):
         dev = self.device
         saved = [t.detach().clone() for t in mutable]
@@ -146,7 +151,7 @@ class StepGraph:
         side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = _launch_counters()
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), tracing.span("fmov::warmup"):
             for i in range(warmup):
                 if i == 0:
                     fn()  # first uses may copy to and from the host

@@ -90,6 +90,13 @@ the start and after a checkpoint is loaded (``dp.replicate_tree``).  The
 host's writes are rank 0's (``is_main``): checkpoints, meshes, validation
 images, pose files, the phase-2 dataset and the source backup; the other
 ranks wait for the phase-2 dataset at a barrier.
+
+The host's work outside the steps is named by spans (``tracing.span``):
+``fmov::runner_init`` (``__init__``, with ``fmov::file_backup``),
+``fmov::chunk`` (a chunk's dispatch, or a step's on the per-step loop),
+``fmov::plan_chunk``, ``fmov::pack_rows``, ``fmov::events_after``,
+``fmov::pro_events``, ``fmov::grid_refresh``, ``fmov::validate_mesh`` and
+``fmov::checkpoint``; ``_finish`` logs their table in one line.
 """
 
 from __future__ import annotations
@@ -104,7 +111,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from fmov_pose_torch import convert
+from fmov_pose_torch import convert, tracing
 from fmov_pose_torch.data import hocon
 from fmov_pose_torch.data import rays as raygen
 from fmov_pose_torch.fields import nets
@@ -179,6 +186,7 @@ class StepTimer:
 
 
 class Runner:
+    @tracing.span("fmov::runner_init")
     def __init__(self, conf_path, mode="train", case="CASE_NAME",
                  dataset="DTU", is_continue=False, start_at=-1,
                  start_img_idx=0, gradient_analysis=False, exp_dir=None,
@@ -624,6 +632,7 @@ class Runner:
                        if i is not None and i >= 0})
 
     @torch.no_grad()
+    @tracing.span("fmov::grid_refresh")
     def update_occ_grid(self):
         """Refresh the occupancy grid from the current SDF, through the
         f32 network (``nets.sdf_only``) as the JAX Runner does."""
@@ -778,6 +787,7 @@ class Runner:
         return (self.pro_iteration == self.max_pro_iteration
                 or self.pro_iteration == self.pro_warm_up_end)
 
+    @tracing.span("fmov::pro_events")
     def _pro_events(self):
         if self.pro_iteration == self.max_pro_iteration:
             self.pro_iteration = 0
@@ -871,56 +881,74 @@ class Runner:
                 return self._train_planned(k)
             return self._train_per_step()
 
-    def _events_after(self, done, rows, t_start, rays_per_row, tag):
+    def _rate_start(self, done):
+        """(host seconds, rows done) once the device has run the first
+        ``done`` rows: where the report line's rays/s counts from."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter(), done
+
+    def _events_after(self, done, rows, rate_from, rays_per_row, tag):
         """The JAX loops' events at iter_step after a step or a chunk: the
         report line (history row ``done - 1``: the last step's metrics, or
-        the scanned chunk's means), validate_image and validate_poses (each
-        caught)."""
-        if self.iter_step % self.report_freq == 0:
-            m = dict(zip(step_mod.METRIC_NAMES, rows[done - 1].tolist()))  # the one sync
-            dt = time.perf_counter() - t_start
-            LOG.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f "
-                     "rays/s=%.0f %s", self.iter_step, m["loss"], m["color_loss"],
-                     m["eikonal_loss"], m["psnr"],
-                     done * rays_per_row / max(dt, 1e-9), tag)
-        if self.iter_step % self.val_freq == 0:
-            try:
-                self.validate_image()
-            except Exception as e:  # keep training through viz errors
-                LOG.warning("validate_image failed: %s", e, exc_info=True)
-        if self.iter_step % self.pose_freq == 0:
-            try:
-                self.validate_poses()
-            except Exception as e:
-                LOG.warning("validate_poses failed: %s", e, exc_info=True)
+        the scanned chunk's means; rays/s over the rows since ``rate_from``,
+        ``_rate_start``'s (seconds, rows) at the end of the first whole
+        chunk, as ``step_ms`` counts, so not the capture, or the loop's
+        start on the per-step path; none before it), validate_image and
+        validate_poses (each caught)."""
+        with tracing.span("fmov::events_after"):
+            if self.iter_step % self.report_freq == 0:
+                m = dict(zip(step_mod.METRIC_NAMES, rows[done - 1].tolist()))  # the one sync
+                rate = ""
+                if rate_from is not None and done > rate_from[1]:
+                    dt = time.perf_counter() - rate_from[0]
+                    rate = " rays/s=%.0f" % ((done - rate_from[1]) * rays_per_row
+                                             / max(dt, 1e-9))
+                LOG.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f%s %s",
+                         self.iter_step, m["loss"], m["color_loss"], m["eikonal_loss"],
+                         m["psnr"], rate, tag)
+            if self.iter_step % self.val_freq == 0:
+                try:
+                    self.validate_image()
+                except Exception as e:  # keep training through viz errors
+                    LOG.warning("validate_image failed: %s", e, exc_info=True)
+            if self.iter_step % self.pose_freq == 0:
+                try:
+                    self.validate_poses()
+                except Exception as e:
+                    LOG.warning("validate_poses failed: %s", e, exc_info=True)
 
     def _mesh_event(self):
         """validate_mesh every ``val_mesh_freq`` steps (caught)."""
         if self.iter_step % self.val_mesh_freq == 0:
-            try:
-                self.validate_mesh()
-            except Exception as e:  # keep training, as the JAX loop does
-                LOG.warning("validate_mesh failed: %s", e, exc_info=True)
+            with tracing.span("fmov::validate_mesh"):
+                try:
+                    self.validate_mesh()
+                except Exception as e:  # keep training, as the JAX loop does
+                    LOG.warning("validate_mesh failed: %s", e, exc_info=True)
 
     def _phase1_over(self):
         """Phase 1 of a two-phase run ends once every frame is admitted."""
         return ("_wo_global_conf" not in self.base_exp_dir and self.pro_iteration == -1
                 and self.current_image == self.dataset.n_images)
 
-    def _finish(self, rows, done, t_start, phase1_done):
-        """The end of the per-step and the planned loop: the history read
-        back once, phase 1's mesh where it ended, the last checkpoint."""
+    def _finish(self, rows, done, t_start, phase1_done, steps_a_row=1):
+        """The end of every loop: the history read back once (``done``
+        rows of ``steps_a_row`` steps), phase 1's mesh where it ended, the
+        last checkpoint, then the spans' table (``tracing.SPANS``) logged
+        in one line."""
         self.train_seconds = time.perf_counter() - t_start
         if done:
             cols = rows[:done].cpu().numpy()
             for j, k in enumerate(step_mod.METRIC_NAMES):
                 self.history.setdefault(k, []).extend(cols[:, j].tolist())
-        LOG.info("trained %d steps (%d flow) in %.1f s", done, self.flow_steps,
-                 self.train_seconds)
+        LOG.info("trained %d steps (%d flow) in %.1f s", done * steps_a_row,
+                 self.flow_steps, self.train_seconds)
         if phase1_done:
             LOG.info("all %d frames admitted: phase 1 ends", self.current_image)
             self.validate_mesh()
         self.save_checkpoint()
+        LOG.info("spans: %s", tracing.summary())
 
     def _train_per_step(self):
         """The JAX Runner's per-step loop: plan a step, run it, then its
@@ -938,8 +966,9 @@ class Runner:
         phase1_done = False
         for _ in range(res_step):
             packed, use_flow, pixels_pair, img_id = self._plan_step()
-            metrics = self._dispatch(packed, use_flow, pixels_pair)
-            torch.stack([metrics[k] for k in names], out=rows[done])
+            with tracing.span("fmov::chunk"):
+                metrics = self._dispatch(packed, use_flow, pixels_pair)
+                torch.stack([metrics[k] for k in names], out=rows[done])
             done += 1
             self.iter_step += 1
             if (self.occupancy_sampling
@@ -952,7 +981,7 @@ class Runner:
                     self.gradient_analysis_report(img_id)
                 except Exception as e:  # keep training, as the JAX loop does
                     LOG.warning("gradient_analysis failed: %s", e, exc_info=True)
-            self._events_after(done, rows, t_start, rays_per_step,
+            self._events_after(done, rows, (t_start, 0), rays_per_step,
                                f"dir={self.base_exp_dir}")
             self._progressive_update()
             self._mesh_event()
@@ -980,21 +1009,22 @@ class Runner:
         every frequency and of ``end_iter``, and ending with the step at
         which a progressive event fires.  Returns ([(packed, use_flow,
         pixels_pair)], event)."""
-        freqs = [self.report_freq, self.val_freq, self.pose_freq,
-                 self.val_mesh_freq, self.save_freq]
-        if self.occupancy_sampling:
-            freqs.append(self.occ_update_freq)
-        gap = min(f - self.iter_step % f for f in freqs)
-        plan, event = [], False
-        for _ in range(min(K, self.end_iter - self.iter_step, gap)):
-            packed, use_flow, pixels_pair, _ = self._plan_step()
-            plan.append((packed, use_flow, pixels_pair))
-            self.iter_step += 1
-            event = self._pro_tick()
-            if event:
-                break
-            self._maybe_regen_perms()
-        return plan, event
+        with tracing.span("fmov::plan_chunk"):
+            freqs = [self.report_freq, self.val_freq, self.pose_freq,
+                     self.val_mesh_freq, self.save_freq]
+            if self.occupancy_sampling:
+                freqs.append(self.occ_update_freq)
+            gap = min(f - self.iter_step % f for f in freqs)
+            plan, event = [], False
+            for _ in range(min(K, self.end_iter - self.iter_step, gap)):
+                packed, use_flow, pixels_pair, _ = self._plan_step()
+                plan.append((packed, use_flow, pixels_pair))
+                self.iter_step += 1
+                event = self._pro_tick()
+                if event:
+                    break
+                self._maybe_regen_perms()
+            return plan, event
 
     def _train_planned(self, K):
         """The JAX Runner's planned path: chunks of K host-planned steps
@@ -1016,7 +1046,7 @@ class Runner:
         names = step_mod.METRIC_NAMES
         rows = torch.empty((res_step, len(names)), dtype=torch.float32,
                            device=self.device)
-        timer, sizes = None, []
+        timer, sizes, rate_from = None, [], None
         t_start = time.perf_counter()
         rays_per_step = self.batch_size * (2 if self.maintain_shape else 1)
         done = 0
@@ -1026,29 +1056,34 @@ class Runner:
             k = len(plan)
             if done + k > rows.shape[0]:  # a field reset restarted iter_step
                 rows = torch.cat([rows, rows.new_empty((max(k, done), len(names)))])
-            if k == K:
-                uses = [uf for _, uf, _ in plan]
-                rows[done:done + k] = chunk(self.state, np.stack([
-                    np.concatenate([packed, pix.reshape(-1) if uf else zero_pix])
-                    for packed, uf, pix in plan]), uses)
-                self.flow_steps += sum(uses)
-            else:  # cut short by an event or end_iter: per step, as in JAX
-                for j, (packed, uf, pix) in enumerate(plan):
-                    metrics = self._dispatch(packed, uf, pix)
-                    torch.stack([metrics[n] for n in names], out=rows[done + j])
+            with tracing.span("fmov::chunk"):
+                if k == K:
+                    uses = [uf for _, uf, _ in plan]
+                    with tracing.span("fmov::pack_rows"):
+                        packed_rows = np.stack([
+                            np.concatenate([packed, pix.reshape(-1) if uf else zero_pix])
+                            for packed, uf, pix in plan])
+                    rows[done:done + k] = chunk(self.state, packed_rows, uses)
+                    self.flow_steps += sum(uses)
+                else:  # cut short by an event or end_iter: per step, as in JAX
+                    for j, (packed, uf, pix) in enumerate(plan):
+                        metrics = self._dispatch(packed, uf, pix)
+                        torch.stack([metrics[n] for n in names], out=rows[done + j])
             done += k
             if timer is not None:
                 timer.tick()
                 sizes.append(k)
             elif k == K and self.device.type == "cuda":
                 timer = StepTimer()
+            if rate_from is None and k == K:
+                rate_from = self._rate_start(done)
             if event:
                 self._pro_events()
                 self._maybe_regen_perms()
             if (self.occupancy_sampling
                     and self.iter_step % self.occ_update_freq == 0):
                 self.update_occ_grid()
-            self._events_after(done, rows, t_start, rays_per_step, f"(plan x{K})")
+            self._events_after(done, rows, rate_from, rays_per_step, f"(plan x{K})")
             self._mesh_event()
             if self.iter_step % self.save_freq == 0 and self.iter_step > 0:
                 self.save_checkpoint()
@@ -1103,19 +1138,22 @@ class Runner:
         names = step_mod.METRIC_NAMES
         rows = torch.empty((n_chunks, len(names)), dtype=torch.float32,
                            device=self.device)
-        timer = None
+        timer, rate_from = None, None
         t_start = time.perf_counter()
         done = 0
         while self.iter_step + k <= self.end_iter:
-            rows[done] = scan(self.state, self.current_image)
+            with tracing.span("fmov::chunk"):
+                rows[done] = scan(self.state, self.current_image)
             if timer is None and self.device.type == "cuda":
                 # from the end of the first chunk: the capture is not a step
                 timer = StepTimer()
             elif timer is not None:
                 timer.tick()
             done += 1
+            if rate_from is None:
+                rate_from = self._rate_start(done)
             self.iter_step += k
-            self._events_after(done, rows, t_start, k * self.batch_size, f"(scan x{k})")
+            self._events_after(done, rows, rate_from, k * self.batch_size, f"(scan x{k})")
             self._mesh_event()
             if (self.occupancy_sampling
                     and self.iter_step % self.occ_update_freq == 0):
@@ -1123,14 +1161,7 @@ class Runner:
             if self.iter_step % self.save_freq == 0 and self.iter_step > 0:
                 self.save_checkpoint()
         self.step_ms = timer.finish() if timer is not None else []
-        self.train_seconds = time.perf_counter() - t_start
-        if done:
-            cols = rows[:done].cpu().numpy()
-            for j, name in enumerate(names):
-                self.history.setdefault(name, []).extend(cols[:, j].tolist())
-        LOG.info("trained %d steps in %d chunks of %d in %.1f s", done * k, done, k,
-                 self.train_seconds)
-        self.save_checkpoint()
+        self._finish(rows, done, t_start, False, steps_a_row=k)
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -1176,6 +1207,7 @@ class Runner:
                 ("iter_step", arr(st.iter_step, np.int32))]
         return out
 
+    @tracing.span("fmov::checkpoint")
     def save_checkpoint(self):
         """<exp>/checkpoints/ckpt_{current_image:06d}_{iter_step:06d}.ckpt:
         the state's leaves, the JAX Runner's host meta, and the device
@@ -1838,6 +1870,7 @@ class Runner:
                       os.path.dirname(self.dataset.data_dir.rstrip("/"))))
 
     # ------------------------------------------------------------------
+    @tracing.span("fmov::file_backup")
     def file_backup(self):
         """Copy the port's sources and the conf into <exp>/recording."""
         rec_dir = os.path.join(self.base_exp_dir, "recording")

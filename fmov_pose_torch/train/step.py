@@ -31,6 +31,13 @@ is a captured graph replayed k times a chunk.  The planned form
 a chunk's packed rows and match pixels go to the device in one copy, and
 on CUDA the photo and the flow step are captured graphs that read their
 row there (``unpack_scalars_dev``), replayed row by row as the plan says.
+
+Every form's step launches the device marks of its phases
+(``tracing.mark``, a kernel node in a captured step): ``pose`` at the
+start of the loss closure (frame poses and the ray batch), ``render``
+before ``neus.render``, ``loss`` after it (the loss sums, the flow loss),
+``backward`` before ``torch.autograd.grad``, ``update`` before the
+all-reduce and the gated Adams, ``end`` after them.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from fmov_pose_torch import convert
+from fmov_pose_torch import convert, tracing
 from fmov_pose_torch.core import lie
 from fmov_pose_torch.core import pose as posealg
 from fmov_pose_torch.data import rays as raygen
@@ -276,10 +283,12 @@ def _render_and_losses(cfg: StepConfig, generator, params, pose_static, data,
     render_params = {k: v for k, v in params.items()
                      if k in ("sdf", "color", "nerf", "variance")}
     occ_grid = pose_static.get("occ_grid") if cfg.occupancy_sampling else None
+    tracing.mark("render", data)
     out = neus.render(generator, render_params, cfg.model_cfg, rays_o, rays_d,
                       near, far, background_rgb=background_rgb,
                       cos_anneal_ratio=scalars.cos_anneal, occ_grid=occ_grid,
                       eikonal_parts=True)
+    tracing.mark("loss", data)
 
     # the sums over this batch's rays (num) and the denominators (den)
     color_fine = out["color_fine"]
@@ -495,10 +504,12 @@ def _grads_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
     _gate_masks(cfg, state, cache)
     with torch.enable_grad():
         loss, metrics = loss_of(state.params, state.pose_bank)
+        tracing.mark("backward", state.flat)
         if cfg.pose_mode in BANK_MODES:
             flat_g, bank_g = torch.autograd.grad(loss, [state.flat, state.bank_flat])
         else:
             (flat_g,), bank_g = torch.autograd.grad(loss, state.flat), None
+    tracing.mark("update", state.flat)
     if group is not None:
         grads = flat_g if bank_g is None else torch.cat([flat_g, bank_g])
         dist.all_reduce(grads, group=group)
@@ -506,6 +517,7 @@ def _grads_and_update(cfg: StepConfig, state: TrainState, scalars: StepScalars,
             flat_g, bank_g = grads[:flat_g.numel()], grads[flat_g.numel():]
     _apply_updates(cfg, state, flat_g, scalars, cache["m"], adam_step, bank_g,
                    cache.get("b"), seg_row)
+    tracing.mark("end", state.flat)
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -556,6 +568,7 @@ def make_photo_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
 
     def loss_fn(params, state: TrainState, img_id, scalars, pixels=None,
                 add_img_id=0, add_pixels=None, pose_bank=None):
+        tracing.mark("pose", images)
         pose0 = pose_of_frame(cfg, params, pose_bank, state.pose_static, img_id)
         data = raygen.gen_random_rays(
             state.rays_generator, images, masks, intr_inv_all, pose0, img_id,
@@ -608,6 +621,7 @@ def make_flow_loss(cfg: StepConfig, images, masks, intr_inv_all, bbox_table,
 
     def loss_fn(params, state: TrainState, img_id, img_id_corr, add_img_id,
                 pixels_pair, scalars, add_pixels=None, pose_bank=None):
+        tracing.mark("pose", images)
         pixels_xy_corr, pixels_xy = pixels_pair[:, 0:2], pixels_pair[:, 2:4]
         pose_corr = pose_of_frame(cfg, params, pose_bank, state.pose_static,
                                   img_id_corr)
@@ -925,7 +939,8 @@ class PlannedSteps:
                              f"{self.k}")
         if any(use_flow) and self.flow_loss is None:
             raise ValueError("a flow step planned without flow_weight > 0")
-        copy_to_device_async_(self.rows[:k], rows)
+        with tracing.span("fmov::pack_rows"):
+            copy_to_device_async_(self.rows[:k], rows)
         self.cursor.zero_()
         self.adam_step.fill_(state.opt.step)
         if self.capture:
