@@ -616,6 +616,18 @@ def _same_twice(phase, name, M, launch):
     _require(same, f"{name} gave other bits on a second launch at M={M}")
 
 
+def _bwd_plan_line(phase, name, pk, M, dev):
+    """The launch plan of K5/K3's per-point pass, as its library computes
+    it (fused_sdf.bwd_launch_plan): blocks, threads, ring stages, shared
+    memory and passes a tile."""
+    from fmov_pose_torch.ops import fused_sdf, packing
+    plan = fused_sdf.bwd_launch_plan(pk)
+    _line(phase, name=f"{name}_plan", M=M,
+          blocks=fused_sdf._grid(dev, packing.round_up(M, packing.TILE_M) // packing.TILE_M),
+          threads=plan["threads"], stages=plan["stages"], smem=plan["smem"],
+          passes=plan["passes"])
+
+
 def phase_train_kernels(dev):
     """K4, K5, K8 and K9 through their entries (packing, launch, and for
     K5/K9 the unpacking of the weight gradients) against their plain
@@ -689,6 +701,7 @@ def phase_train_kernels(dev):
                 lambda: fused_sdf.LAUNCHES_K4)
 
             ct_out, ct_sdf, ct_grad = randn(M, ws[-1].shape[1]), randn(M), randn(M, 3)
+            _bwd_plan_line("train-kernels", "sdf_bwd", pk, M, dev)
             _same_twice("train-kernels", "sdf_bwd", M,
                         lambda: fused_sdf.launch_bwd(pk, x, ct_out, ct_sdf, ct_grad))
             names5 = ("x", "w", "b")
@@ -780,6 +793,7 @@ def phase_flat_kernels(dev):
         gbar = ct_grad[:, dims] * jac
         _same_twice("flat-kernels", "sdf_fwd_grad_flat", M,
                     lambda: fused_sdf.launch_fwd_grad_flat(pk, xe))
+        _bwd_plan_line("flat-kernels", "sdf_bwd_flat", pk, M, dev)
         _same_twice("flat-kernels", "sdf_bwd_flat", M,
                     lambda: fused_sdf.launch_bwd_flat(pk, xe, ybar, gbar))
         times = {

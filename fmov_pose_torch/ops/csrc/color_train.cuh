@@ -46,7 +46,7 @@ __device__ __forceinline__ float color_sigmoid(float p) { return 1.f / (1.f + ex
 // the same order, product for product and chunk for chunk, across tiles.
 // kOperands: the forward also keeps what the backward needs (X_l in the
 // workspace, the ReLU mask bits, the last layer's cotangent and the bias
-// sums), a compile-time flag as in sdf_pipe.cuh.
+// sums), a compile-time flag.
 //
 // K8/K6: the forward l = 0..L-1, the 3-wide last layer included, L
 // products, 5 at 4x256.

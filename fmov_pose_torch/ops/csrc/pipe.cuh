@@ -1,6 +1,6 @@
-// The per-point pipeline that the SDF training kernels (sdf_pipe.cuh: K4,
-// K2, K5, K3) and the color MLP's kernels (color_train.cuh: K8, K6, K9,
-// K7) share.
+// The per-point pipeline that the SDF forward kernels (sdf_pipe.cuh: K1,
+// K4, K2) and the color MLP's kernels (color_train.cuh: K8, K6, K9, K7)
+// share.
 //
 // A block of 8 warps owns a 64-point tile at a time and runs the tile's
 // fixed sequence of products A [64 x K] @ W [K x N], given as a type Seq
@@ -129,34 +129,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One lane's share of a 16x8 accumulator tile of mma.sync: v[0], v[1] at
-// (r, n), (r, n + 1) and v[2], v[3] at (r + 8, n), (r + 8, n + 1), with
-// r = 16 i + lane / 4 and n = 16 j + 8 h + 2 (lane % 4).  Warp w owns the
-// column tiles j = w, w + 8, w + 16 of every product, so an element's
-// (warp, lane, register) depends on its (row, column) alone.
-struct Frag {
-  int i, j, h, r, n;
-};
-
-// The lane's float4 of a per-point f32 array in fragment order: the array
-// [M_pad x W] is stored as [tile][W / 16][i, h][lane][4], so the group of
-// 4 a lane holds is one 16-byte vector and a warp reads and writes whole
-// 128-byte lines (fused_sdf.py bwd_workspace_specs gives it [M_pad / 64, 64 W]).
-__device__ __forceinline__ float4* frag4(float* base, int W, int row0, const Frag& f) {
-  const size_t grp = ((size_t)(row0 / TILE_M) * (W >> 4) + f.j) * 8 + f.i * 2 + f.h;
-  return reinterpret_cast<float4*>(base + grp * 128) + (threadIdx.x & 31);
-}
-
-// What an epilogue loads for one Frag: up to two float4s of per-point
-// arrays (or bias and last-layer weights).
-struct In2 {
-  float4 a, b;
-};
-
-__device__ __forceinline__ void st_bf16x2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // acc = A [TILE_M x K] (shared, row stride lda) @ the next K / KCHUNK
 // chunks of the ring on mma.sync (ldmatrix for A, ldmatrix.trans for the
 // row-major chunk), then the epilogue in registers, one column tile of
@@ -259,15 +231,6 @@ __device__ __forceinline__ void pipe_gemm(const Net& s, WRing<Seq>& R, const bf1
     }
   }
 }
-
-// Stores the lane's 4 values as bf16 pairs at (r, n) and (r + 8, n) of a
-// row-major array (workspace or shared memory) with row stride ld.
-__device__ __forceinline__ void st_frag_bf16(bf16* P, size_t ld, const Frag& f,
-                                             float v0, float v1, float v2, float v3) {
-  st_bf16x2(P + f.r * ld + f.n, v0, v1);
-  st_bf16x2(P + (f.r + 8) * ld + f.n, v2, v3);
-}
-
 
 // Zeros the columns [w, K) of a [TILE_M x K] A operand (row stride lda),
 // so that the padded columns (whose weight rows are zero) hold no stale

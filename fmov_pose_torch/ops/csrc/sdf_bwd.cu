@@ -25,61 +25,31 @@
 // per-block bias sums), which launch_bwd runs after this pass.  Three
 // launches.
 //
-// The per-point pass (steps 1-4) is sdf_bwd_tile (sdf_pipe.cuh): the
-// weights stream through a cp.async ring across products and tiles, the
-// products run on mma.sync with their epilogues in registers, each
-// product's A operand stays in shared memory (ping-pong), and the f32
-// per-point arrays are stored in the warps' fragment order.
+// The per-point pass (steps 1-5) is sdf_bwd_block (sdf_bwd_pass.cuh): a
+// producer warp streams the weights through a TMA ring, two consumer
+// warpgroups run each product on wgmma over half of its output columns,
+// the A operand in shared memory, the epilogues on the accumulator
+// registers, the f32 per-point arrays in fragment order, the bf16
+// operands of the weight gradients stored from A by TMA.
 //
-// What bounds it: ~4.4 MFLOP of per-point products a point at 8x256
-// would take ~0.29 ms at M = 65,536 at the bf16 peak; what sets the time
-// is memory.  The per-point pass writes and reads back ~5 GB of
-// intermediates (bf16 operands of the weight-gradient product, f32
-// sigmoids, d_l and Hessian terms) in the workspace, and its epilogues,
-// where that traffic happens, do not overlap the tensor cores.  The
-// weight-gradient stage reads the 1.08 GB of bf16 operands once more and
-// is bound by those bytes (wgrad.cu).  Determinism: one block per SM with
-// fixed tiles, column sums in fixed order.
+// What bounds it: ~4.4 MFLOP of per-point products a point at 8x256 take
+// ~0.29 ms at M = 65,536 at the bf16 peak; the epilogues write and read
+// back ~5.1 GB of intermediates (bf16 operands of the weight-gradient
+// product, f32 sigmoids, d_l and Hessian terms), 1.5 ms at 3.35 TB/s, and
+// their activations and traffic take most of the pass, with the products
+// in between (PERF.md).  The weight-gradient stage reads the 1.08 GB of
+// bf16 operands once more and is bound by those bytes (wgrad.cu).
+// Determinism: one block per SM with fixed tiles, sums in a fixed order.
 
-#include "sdf_pipe.cuh"
+#include "sdf_bwd_pass.cuh"
 
 namespace fmov_train {
 namespace {
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BWD_THREADS, 1)
     sdf_bwd_kernel(const __grid_constant__ BwdArgs a) {
-  const SdfArgs& s = a.s;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem m = bwd_smem_carve(a, smem);
-  const float* DIN = m.DIN;
-  const float* XEB = m.XEB;
-  WRing<BwdSeq> R = bwd_block_start(a, m);
-
-  const int n_tiles = s.M_pad / TILE_M;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TILE_M;
-    sdf_bwd_tile(a, row0, m, R);
-
-    // xbar = scale * sum_c (XEB PE' + ct_grad DIN PE'') over dim d's columns
-    for (int i = threadIdx.x; i < TILE_M * 3; i += THREADS) {
-      const int r = i / 3, d = i % 3;
-      const int gr = row0 + r;
-      if (gr >= s.M) continue;
-      const float xs = s.x[(size_t)gr * 3 + d] * s.scale;
-      const float ctg = a.ct_grad[(size_t)gr * 3 + d];
-      float g = 0.f;
-      for (int c = 0; c < s.pe_dim; ++c) {
-        int dc, kind;
-        float f, v, j, j2;
-        pe_col(c, dc, kind, f);
-        if (dc != d) continue;
-        pe_eval(kind, f, xs, v, j, j2);
-        g += XEB[r * s.pe_pad + c] * j + ctg * DIN[r * s.pe_pad + c] * j2;
-      }
-      a.xbar[(size_t)gr * 3 + d] = g * s.scale;
-    }
-  }
-  bwd_block_end(a, m);
+  sdf_bwd_block<true>(a, smem);
 }
 
 }  // namespace
@@ -89,7 +59,7 @@ using namespace fmov_train;
 
 extern "C" {
 
-// ptrs: the workspace table of sdf_bwd_launch (sdf_pipe.cuh).  The pass
+// ptrs: the workspace table of sdf_bwd_launch (sdf_bwd_pass.cuh).  The pass
 // alone: the workspace's operands and partial sums are the weight-gradient
 // stage's input.  Returns a cudaError_t (0 = launched).
 int fmov_sdf_bwd(const float* x, const float* ct_out, const float* ct_sdf,
@@ -115,6 +85,27 @@ int fmov_sdf_bwd(const float* x, const float* ct_out, const float* ct_sdf,
   a.xbar = xbar;
   a.n_out = n_out;
   return sdf_bwd_launch(sdf_bwd_kernel, a, n_bias, ptrs, G, (cudaStream_t)stream);
+}
+
+// The launch plan of K5's and K3's per-point pass for a layer table
+// (bwd_plan), without a launch: out[0] the dynamic shared memory in bytes,
+// out[1] the ring's stages, out[2] the passes a tile, out[3] the threads a
+// block.  Host code alone.  Returns a cudaError_t, cudaErrorInvalidValue
+// for a table the pass does not take.
+int fmov_sdf_bwd_plan(const int* meta, int n_lin, int skip, int multires, int* out) {
+  BwdArgs a;
+  int max_k, max_n, n_bias;
+  int e = sdf_setup(a.s, meta, n_lin, skip, multires, TILE_M, TILE_M, 1.0f, &max_k, &max_n,
+                    &n_bias);
+  if (e) return e;
+  a.n_bias = n_bias;
+  e = bwd_plan(a);
+  if (e) return e;
+  out[0] = bwd_smem_bytes(a);
+  out[1] = a.stages;
+  out[2] = a.n_sub;
+  out[3] = BWD_THREADS;
+  return 0;
 }
 
 }  // extern "C"

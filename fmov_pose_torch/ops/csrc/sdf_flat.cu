@@ -11,7 +11,8 @@
 // derivatives around the kernels, as the JAX entries do.
 //
 // They are K4 and K5 with other input and output stages (one tile each
-// for two Pallas kernels of the same math, sdf_pipe.cuh):
+// for two Pallas kernels of the same math, sdf_pipe.cuh and
+// sdf_bwd_pass.cuh):
 //   K2: xe [M x pe_dim] in, its rows loaded where K4 runs the encoding;
 //       out [M x n_out] = [z0 / scale, z1..] and d_inputs [M x pe_dim] (the
 //       reverse chain's cotangent of xe, before the encoding's Jacobian)
@@ -24,19 +25,21 @@
 //
 // What bounds them: at 8x256, ~2.0 MFLOP of bf16 products a point for K2
 // and ~5.8 for K3 (forward, chain, Phase A and B, and the weight-gradient
-// products), against ~160 and ~1,340 bytes a point in and out.  Both run
-// the per-point pipeline of sdf_pipe.cuh (a cp.async weight ring, mma.sync
-// with register epilogues, A operands kept in shared memory): K2 K4's
-// tile, which stages only the sigmoids in the workspace, and K3 K5's,
-// which is bound by the intermediates it stages there (sigmoids, the
+// products), against ~160 and ~1,340 bytes a point in and out.  K2 runs
+// K4's tile on the per-point pipeline of sdf_pipe.cuh (a cp.async weight
+// ring, mma.sync with register epilogues, A operands kept in shared
+// memory) and stages only the sigmoids in the workspace; K3 runs K5's
+// pass (sdf_bwd_pass.cuh: a TMA weight ring, wgmma products over two
+// warpgroups' column halves), bound by the intermediates it stages there (sigmoids, the
 // gradient chain, the Hessian term, the bf16 operands of the weight
-// gradients), read back only by the block that wrote them.  Weight
-// gradients: one product per layer over all points, the weight-gradient
-// stage (wgrad.cu, bound by the bytes of those operands), which
-// launch_bwd_flat runs after the pass; split over the rows and reduced in
-// a fixed order, so run to run the result is the same (the Pallas kernel
-// summed them over a sequential grid).
+// gradients, ~2.5 GB at M = 32,768: 0.75 ms at 3.35 TB/s), read back only
+// by the block that wrote them.  Weight gradients: one product per layer
+// over all points, the weight-gradient stage (wgrad.cu, bound by the bytes
+// of those operands), which launch_bwd_flat runs after the pass; split
+// over the rows and reduced in a fixed order, so run to run the result is
+// the same (the Pallas kernel summed them over a sequential grid).
 
+#include "sdf_bwd_pass.cuh"
 #include "sdf_pipe.cuh"
 
 namespace fmov_train {
@@ -63,25 +66,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   cp_async_wait<0>();
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BWD_THREADS, 1)
     sdf_bwd_flat_kernel(const __grid_constant__ BwdArgs a) {
-  const SdfArgs& s = a.s;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem m = bwd_smem_carve(a, smem);
-  const float* XEB = m.XEB;
-  WRing<BwdSeq> R = bwd_block_start(a, m);
-
-  const int n_tiles = s.M_pad / TILE_M;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TILE_M;
-    sdf_bwd_tile(a, row0, m, R);
-    for (int i = threadIdx.x; i < TILE_M * s.pe_dim; i += THREADS) {
-      const int r = i / s.pe_dim, c = i % s.pe_dim;
-      const int gr = row0 + r;
-      if (gr < s.M) a.xbar[(size_t)gr * s.pe_dim + c] = XEB[r * s.pe_pad + c];
-    }
-  }
-  bwd_block_end(a, m);
+  sdf_bwd_block<false>(a, smem);
 }
 
 }  // namespace
@@ -113,7 +101,7 @@ int fmov_sdf_fwd_grad_flat(const float* xe, int M, int M_pad, float scale,
 }
 
 // K3's per-point pass.  ptrs: the workspace table of sdf_bwd_launch
-// (sdf_pipe.cuh), whose operands and partial sums the weight-gradient
+// (sdf_bwd_pass.cuh), whose operands and partial sums the weight-gradient
 // stage reads next.  Returns a cudaError_t (0 = launched).
 int fmov_sdf_bwd_flat(const float* xe, const float* ybar, const float* gbar,
                       int M, int M_pad, int n_out, float scale, const void* w,

@@ -10,7 +10,7 @@
 // every product rounds both operands to bf16 and accumulates in f32.
 //
 // The tile is sdf_fwd_tile (sdf_pipe.cuh), on the per-point pipeline that
-// K2-K9 run: one block per SM loops over its 64-point tiles, the weights
+// K2, K4 and K6-K9 run: one block per SM loops over its 64-point tiles, the weights
 // of the tile's L products (FwdOnlySeq, 9 at 8x256; the forward blocks of
 // a forward-only table, the last layer cut to its column 0 for the sdf
 // alone) stream through a cp.async ring that runs on across products and

@@ -1,14 +1,15 @@
 // The SDF pieces the per-point kernels share: the SdfArgs, the layer
 // table's checks and the notation.  K1 (sdf_fwd.cu) runs sdf_fwd_tile, K4
-// (sdf_fwd_grad.cu) and K2 (sdf_flat.cu) sdf_fwd_grad_tile, K5 (sdf_bwd.cu)
-// and K3 (sdf_flat.cu) sdf_bwd_tile, all in sdf_pipe.cuh (a cp.async
-// weight ring, mma.sync register epilogues, A operands in shared memory).
-// Each pair of the training kernels differs only in its input and output
-// stages.  The rays kernels K4/K5 take x [M x
-// 3] and run the positional encoding and its derivatives per tile; the
-// flat kernels K2/K3 take the encoding xe [M x pe_dim] (and K3 the
-// cotangent gbar of the d_inputs) as given and return d_inputs / xebar [M
-// x pe_dim], the JAX kernels' boundary
+// (sdf_fwd_grad.cu) and K2 (sdf_flat.cu) sdf_fwd_grad_tile, both in
+// sdf_pipe.cuh (a cp.async weight ring, mma.sync register epilogues, A
+// operands in shared memory); K5 (sdf_bwd.cu) and K3 (sdf_flat.cu) run
+// sdf_bwd_tile in sdf_bwd_pass.cuh (a TMA weight ring, wgmma products,
+// the tile's columns split between two warpgroups).  Each pair of the
+// training kernels differs only in its input and output stages.  The rays
+// kernels K4/K5 take x [M x 3] and run the positional encoding and its
+// derivatives per tile; the flat kernels K2/K3 take the encoding xe [M x
+// pe_dim] (and K3 the cotangent gbar of the d_inputs) as given and return
+// d_inputs / xebar [M x pe_dim], the JAX kernels' boundary
 // (fmov_pose_tpu/ops/fused_sdf.py:587-680).
 //
 // Notation (fmov_pose_tpu/ops/fused_sdf.py:407-434), L linears, skip S:
@@ -17,8 +18,8 @@
 //   d_{L-1} = W_{L-1}[:, 0] (wlast);  D_l = bf16(d_{l+1} sig_l)
 //   f_l = D_l W_l^T;  d_l = f_l[h] (/sqrt2 at S);  DIN += f_l[pe] (/sqrt2)
 // Per-point arrays live in device memory, [M_pad x width] each (the f32
-// ones in fragment order, sdf_pipe.cuh frag4), written and read only by
-// the block that owns the rows.
+// ones in fragment order, train_common.cuh frag4), written and read only
+// by the block that owns the rows.
 
 #pragma once
 
@@ -77,6 +78,19 @@ inline int sdf_setup(SdfArgs& s, const int* meta, int n_lin, int skip,
     s.SIG[l] = s.DS[l] = nullptr;
   }
   return 0;
+}
+
+// Adds the lane's 4 values, times c, to a [TILE_M x pe_pad] f32 array at
+// column c0 = f.n - off (the PE part of a reverse product).
+__device__ __forceinline__ void add_pe(float* P, int pe_pad, const Frag& f, int off,
+                                       const float (&v)[4], float c) {
+  const int c0 = f.n - off;
+  if (c0 < pe_pad) {
+    P[f.r * pe_pad + c0] += v[0] * c;
+    P[f.r * pe_pad + c0 + 1] += v[1] * c;
+    P[(f.r + 8) * pe_pad + c0] += v[2] * c;
+    P[(f.r + 8) * pe_pad + c0 + 1] += v[3] * c;
+  }
 }
 
 }  // namespace fmov_train

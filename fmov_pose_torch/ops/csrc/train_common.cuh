@@ -1,13 +1,14 @@
 // Shared pieces of the per-point kernels for Hopper (sm_90a): K1-K9.
-// Their per-point passes run on the pipeline of pipe.cuh (K1-K5 through
-// sdf_pipe.cuh, the color kernels K6-K9 through color_train.cuh); this
-// file holds the constants, the packed layer table, the activations and
-// the positional encoding they share.
+// Their per-point passes run on the pipeline of pipe.cuh (K1, K4, K2
+// through sdf_pipe.cuh, the color kernels K6-K9 through color_train.cuh)
+// or, for K5 and K3, on sdf_bwd_pass.cuh (TMA and wgmma); this file holds
+// the constants, the packed layer table, the fragment order, the
+// activations and the positional encoding they share.
 //
 // Arithmetic contract (the TPU kernels'): every product rounds both
 // operands to bf16 and accumulates in f32; everything else is f32.
 //
-// A block of 8 warps owns a 64-point tile at a time.  Weights are bf16
+// A block owns a 64-point tile at a time.  Weights are bf16
 // blocks of the packed weights (fmov_pose_torch/ops/packing.py): product
 // l's forward block [kp x np] and its reverse block [kr x kp], rows padded
 // to multiples of 32, columns to multiples of 16.  A forward-only table
@@ -84,6 +85,44 @@ inline int read_layers(const int* meta, int n_lin, Layer* out, int* max_k,
   }
   return 0;
 }
+
+// One lane's share of a 16x8 block of a 64-row tile's accumulators, in the
+// layout mma.sync (pipe.cuh) and wgmma (sdf_bwd_pass.cuh) share: v[0], v[1]
+// at (r, n), (r, n + 1) and v[2], v[3] at (r + 8, n), (r + 8, n + 1), with
+// r = 16 i + lane / 4 and n = 16 j + 8 h + 2 (lane % 4).  Each pipeline
+// gives every element a fixed (warp, lane, register) by its (row, column)
+// alone.
+struct Frag {
+  int i, j, h, r, n;
+};
+
+// The lane's float4 of a per-point f32 array in fragment order: the array
+// [M_pad x W] is stored as [tile][W / 16][i, h][lane][4], so the group of
+// 4 a lane holds is one 16-byte vector and a warp reads and writes whole
+// 128-byte lines (fused_sdf.py bwd_workspace_specs gives it [M_pad / 64, 64 W]).
+__device__ __forceinline__ float4* frag4(float* base, int W, int row0, const Frag& f) {
+  const size_t grp = ((size_t)(row0 / TILE_M) * (W >> 4) + f.j) * 8 + f.i * 2 + f.h;
+  return reinterpret_cast<float4*>(base + grp * 128) + (threadIdx.x & 31);
+}
+
+// What an epilogue loads for one Frag: up to two float4s of per-point
+// arrays (or bias and last-layer weights).
+struct In2 {
+  float4 a, b;
+};
+
+__device__ __forceinline__ void st_bf16x2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Stores the lane's 4 values as bf16 pairs at (r, n) and (r + 8, n) of a
+// row-major array (workspace or shared memory) with row stride ld.
+__device__ __forceinline__ void st_frag_bf16(bf16* P, size_t ld, const Frag& f,
+                                             float v0, float v1, float v2, float v3) {
+  st_bf16x2(P + f.r * ld + f.n, v0, v1);
+  st_bf16x2(P + (f.r + 8) * ld + f.n, v2, v3);
+}
+
 
 __device__ __forceinline__ void act_pair(float z, float& sp, float& sig) {
   // softplus(100 z)/100 and sigmoid(100 z) from one exp (_act_pair)

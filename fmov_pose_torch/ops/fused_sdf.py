@@ -17,7 +17,7 @@ What bounds it on an H100: about 0.92 MFLOP of products per point for the
 sdf alone against 12 bytes in and 4 out.  The training step's up-sampler
 queries 57,344 points (32,768 + 3 x 8,192) per step, ~53 GFLOP, so the
 products bound it, never the bytes.  It runs on the per-point pipeline of
-K2-K9 (``csrc/sdf_pipe.cuh``): one block per SM loops over 64-point
+K2, K4 and K6-K9 (``csrc/sdf_pipe.cuh``): one block per SM loops over 64-point
 tiles, the weights (1 MB in bf16, too big for shared memory) stream
 through a cp.async ring across layers and tiles, the products run on
 mma.sync with their epilogues in registers, and a tile's activations stay
@@ -306,19 +306,23 @@ def sdf_apply_fused(params, cfg, x):
 # f32, and so are the bias and column-0 sums.
 #
 # On an H100 K4 is ~2.2 MFLOP per point and K5 ~6.6 (33 products of
-# ~256x256 per point, plus the weight gradients), so both are bound by
-# the products.  Both run one per-point pipeline (``csrc/sdf_pipe.cuh``):
-# the weights stream through a cp.async ring, the products run on mma.sync
-# with their epilogues in registers, and each product's A operand stays in
-# shared memory.  The per-point intermediates that do not fit beside them
-# go to a workspace in device memory: K4 only its sigmoids
+# ~256x256 per point, plus the weight gradients).  K4 runs the per-point
+# pipeline of the forward kernels (``csrc/sdf_pipe.cuh``): the weights
+# stream through a cp.async ring, the products run on mma.sync with their
+# epilogues in registers, and each product's A operand stays in shared
+# memory.  K5's per-point pass has a pipeline of its own
+# (``csrc/sdf_bwd_pass.cuh``): a TMA weight ring,
+# wgmma products whose output columns two warpgroups split, A operands in
+# shared memory.  The per-point intermediates that do not fit beside
+# them go to a workspace in device memory: K4 only its sigmoids
 # (``fwd_workspace_specs``), K5 also the gradient chain, the cotangents
 # and the weight-gradient operands (``bwd_workspace_specs``; ~40 KB per
-# point); K5 recomputes the forward instead of keeping K4's.  K5's weight
-# gradients are one product per layer over all points (``[fbar; inp]^T @
-# [e; zbar]``, the Phase A and B terms stacked): the weight-gradient stage
-# (``wgrad.py``, ``csrc/wgrad.cu``) after the per-point pass, split over
-# the rows and reduced in a fixed order: run to run the result is the same.
+# point), which bound K5's pass by their bytes; K5 recomputes the forward
+# instead of keeping K4's.  K5's weight gradients are one product per
+# layer over all points (``[fbar; inp]^T @ [e; zbar]``, the Phase A and B
+# terms stacked): the weight-gradient stage (``wgrad.py``,
+# ``csrc/wgrad.cu``) after the per-point pass, split over the rows and
+# reduced in a fixed order: run to run the result is the same.
 #
 # K2 and K3 (``csrc/sdf_flat.cu``) replace ``_make_fwd_grad_kernel`` and
 # ``_make_bwd_kernel_biased`` (``_sdf_forward_grad_impl`` /
@@ -346,12 +350,24 @@ PROFILE_K4, PROFILE_K5 = "fmov::K4_sdf_fwd_grad", "fmov::K5_sdf_bwd"
 MIN_SAMPLES_RAYS = 65536
 
 
+# The widest hidden layer K2-K5 take: K5/K3's per-point pass writes a
+# hidden layer's output in one pass of 256 columns (``BWD_NW`` in
+# ``csrc/sdf_bwd_pass.cuh``).  K1 takes up to 384.
+MAX_HIDDEN_TRAIN = 256
+
+
+def supported_train(cfg) -> bool:
+    """The configurations the training kernels K2-K5 take: ``supported``,
+    with hidden layers at most ``MAX_HIDDEN_TRAIN`` wide."""
+    return supported(cfg) and cfg["d_hidden"] <= MAX_HIDDEN_TRAIN
+
+
 def supported_rays(cfg, n_samples: int, n_pts: int = None) -> bool:
     """The rays path takes the config and, given n_pts, is worth it
     (``MIN_SAMPLES_RAYS``).  Row layout needs no tile-aligned rays.  The
     skip layer must be a hidden one: the gradient chain starts from the
     last layer's column 0 against the hidden width (as in the JAX kernel)."""
-    ok = supported(cfg) and n_samples > 0 and _skip(cfg) < cfg["n_layers"]
+    ok = supported_train(cfg) and n_samples > 0 and _skip(cfg) < cfg["n_layers"]
     if n_pts is not None:
         ok = ok and n_pts >= MIN_SAMPLES_RAYS
     return ok
@@ -612,6 +628,8 @@ _FWD_GRAD_FLAT_ARGS = _FWD_GRAD_ARGS[:15] + [_VP, _VP]
 _BWD_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CF, _VP, _VP, _VP, _VP, _CI, _CI,
              _CI, _VP, _CI, _VP, _VP]
 _BWD_FLAT_ARGS = _BWD_ARGS[1:]
+# (meta, n_lin, skip, multires, out[4])
+_BWD_PLAN_ARGS = [_VP, _CI, _CI, _CI, _VP]
 
 
 # (x, M, M_pad, scale, w, b, meta, n_lin, skip, multires, G, out, n_out,
@@ -627,7 +645,8 @@ def _lib():
 def _rays_lib():
     from fmov_pose_torch.ops import build
     return (_typed(build.library("sdf_fwd_grad"), {"fmov_sdf_fwd_grad": _FWD_GRAD_ARGS}),
-            _typed(build.library("sdf_bwd"), {"fmov_sdf_bwd": _BWD_ARGS}))
+            _typed(build.library("sdf_bwd"), {"fmov_sdf_bwd": _BWD_ARGS,
+                                              "fmov_sdf_bwd_plan": _BWD_PLAN_ARGS}))
 
 
 def _flat_lib():
@@ -683,7 +702,7 @@ def _fwd_workspace(pk: RaysPack, M_pad: int, dev) -> packing.Workspace:
 
 def bwd_workspace_specs(table, M_pad: int, G: int, KS: int, dw_elems: int):
     """K5/K3's per-point arrays and partial sums, in the order of
-    ``sdf_bwd_launch``'s pointer table (csrc/sdf_pipe.cuh): the bf16
+    ``sdf_bwd_launch``'s pointer table (csrc/sdf_bwd_pass.cuh): the bf16
     operands of the weight-gradient product row-major, the f32 arrays
     SIG, DS and ZC in the per-point pass's fragment order (each 64-row
     tile of a [M_pad, W] array one row of 64 W values, ``frag4``).
@@ -703,6 +722,21 @@ def bwd_workspace_specs(table, M_pad: int, G: int, KS: int, dw_elems: int):
     specs += [("DBPART", G, n_bias, torch.float32), ("CBPART", G, t[-2][1], torch.float32),
               ("DWPART", KS, dw_elems, torch.float32)]
     return specs, n_bias
+
+
+def bwd_launch_plan(pk: RaysPack) -> dict:
+    """The launch plan of K5/K3's per-point pass for ``pk``'s layer table,
+    from the library that launches it (``fmov_sdf_bwd_plan``,
+    ``csrc/sdf_bwd_pass.cuh`` ``bwd_plan``): dynamic shared memory in
+    bytes, ring stages, passes a tile and threads a block."""
+    _, lib = _rays_lib()
+    out = (ctypes.c_int * 4)()
+    err = lib.fmov_sdf_bwd_plan(pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin,
+                                pk.skip, pk.multires, out)
+    if err:
+        raise ValueError("K5/K3's per-point pass does not take this layer table: "
+                         f"{lib.fmov_train_error_string(err).decode()}")
+    return dict(zip(("smem", "stages", "passes", "threads"), out))
 
 
 def _bwd_workspace(pk: RaysPack, M_pad: int, G: int, KS: int, dev):

@@ -163,7 +163,7 @@ def _fused_train_paths(model_cfg, n_samples: int, m_total: int,
     if not sdf_cfg.get("use_fused_train", False):
         return None, None
     from fmov_pose_torch.ops import fused_color, fused_sdf
-    if not fused_sdf.supported(sdf_cfg):
+    if not fused_sdf.supported_train(sdf_cfg):
         return None, None
     sdf_path = ("rays" if fused_sdf.supported_rays(sdf_cfg, n_samples, m_total)
                 else "flat")

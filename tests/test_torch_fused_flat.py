@@ -26,8 +26,9 @@ Tolerances:
   ``fused_sdf.leaf_rule`` (relative L2 error < 1%, or absolute < 1e-4 x
   the global gradient norm), the gate the JAX kernels met.
 
-The CUDA kernels run only on the card: the ``cuda``-marked test holds them
-against the plain versions at the full width.
+The CUDA kernels run only on the card: the ``cuda``-marked tests hold them
+against the plain versions at the full width, and K3 also bitwise over two
+launches and on a narrow table (a skip layer, 128 wide).
 """
 
 import jax
@@ -232,6 +233,42 @@ def test_kernels_match_plain_on_cuda(M):
     assert errs["ok"], errs
     _rows_ok(rd.cpu().numpy(), d_inputs.cpu(), "d_inputs")
     rx, rdws, rdbs = fused_sdf.sdf_bwd_flat_plain(ws, bs, xe, ybar, gbar, FULL)
+    res = fused_sdf.leaf_rule(
+        {"xebar": rx, **{f"w{l}": w for l, w in enumerate(rdws)},
+         **{f"b{l}": b for l, b in enumerate(rdbs)}},
+        {"xebar": xebar, **{f"w{l}": w for l, w in enumerate(dws)},
+         **{f"b{l}": b for l, b in enumerate(dbs)}})
+    assert res["ok"], res
+
+
+NARROW = dict(FULL, d_hidden=128, n_layers=5, skip_in=(3,), multires=4, d_out=65)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,M", [pytest.param(FULL, 32768, id="full-32768"),
+                                   pytest.param(FULL, 1000, id="full-1000"),
+                                   pytest.param(NARROW, 1050, id="narrow-1050")])
+def test_k3_bitwise_twice_and_plain_on_cuda(cfg, M):
+    """K3 (its per-point pass, csrc/sdf_bwd_pass.cuh, and the
+    weight-gradient stage) gives the same bits on two launches at the
+    phase-1 step's M = 32,768 and a ragged 1,000, and on a narrow table (a
+    skip layer, 128 wide) as well; each against the plain version under
+    the leaf rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    ws, bs = fused_sdf.materialize(convert.to_torch(convert.to_numpy(
+        tn.init_sdf(np.random.default_rng(1), cfg)), dev), cfg)
+    x, ybar, gbar, _ = (torch.from_numpy(a).to(dev) for a in _inputs(M, cfg, 6))
+    xe, _, _, _ = fused_sdf.pe_parts(x, cfg["multires"])
+    pk = fused_sdf.RaysPack(ws, bs, cfg)
+    first = fused_sdf.launch_bwd_flat(pk, xe, ybar, gbar)
+    second = fused_sdf.launch_bwd_flat(pk, xe, ybar, gbar)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    xebar, dws, dbs = fused_sdf.sdf_bwd_flat(ws, bs, xe, ybar, gbar, cfg, pk)
+    rx, rdws, rdbs = fused_sdf.sdf_bwd_flat_plain(ws, bs, xe, ybar, gbar, cfg)
     res = fused_sdf.leaf_rule(
         {"xebar": rx, **{f"w{l}": w for l, w in enumerate(rdws)},
          **{f"b{l}": b for l, b in enumerate(rdbs)}},

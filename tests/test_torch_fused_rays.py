@@ -25,8 +25,9 @@ Tolerances:
   bf16-vs-f32 full-width case's worst leaf is sdf.lin0.v at 0.6-0.8% over
   four seeds.
 
-The CUDA kernels run only on the card: the ``cuda``-marked test holds them
-against the plain versions at the full width.
+The CUDA kernels run only on the card: the ``cuda``-marked tests hold them
+against the plain versions at the full width, and K5 also bitwise over two
+launches and on a narrow table (a skip layer, 128 wide).
 """
 
 import jax
@@ -227,6 +228,43 @@ def test_kernels_match_plain_on_cuda(B, N):
     assert errs["ok"], errs
     _check_rows(rg.cpu().numpy(), grad.cpu())
     rx, rdws, rdbs = fused_sdf.sdf_bwd_plain(ws, bs, x, w_out, w_sdf, w_grad, FULL)
+    res = fused_sdf.leaf_rule(
+        {"x": rx, **{f"w{l}": w for l, w in enumerate(rdws)},
+         **{f"b{l}": b for l, b in enumerate(rdbs)}},
+        {"x": xb, **{f"w{l}": w for l, w in enumerate(dws)},
+         **{f"b{l}": b for l, b in enumerate(dbs)}})
+    assert res["ok"], res
+
+
+NARROW = dict(FULL, d_hidden=128, n_layers=5, skip_in=(3,), multires=4, d_out=65)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,B,N", [pytest.param(FULL, 512, 128, id="full-65536"),
+                                     pytest.param(FULL, 3, 100, id="full-300"),
+                                     pytest.param(NARROW, 7, 150, id="narrow-1050")])
+def test_k5_bitwise_twice_and_plain_on_cuda(cfg, B, N):
+    """K5 (its per-point pass, csrc/sdf_bwd_pass.cuh, and the
+    weight-gradient stage) gives the same bits on two launches at the fast
+    conf's M = 65,536 and a ragged 300, and on a narrow table (a skip
+    layer, 128 wide: another pass table and ring depth) as well; each
+    against the plain version under the leaf rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    M = B * N
+    ws, bs = fused_sdf.materialize(convert.to_torch(convert.to_numpy(
+        tn.init_sdf(np.random.default_rng(1), cfg)), dev), cfg)
+    x, w_out, w_sdf, w_grad = (torch.from_numpy(a).to(dev)
+                               for a in _inputs(M, cfg["d_out"], 6))
+    pk = fused_sdf.RaysPack(ws, bs, cfg)
+    first = fused_sdf.launch_bwd(pk, x, w_out, w_sdf, w_grad)
+    second = fused_sdf.launch_bwd(pk, x, w_out, w_sdf, w_grad)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    xb, dws, dbs = fused_sdf.sdf_bwd(ws, bs, x, w_out, w_sdf, w_grad, cfg, pk)
+    rx, rdws, rdbs = fused_sdf.sdf_bwd_plain(ws, bs, x, w_out, w_sdf, w_grad, cfg)
     res = fused_sdf.leaf_rule(
         {"x": rx, **{f"w{l}": w for l, w in enumerate(rdws)},
          **{f"b{l}": b for l, b in enumerate(rdbs)}},
