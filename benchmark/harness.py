@@ -122,10 +122,14 @@ def conf_text(text: str, overrides: dict) -> str:
 
 
 def _check_conf(runner, config):
-    """The Runner reads the configuration the config file states."""
+    """The Runner reads the configuration the config file states (the
+    background's ``nerf`` block where ``n_outside`` > 0)."""
     rc = runner.model_cfg
     want = config["model"]
-    for net, key in (("sdf", "sdf_network"), ("color", "rendering_network")):
+    nets = [("sdf", "sdf_network"), ("color", "rendering_network")]
+    if want["neus_renderer"].get("n_outside", 0) > 0:
+        nets.append(("nerf", "nerf"))
+    for net, key in nets:
         for k, v in want[key].items():
             got = rc[net].get(k)
             if (list(got) if isinstance(got, tuple) else got) != v:
@@ -197,6 +201,7 @@ def prepare(cell: dict, seed: int, device, workdir: str):
     ref_cell = {
         "model": {"sdf": config["model"]["sdf_network"],
                   "color": config["model"]["rendering_network"],
+                  "nerf": config["model"]["nerf"],
                   "renderer": config["model"]["neus_renderer"]},
         "weights": {"igr": t["igr_weight"], "mask": t["mask_weight"], "flow": t["flow_weight"]},
         "batch_size": t["batch_size"], "patch": t["mask_guided_patch_size"],

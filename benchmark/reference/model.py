@@ -24,8 +24,16 @@ Precision: every product is f32 (the caller turns TF32 off), except where
 
 Random draws come from one ``torch.Generator`` in the order the program
 draws them (frame, pixels, mask-guide coin, the maintain_shape batch's
-pixels and coin, the stratified offset), so that handed the same
-generator state the reference draws the same numbers.
+pixels and coin, the stratified offset, the background's stratified
+z-values), so that handed the same generator state the reference draws
+the same numbers.
+
+With ``n_outside`` > 0 the render adds NeuS's NeRF++ background
+(``models/renderer.py``'s ``render_core_outside``): the ``nerf`` network,
+its products at ``train``'s format, on the inverted-sphere coordinates
+[p / r, 1 / r] at the mid-points of the sorted union of the inside and
+the outside z-values; its alpha and colors replace the inside ones
+outside the unit sphere, and its tail is appended.
 """
 
 from __future__ import annotations
@@ -173,6 +181,24 @@ def color_apply(params, cfg, points, normals, view_dirs, feature, fmt=None):
     return torch.sigmoid(h)
 
 
+def nerf_apply(params, cfg, pts4, dirs, fmt=None):
+    """The NeRF++ background network (NeuS ``models/fields.py`` ``NeRF``, with
+    view directions): (density [N, 1], rgb logits [N, 3]) of the points
+    [N, 4] and the directions [N, 3]."""
+    x = positional_encode(pts4, cfg["multires"])
+    view = positional_encode(dirs, cfg["multires_view"])
+    skips = tuple(cfg["skips"])
+    h = x
+    for i in range(cfg["D"]):
+        h = torch.relu(linear(params["pts"][f"lin{i}"], h, fmt))
+        if i in skips:
+            h = torch.cat([x, h], dim=-1)
+    density = linear(params["alpha"], h, fmt)
+    feature = linear(params["feature"], h, fmt)
+    h = torch.relu(linear(params["views0"], torch.cat([feature, view], dim=-1), fmt))
+    return density, linear(params["rgb"], h, fmt)
+
+
 def inv_s(params):
     return torch.clamp(torch.exp(params["variance"] * 10.0), 1e-6, 1e6)
 
@@ -236,6 +262,35 @@ def up_sample(rays_o, rays_d, z_vals, sdf, n_importance, inv_s_up):
     return sample_pdf(z_vals, transmittance_weights(alpha), n_importance)
 
 
+def outside_z(gen, n_out, n_s, perturb, far):
+    """The background's z-values [B, n_out]: NeuS's stratified draws in
+    (0, 1) (one [B, n_out] draw), inverted beyond ``far`` (``far / z``,
+    plus 1 / n_samples as NeuS adds)."""
+    B, dev = far.shape[0], far.device
+    z = torch.linspace(1e-3, 1.0 - 1.0 / (n_out + 1.0), n_out, device=dev)
+    if perturb > 0:
+        mids = 0.5 * (z[1:] + z[:-1])
+        upper, lower = torch.cat([mids, z[-1:]]), torch.cat([z[:1], mids])
+        z = lower + (upper - lower) * torch.rand((B, n_out), generator=gen, device=dev)
+    return far / torch.flip(torch.atleast_2d(z), dims=[-1]) + 1.0 / n_s
+
+
+def render_outside(params, cfg, rays_o, rays_d, z_vals, sample_dist, fmt=None):
+    """The background's (alpha, sampled colors) [B, N] and [B, N, 3] at the
+    mid-points of ``z_vals`` [B, N]."""
+    B, N = z_vals.shape
+    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                       torch.full((B, 1), sample_dist, device=z_vals.device)], dim=-1)
+    mid_z = z_vals + dists * 0.5
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., :, None]
+    r = torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True), 1.0, 1e10)
+    pts4 = torch.cat([pts / r, 1.0 / r], dim=-1).reshape(-1, 4)
+    dirs = rays_d[:, None, :].expand(B, N, 3).reshape(-1, 3)
+    density, rgb = nerf_apply(params, cfg, pts4, dirs, fmt)
+    alpha = 1.0 - torch.exp(-F.softplus(density.reshape(B, N)) * dists)
+    return alpha, torch.sigmoid(rgb).reshape(B, N, 3)
+
+
 def render(gen, params, model, rays_o, rays_d, near, far, cos_anneal, prec: Precision):
     """NeuS's hierarchical render of a ray batch, training mode."""
     rcfg, sdf_cfg, col_cfg = model["renderer"], model["sdf"], model["color"]
@@ -246,6 +301,9 @@ def render(gen, params, model, rays_o, rays_d, near, far, cos_anneal, prec: Prec
     z_vals = near + (far - near) * torch.linspace(0.0, 1.0, n_s, device=dev)[None, :]
     if rcfg["perturb"] > 0:
         z_vals = z_vals + (torch.rand((B, 1), generator=gen, device=dev) - 0.5) * 2.0 / n_s
+    n_out = rcfg.get("n_outside", 0)
+    if n_out > 0:
+        z_out = outside_z(gen, n_out, n_s, rcfg["perturb"], far)
     if n_i > 0:
         with torch.no_grad():
             ro, rd = rays_o.detach(), rays_d.detach()
@@ -265,6 +323,10 @@ def render(gen, params, model, rays_o, rays_d, near, far, cos_anneal, prec: Prec
                 else:
                     z_vals, sdf = merge_sorted(z_vals, new_z, sdf, query(new_z))
     n_total = z_vals.shape[1]
+    if n_out > 0:
+        z_feed = torch.sort(torch.cat([z_vals, z_out.expand(B, n_out)], dim=-1), dim=-1).values
+        bg_alpha, bg_color = render_outside(params["nerf"], model["nerf"], rays_o, rays_d,
+                                            z_feed, sample_dist, prec.train)
 
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                        torch.full((B, 1), sample_dist, device=dev)], dim=-1)
@@ -283,6 +345,13 @@ def render(gen, params, model, rays_o, rays_d, near, far, cos_anneal, prec: Prec
     prev_cdf = torch.sigmoid((sdf_bn - iter_cos * dists * 0.5) * s)
     next_cdf = torch.sigmoid((sdf_bn + iter_cos * dists * 0.5) * s)
     alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
+    if n_out > 0:
+        inside = (norm_sq_along(rays_o, rays_d, mid_z).detach() < 1.0).to(alpha.dtype)
+        alpha = torch.cat([alpha * inside + bg_alpha[:, :n_total] * (1.0 - inside),
+                           bg_alpha[:, n_total:]], dim=-1)
+        sampled_color = torch.cat(
+            [sampled_color * inside[..., None] + bg_color[:, :n_total] * (1.0 - inside)[..., None],
+             bg_color[:, n_total:]], dim=1)
     weights = transmittance_weights(alpha)
     color = (sampled_color * weights[..., None]).sum(dim=1)
     relax = (norm_sq_along(rays_o, rays_d, mid_z).detach() < 1.44).to(alpha.dtype)

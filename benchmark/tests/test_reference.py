@@ -1,7 +1,10 @@
 """The reference's checked chunk against the program's CPU path at a
 tiny width: on the f32 networks (the program's plain path) the two agree
 to rounding in every cell's dispatch; on the cell's own kernels (their
-plain bf16 versions on the CPU) within the bf16 gap."""
+plain bf16 versions on the CPU) within the bf16 gap.  A background case
+(``n_outside`` 4) checks the NeRF++ field too: on the f32 path, and on
+the route a background takes at the published size, K4/K5 and the
+per-sample K6/K7 (their gates lowered to the tiny step)."""
 
 import pytest
 import torch
@@ -11,24 +14,40 @@ from benchmark.tests import tiny
 
 WORKLOADS = ["neus_global.fused", "neus_virtual.planned", "neus_global.autograd"]
 F32 = {"train.use_fused_train_kernels": False}
+BACKGROUND = 4  # outside samples a ray
 
 
 def _numbers(cell, seed):
     return harness.run(cell, seed, 0.2, False, "cpu", t_process=lambda: 0.0)["numbers"]
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
-def test_f32_path_matches(workload):
-    n = _numbers(tiny.cell(workload, **F32), 2 ** 31 + 11)
+def _cases(workloads, background):
+    return ([pytest.param(w, 0, id=w) for w in workloads]
+            + [pytest.param(background, BACKGROUND, id=f"{background}-background")])
+
+
+@pytest.mark.parametrize("workload,n_outside", _cases(WORKLOADS, "neus_global.autograd"))
+def test_f32_path_matches(workload, n_outside):
+    n = _numbers(tiny.cell(workload, n_outside, **F32), 2 ** 31 + 11)
     # f32 rounding over a chunk of steps: the worst leaf's moment within 1e-3
     assert n["loss"] < 1e-5 and n["grad_gap"] < 1e-3 and n["change_gap"] < 1e-3, n
     assert n.get("plan", 0) == 0 and n.get("late.loss", 0) < 1e-5, n
+    if n_outside:
+        assert "grad.nerf" in n and "change.nerf" in n, n
 
 
-@pytest.mark.parametrize("workload", ["neus_global.fused", "neus_virtual.planned"])
-def test_kernel_path_within_bf16(workload):
-    n = _numbers(tiny.cell(workload), 7)
+@pytest.mark.parametrize("workload,n_outside",
+                         _cases(["neus_global.fused", "neus_virtual.planned"],
+                                "neus_global.fused"))
+def test_kernel_path_within_bf16(workload, n_outside, monkeypatch):
+    if n_outside:
+        from fmov_pose_torch.ops import fused_color, fused_sdf
+        monkeypatch.setattr(fused_sdf, "MIN_SAMPLES_RAYS", 0)
+        monkeypatch.setattr(fused_color, "MIN_SAMPLES", 0)
+    n = _numbers(tiny.cell(workload, n_outside), 7)
     assert 0 < n["loss"] < 2e-2 and n["grad_gap"] < 1.0 and n["change_gap"] < 0.5, n
+    if n_outside:
+        assert "grad.nerf" in n and "change.nerf" in n, n
 
 
 def test_same_seed_same_inputs(tmp_path):

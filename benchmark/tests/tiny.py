@@ -1,7 +1,8 @@
 """A cell of the manifest cut to a size the CPU tests hold: the same
 conf, dispatch and check at small widths, a small scene, short
 dispatches and, on the planned path, a frame admitted every 15 steps
-(so that a flow step comes within a test's run)."""
+(so that a flow step comes within a test's run); on request with the
+NeRF++ background at a few outside samples."""
 
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ CURRICULUM = {"max_pro_iteration": 15, "pro_warm_up_end": 8}
 BATCH = 16
 
 
-def cell(workload: str, **extra) -> dict:
+def cell(workload: str, n_outside: int = 0, **extra) -> dict:
+    """The tiny cell; ``n_outside`` > 0 adds the NeRF++ background, in the
+    configuration and in the conf alike."""
     c = copy.deepcopy(cells.cell(workload))
     cfg = c["config"]
     model = cfg["model"]
@@ -26,14 +29,14 @@ def cell(workload: str, **extra) -> dict:
     model["nerf"].update(NERF)
     r = model["neus_renderer"]
     r.update({"n_samples": 8, "n_importance": 8 if r["n_importance"] else 0,
-              "up_sample_steps": 2})
+              "up_sample_steps": 2, "n_outside": n_outside})
     cfg["train"]["batch_size"] = BATCH
     cfg["scene"].update(SCENE)
     over = {}
     for sec, vals in (("sdf_network", SDF), ("rendering_network", COLOR), ("nerf", NERF)):
         over.update({f"model.{sec}.{k}": v for k, v in vals.items()})
     over.update({f"model.neus_renderer.{k}": r[k]
-                 for k in ("n_samples", "n_importance", "up_sample_steps")})
+                 for k in ("n_samples", "n_importance", "up_sample_steps", "n_outside")})
     over.update({"train.batch_size": BATCH, "train.scan_chunk": 5, "train.report_freq": 10})
     if c["traffic"]["dispatch"] == "planned":
         over["train.plan_chunk"] = 10
