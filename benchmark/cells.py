@@ -20,11 +20,11 @@ from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
-MANIFEST = ROOT / "BENCHMARK.json"
 
 
-def manifest(path=MANIFEST) -> dict:
-    with open(path) as f:
+def manifest(path=None) -> dict:
+    """``BENCHMARK.json`` at ``ROOT``, or the manifest at ``path``."""
+    with open(path or ROOT / "BENCHMARK.json") as f:
         return json.load(f)
 
 

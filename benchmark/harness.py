@@ -49,6 +49,7 @@ from benchmark import trace as trace_mod
 from benchmark.reference import model as ref_model, plan as ref_plan, train as ref_train
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "fmov_pose_tpu")
+FIELDS = ("sdf", "color", "nerf", "pose")  # what ``group`` returns
 
 
 def process_seconds() -> float:
@@ -446,8 +447,8 @@ def loss_gap(got: list, ref: list) -> float:
 
 
 def group(leaf: str) -> str:
-    """A leaf's field: sdf (the variance with it), color, nerf, pose (the
-    pose net or bank)."""
+    """A leaf's field, one of ``FIELDS``: sdf (the variance with it),
+    color, nerf (the NeRF++ background), pose (the pose net or bank)."""
     head = leaf.split(".")[0]
     return {"variance": "sdf", "bank": "pose"}.get(head, head)
 

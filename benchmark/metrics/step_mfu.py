@@ -2,8 +2,10 @@
 window's seconds, over the bf16 dense peak (``work.PEAK_FLOPS``), in %.
 The operations are a step's fields' work from the shapes
 (``work.step_flops``: the up-sampler's queries, the SDF forward, input
-gradient and second-order backward, the color forward and backward),
-nothing recomputed; the same peak whatever the cell's precision."""
+gradient and second-order backward, the color forward and backward, and
+with a NeRF++ background the ``nerf`` network's forward and backward at
+every inside and outside sample), nothing recomputed; the same peak
+whatever the cell's precision."""
 
 
 def read(run):

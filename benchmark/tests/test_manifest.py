@@ -1,28 +1,37 @@
-"""The manifest's names and units, and every cell's data found by name."""
+"""The manifest's names and units, and every cell's data found by name.
+
+The rules are functions of a manifest (``check_*``), so that a copy of
+the benchmark's data with a cell added is held to the same
+(``test_room.py``)."""
 
 import json
 import re
 
 import pytest
 
-from benchmark import cells
+from benchmark import cells, harness
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+# the check's numbers a limits file may name (``harness.numbers``), per field by ``FIELDS``
+NUMBER = re.compile(r"^(loss|grad_gap|change_gap|(grad|change)\.(" + "|".join(harness.FIELDS)
+                    + r")|plan|late\.loss)$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 MAN = cells.manifest()
 
 
-def test_top_level_keys():
-    assert set(MAN) == {"command", "paths", "run_seconds", "configs", "workloads",
+def entries(man):
+    return man["configs"] + man["workloads"] + man["end_to_end"] + man["per_layer"]
+
+
+def check_top_level(man):
+    assert set(man) == {"command", "paths", "run_seconds", "configs", "workloads",
                         "end_to_end", "per_layer"}
-    assert 1 <= MAN["run_seconds"] <= 51
-    assert all(not w.startswith("/") and ".." not in w for w in MAN["command"])
-    assert MAN["paths"] == ["benchmark"]
+    assert 1 <= man["run_seconds"] <= 51
+    assert all(not w.startswith("/") and ".." not in w for w in man["command"])
+    assert man["paths"] == ["benchmark"]
 
 
-@pytest.mark.parametrize("entry", MAN["configs"] + MAN["workloads"] + MAN["end_to_end"]
-                         + MAN["per_layer"], ids=lambda e: e["name"])
-def test_names(entry):
+def check_names(entry):
     assert NAME.match(entry["name"])
     for key in ("config", "traffic"):
         if key in entry:
@@ -37,29 +46,26 @@ def test_names(entry):
                 and "\t" not in entry[key]
 
 
-def test_names_unique():
+def check_names_unique(man):
     for group in ("configs", "workloads"):
-        names = [e["name"] for e in MAN[group]]
+        names = [e["name"] for e in man[group]]
         assert len(names) == len(set(names))
-    metrics = [e["name"] for e in MAN["end_to_end"] + MAN["per_layer"]]
+    metrics = [e["name"] for e in man["end_to_end"] + man["per_layer"]]
     assert len(metrics) == len(set(metrics))
 
 
-def test_bounds():
-    for m in MAN["end_to_end"]:
+def check_bounds(man):
+    for m in man["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
-    assert any(m["name"] == "setup_s" for m in MAN["end_to_end"])
+    assert any(m["name"] == "setup_s" for m in man["end_to_end"])
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in MAN["workloads"]])
-def test_cell_found_by_name(workload):
-    c = cells.cell(workload)
+def check_cell(workload, man):
+    c = cells.cell(workload, man)
     assert c["config"]["name"] == workload.split(".")[0]
     assert c["traffic"]["name"] == workload.split(".")[1]
-    number = re.compile(r"^(loss|grad_gap|change_gap|(grad|change)\.(sdf|color|pose)|plan"
-                        r"|late\.loss)$")
-    assert all(number.match(n) for n in c["limits"]["limits"])
+    assert all(NUMBER.match(n) for n in c["limits"]["limits"])
     e2e = {m["name"] for m in c["end_to_end"]}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert c["per_layer"]
@@ -68,8 +74,7 @@ def test_cell_found_by_name(workload):
         assert callable(cells.reader(m["name"]))
 
 
-@pytest.mark.parametrize("config", MAN["configs"], ids=lambda c: c["name"])
-def test_config_file(config):
+def check_config_file(config):
     with open(cells.ROOT / config["file"]) as f:
         data = json.load(f)
     assert data["name"] == config["name"]
@@ -80,6 +85,37 @@ def test_config_file(config):
     assert not [k for k in config["reduced"] if widths.search(k)]
 
 
+def check_every_config_used(man):
+    used = {w["config"] for w in man["workloads"]}
+    assert used == {c["name"] for c in man["configs"]}
+
+
+def test_top_level_keys():
+    check_top_level(MAN)
+
+
+@pytest.mark.parametrize("entry", entries(MAN), ids=lambda e: e["name"])
+def test_names(entry):
+    check_names(entry)
+
+
+def test_names_unique():
+    check_names_unique(MAN)
+
+
+def test_bounds():
+    check_bounds(MAN)
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in MAN["workloads"]])
+def test_cell_found_by_name(workload):
+    check_cell(workload, MAN)
+
+
+@pytest.mark.parametrize("config", MAN["configs"], ids=lambda c: c["name"])
+def test_config_file(config):
+    check_config_file(config)
+
+
 def test_every_config_used():
-    used = {w["config"] for w in MAN["workloads"]}
-    assert used == {c["name"] for c in MAN["configs"]}
+    check_every_config_used(MAN)

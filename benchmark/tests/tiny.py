@@ -1,8 +1,9 @@
 """A cell of the manifest cut to a size the CPU tests hold: the same
 conf, dispatch and check at small widths, a small scene, short
 dispatches and, on the planned path, a frame admitted every 15 steps
-(so that a flow step comes within a test's run); on request with the
-NeRF++ background at a few outside samples."""
+(so that a flow step comes within a test's run); the NeRF++ background
+at a few outside samples where the configuration has one, or on
+request."""
 
 from __future__ import annotations
 
@@ -16,14 +17,18 @@ NERF = {"D": 2, "W": 16, "multires": 2, "multires_view": 2, "skips": [0]}
 SCENE = {"n_frames": 4, "H": 24, "W": 32}
 CURRICULUM = {"max_pro_iteration": 15, "pro_warm_up_end": 8}
 BATCH = 16
+OUTSIDE = 4  # a background's outside samples a ray
 
 
-def cell(workload: str, n_outside: int = 0, **extra) -> dict:
-    """The tiny cell; ``n_outside`` > 0 adds the NeRF++ background, in the
-    configuration and in the conf alike."""
+def cell(workload: str, n_outside: int | None = None, **extra) -> dict:
+    """The tiny cell; ``n_outside`` outside samples a ray of the NeRF++
+    background (None: ``OUTSIDE`` where the configuration has a background,
+    else none), in the configuration and in the conf alike."""
     c = copy.deepcopy(cells.cell(workload))
     cfg = c["config"]
     model = cfg["model"]
+    if n_outside is None:
+        n_outside = OUTSIDE if model["neus_renderer"]["n_outside"] > 0 else 0
     model["sdf_network"].update(SDF)
     model["rendering_network"].update(COLOR)
     model["nerf"].update(NERF)
