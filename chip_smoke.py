@@ -28,7 +28,8 @@ Phases, each printing lines as it ends:
   4. train-kernels -- K4, K5, K8 and K9 through their entries against their
                  plain versions at the full width of
                  confs/ho3d_global_womask_tpu_fast.conf, M = 512 x 128 and
-                 3 x 128 (ragged), K4, K5, K8 and K9 also against themselves:
+                 3 x 128 (ragged), K4 also at the texture bake's 8,192 x 128,
+                 K4, K5, K8 and K9 also against themselves:
                  two launches on the same inputs bitwise equal; CUDA-event
                  times of the entry, the kernel alone and the plain version
   5. flat-kernels -- K2 and K3 through their entry sdf_apply_grad_fused
@@ -632,8 +633,9 @@ def phase_train_kernels(dev):
     """K4, K5, K8 and K9 through their entries (packing, launch, and for
     K5/K9 the unpacking of the weight gradients) against their plain
     versions on the same weights and inputs, at the shapes of the fast
-    conf's step (512 rays x 128 samples) and a ragged 3 x 128.  K8/K9 take
-    K4's outputs as their SDF features and normals.  Times the entry, the
+    conf's step (512 rays x 128 samples) and a ragged 3 x 128, and K4 at a
+    texture-bake chunk's 8,192 x 128.  K8/K9 take K4's outputs as their SDF
+    features and normals.  Times the entry, the
     kernel alone on pre-packed weights, and the plain version."""
     import numpy as np
     import torch
@@ -737,6 +739,17 @@ def phase_train_kernels(dev):
                    lambda: fused_color.launch_bwd(cpk, *geo, ct),
                    lambda: fused_color.color_ray_bwd_plain(cws, cbs, *geo, ct, cfg_c),
                    lambda: fused_color.LAUNCHES_K9)
+
+        # K4 once at the texture bake's M (an 8,192-ray chunk x 128 samples)
+        B, N = BAKE_RAYS, 128
+        x = (torch.rand((B * N, 3), generator=gen, device=dev) * 2 - 1) * 0.9
+        _same_twice("train-kernels", "sdf_fwd_grad", B * N,
+                    lambda: fused_sdf.launch_fwd_grad(pk, x))
+        report("sdf_fwd_grad", B, N, k4_err, f"out:K1_rule;grad:{ROW_TOL};sdf==out[:,0]",
+               lambda: fused_sdf.sdf_fwd_grad(ws, bs, x, cfg_s),
+               lambda: fused_sdf.launch_fwd_grad(pk, x),
+               lambda: fused_sdf.sdf_fwd_grad_plain(ws, bs, x, cfg_s),
+               lambda: fused_sdf.LAUNCHES_K4)
     return main
 
 

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on TMA and
-// wgmma: the weight-gradient stage (wgrad.cu) and the second-order SDF
-// backward's per-point pass (sdf_bwd_pass.cuh, K5 and K3).  mbarriers,
-// TMA tile loads and stores and the L2 prefetch, wgmma's fences and groups,
-// a named barrier, and the host's tensor-map encoder (cuTensorMapEncodeTiled
-// through the runtime's entry-point query, so no library needs -lcuda).
+// wgmma: the weight-gradient stage (wgrad.cu) and the SDF kernels' per-point
+// passes (sdf_bwd_pass.cuh, K5 and K3; sdf_fwd_grad_pass.cuh, K4 and K2).
+// mbarriers, TMA tile loads and stores and the L2 prefetch, wgmma's fences,
+// groups and shared-memory descriptors, named barriers, setmaxnreg, and the
+// host's tensor-map encoder (cuTensorMapEncodeTiled through the runtime's
+// entry-point query, so no library needs -lcuda).
 
 #pragma once
 
@@ -28,6 +29,19 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// mbar_arrive by the threads where pred holds, predicated inside the asm
+// statement: no branch the compiler cannot prove convergent.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+
 // Waits until the barrier's phase of the given parity has completed.  A
 // copy that never lands would hang the card: the wait traps instead, after
 // far longer than any stage takes, so the launch fails with an error.
@@ -45,6 +59,29 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// mbar_wait with its spin inside one asm statement, so that to the compiler
+// the code after it is not on a divergent path: a wgmma warpgroup's waits
+// (ptxas serializes the wgmma that follow a loop it cannot prove
+// convergent).  Traps after as long as mbar_wait.
+__device__ __forceinline__ void mbar_wait_converged(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.eq.u32 p, n, 1073741824;\n"
+      "@p trap;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 // One 2-D box of a tensor map into shared memory, completing on bar.
@@ -88,6 +125,18 @@ __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
                : "memory");
 }
 
+// prefetch_l2 by the threads where pred holds, predicated inside the asm.
+__device__ __forceinline__ void prefetch_l2_if(const void* p, uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %2, 0;\n"
+      "@q cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+      "}\n" ::"l"(p),
+      "r"(bytes), "r"((int)pred)
+      : "memory");
+}
+
 // Orders this thread's generic stores to shared memory before later reads
 // of the async proxy (wgmma operands).
 __device__ __forceinline__ void fence_async_shared() {
@@ -97,6 +146,24 @@ __device__ __forceinline__ void fence_async_shared() {
 // Barrier `id` (1-15) over `count` threads, whole warps.
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrives at barrier `id` without waiting: `count` counts these threads and
+// those that wait there with named_sync.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Sets the registers a thread of this warpgroup may hold (every thread of
+// the warpgroup, at the top of its own branch of a warp-specialised kernel).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -110,6 +177,43 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of these registers
+// (accumulators, A fragments) across the wgmma fences and waits around them.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) asm volatile("" : "+r"(d[e])::"memory");
+}
+
+constexpr int A_ATOM = 64;                     // K columns of an A swizzle atom
+constexpr int A_ATOM_BYTES = 64 * A_ATOM * 2;  // of a 64-row tile
+
+// The wgmma descriptor of a K-major operand slice in shared memory with the
+// 128-byte (A: 64-column atoms, 8-row groups 1024 bytes apart) or the
+// 64-byte swizzle (B: 32-column stages, 8-row groups 512 bytes apart).  The
+// leading offset is unused for swizzled K-major operands.
+__device__ __forceinline__ uint64_t desc_a(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
+// The byte offset of (row r, column k) in a 64-row tile's A operand: 64-column
+// atoms of 64 rows x 128 bytes, each row's 16-byte chunks swizzled by r % 8.
+__device__ __forceinline__ int a_off(int r, int k) {
+  return (k >> 6) * A_ATOM_BYTES + r * 128 + ((((k & 63) >> 3) ^ (r & 7)) << 4) + (k & 7) * 2;
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point

@@ -66,8 +66,6 @@ constexpr int BWD_BOX_ROWS = 64;                // output columns (B^T rows) a T
 constexpr int BWD_BOX_BYTES = BWD_BOX_ROWS * BWD_KS * 2;
 constexpr int BWD_STAGE_BYTES = BWD_NW / BWD_BOX_ROWS * BWD_BOX_BYTES;
 constexpr int BWD_MAX_STAGES = 8;
-constexpr int A_ATOM = 64;                      // K columns of an A swizzle atom
-constexpr int A_ATOM_BYTES = TILE_M * A_ATOM * 2;
 constexpr int BWD_MAX_SUB = 6 * MAX_LIN;        // passes of a tile's products
 constexpr int BWD_SCR_BYTES = 4 * BWD_NW * 4;   // per-warp column sums of a product
 constexpr int SYNC_ID = 1;                      // the consumers' named barrier
@@ -105,20 +103,6 @@ struct BwdArgs {
   float* cbpart;         // [G x np(L-2)]
   int n_out, n_bias;
 };
-
-// The wgmma descriptor of a K-major operand slice in shared memory with the
-// 128-byte (A: 64-column atoms, 8-row groups 1024 bytes apart) or the
-// 64-byte swizzle (B: 32-column stages, 8-row groups 512 bytes apart).  The
-// leading offset is unused for swizzled K-major operands.
-__device__ __forceinline__ uint64_t desc_a(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) |
-         (2ull << 62);
-}
 
 __device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
 #pragma unroll
@@ -178,12 +162,6 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[ACC], uint64_t da, uint64_t
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
-}
-
-// The byte offset of (row r, column k) in a tile's A operand: 64-column
-// atoms of 64 rows x 128 bytes, each row's 16-byte chunks swizzled by r % 8.
-__device__ __forceinline__ int a_off(int r, int k) {
-  return (k >> 6) * A_ATOM_BYTES + r * 128 + ((((k & 63) >> 3) ^ (r & 7)) << 4) + (k & 7) * 2;
 }
 
 // Stores the lane's 4 values as bf16 pairs at (r, n) and (r + 8, n) of A.

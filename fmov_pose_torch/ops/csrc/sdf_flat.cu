@@ -10,8 +10,8 @@
 // every argument, and computes the positional encoding and its
 // derivatives around the kernels, as the JAX entries do.
 //
-// They are K4 and K5 with other input and output stages (one tile each
-// for two Pallas kernels of the same math, sdf_pipe.cuh and
+// They are K4 and K5 with other input and output stages (one pass each
+// for two Pallas kernels of the same math, sdf_fwd_grad_pass.cuh and
 // sdf_bwd_pass.cuh):
 //   K2: xe [M x pe_dim] in, its rows loaded where K4 runs the encoding;
 //       out [M x n_out] = [z0 / scale, z1..] and d_inputs [M x pe_dim] (the
@@ -26,9 +26,9 @@
 // What bounds them: at 8x256, ~2.0 MFLOP of bf16 products a point for K2
 // and ~5.8 for K3 (forward, chain, Phase A and B, and the weight-gradient
 // products), against ~160 and ~1,340 bytes a point in and out.  K2 runs
-// K4's tile on the per-point pipeline of sdf_pipe.cuh (a cp.async weight
-// ring, mma.sync with register epilogues, A operands kept in shared
-// memory) and stages only the sigmoids in the workspace; K3 runs K5's
+// K4's pass (sdf_fwd_grad_pass.cuh: a TMA weight ring, wgmma products with
+// the A operands in registers, two tiles a block taking turns at the
+// tensor cores) and stages only the sigmoids in the workspace; K3 runs K5's
 // pass (sdf_bwd_pass.cuh: a TMA weight ring, wgmma products over two
 // warpgroups' column halves), bound by the intermediates it stages there (sigmoids, the
 // gradient chain, the Hessian term, the bf16 operands of the weight
@@ -40,30 +40,15 @@
 // the same (the Pallas kernel summed them over a sequential grid).
 
 #include "sdf_bwd_pass.cuh"
-#include "sdf_pipe.cuh"
+#include "sdf_fwd_grad_pass.cuh"
 
 namespace fmov_train {
 namespace {
 
-__global__ void __launch_bounds__(THREADS, 1)
-    sdf_fwd_grad_flat_kernel(const __grid_constant__ SdfArgs s, float* out,
-                             int n_out, float* d_inputs) {
+__global__ void __launch_bounds__(FG_THREADS, 1)
+    sdf_fwd_grad_flat_kernel(const __grid_constant__ FgArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem m = fwd_smem_carve<FwdSeq>(s, smem);
-  const float* DIN = m.DIN;
-  WRing<FwdSeq> R = ring_start<FwdSeq>(s, m.ring);
-
-  const int n_tiles = s.M_pad / TILE_M;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TILE_M;
-    sdf_fwd_grad_tile(s, row0, m, R, out, n_out, nullptr);
-    for (int i = threadIdx.x; i < TILE_M * s.pe_dim; i += THREADS) {
-      const int r = i / s.pe_dim, c = i % s.pe_dim;
-      const int gr = row0 + r;
-      if (gr < s.M) d_inputs[(size_t)gr * s.pe_dim + c] = DIN[r * s.pe_pad + c];
-    }
-  }
-  cp_async_wait<0>();
+  sdf_fwd_grad_block<false>(a, smem);
 }
 
 __global__ void __launch_bounds__(BWD_THREADS, 1)
@@ -79,14 +64,16 @@ using namespace fmov_train;
 
 extern "C" {
 
-// K2.  ptrs: SIG_0..SIG_{L-2} (fused_sdf.py fwd_workspace_specs).  Returns
-// a cudaError_t (0 = launched).
+// K2.  ptrs: SIG_0..SIG_{L-2} (fused_sdf.py fwd_workspace_specs).  G
+// blocks, each looping over pairs of 64-point tiles.  Returns a cudaError_t
+// (0 = launched).
 int fmov_sdf_fwd_grad_flat(const float* xe, int M, int M_pad, float scale,
                            const void* w, const float* bias, const float* wlast,
                            const int* meta, int n_lin, int skip, int multires,
                            const unsigned long long* ptrs, int G, float* out,
                            int n_out, float* d_inputs, void* stream) {
-  SdfArgs s;
+  FgArgs a;
+  SdfArgs& s = a.s;
   int max_k, max_n, n_bias;
   int e = sdf_setup(s, meta, n_lin, skip, multires, M, M_pad, scale, &max_k,
                     &max_n, &n_bias);
@@ -96,8 +83,11 @@ int fmov_sdf_fwd_grad_flat(const float* xe, int M, int M_pad, float scale,
   s.w = static_cast<const bf16*>(w);
   s.bias = bias;
   s.wlast = wlast;
-  return sdf_fwd_launch<FwdSeq>(sdf_fwd_grad_flat_kernel, s, ptrs, G, (cudaStream_t)stream,
-                                out, n_out, d_inputs);
+  a.out = out;
+  a.n_out = n_out;
+  a.sdf = nullptr;
+  a.grad = d_inputs;
+  return sdf_fwd_grad_launch(sdf_fwd_grad_flat_kernel, a, ptrs, G, (cudaStream_t)stream);
 }
 
 // K3's per-point pass.  ptrs: the workspace table of sdf_bwd_launch

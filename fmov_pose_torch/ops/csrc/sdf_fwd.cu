@@ -10,7 +10,7 @@
 // every product rounds both operands to bf16 and accumulates in f32.
 //
 // The tile is sdf_fwd_tile (sdf_pipe.cuh), on the per-point pipeline that
-// K2, K4 and K6-K9 run: one block per SM loops over its 64-point tiles, the weights
+// K6-K9 run too: one block per SM loops over its 64-point tiles, the weights
 // of the tile's L products (FwdOnlySeq, 9 at 8x256; the forward blocks of
 // a forward-only table, the last layer cut to its column 0 for the sdf
 // alone) stream through a cp.async ring that runs on across products and
@@ -32,7 +32,7 @@ namespace {
 __global__ void __launch_bounds__(THREADS, 1)
     sdf_fwd_kernel(const __grid_constant__ SdfArgs s, float* out, int n_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem m = fwd_smem_carve<FwdOnlySeq>(s, smem);
+  const FwdSmem m = fwd_smem_carve(s, smem);
   WRing<FwdOnlySeq> R = ring_start<FwdOnlySeq>(s, m.ring);
 
   const int n_tiles = s.M_pad / TILE_M;
@@ -64,8 +64,7 @@ int fmov_sdf_fwd(const float* x, int M, int M_pad, float scale, const void* w,
   s.w = static_cast<const bf16*>(w);
   s.bias = bias;
   s.wlast = nullptr;
-  return sdf_fwd_launch<FwdOnlySeq>(sdf_fwd_kernel, s, nullptr, G, (cudaStream_t)stream,
-                                    out, n_out);
+  return sdf_fwd_launch(sdf_fwd_kernel, s, G, (cudaStream_t)stream, out, n_out);
 }
 
 }  // extern "C"

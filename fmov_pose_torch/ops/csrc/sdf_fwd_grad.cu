@@ -10,55 +10,26 @@
 // Jacobian (scale cancels: the gradient is with respect to raw x).  The
 // notation is in sdf_train.cuh.
 //
-// The tile is sdf_fwd_grad_tile (sdf_pipe.cuh), shared with K2: the
-// weights of its 17 products (at 8x256) stream through a cp.async ring
-// across products and tiles, the products run on mma.sync with their
-// epilogues in registers, and each product's A operand stays in shared
-// memory (ping-pong).  What bounds it: ~2.2 MFLOP of bf16 products per
-// point at 8x256 against 12 bytes in and 1,044 out, so the products would;
-// what sets the time is the weight stream from L2 (~2.2 MB a tile) and the
-// epilogues.  The sigmoids of 8 layers (8 KB a point in f32) do not fit in
-// shared memory beside the A operands and the ring, so they go to the
-// workspace in fragment order and come back in the reverse chain.  One
-// block per SM loops over tiles.
+// The per-point pass is sdf_fwd_grad_block (sdf_fwd_grad_pass.cuh), shared
+// with K2: a producer warpgroup streams the weights of the tile's 17
+// products (at 8x256) through a TMA ring, two consumer warpgroups each run
+// a tile of their own on wgmma with the A operands in registers, taking
+// turns at the tensor cores so that one tile's epilogue runs under the
+// other's products.  What bounds it: ~2.2 MFLOP of bf16 products a point
+// at 8x256 (0.13 ms at M = 65,536) and the sigmoids of 8 layers (8 KB a
+// point in f32), which do not fit on chip: they go to the workspace in
+// fragment order and come back in the reverse chain (0.53 GB each way at
+// M = 65,536).  One block per SM loops over pairs of tiles.
 
-#include "sdf_pipe.cuh"
+#include "sdf_fwd_grad_pass.cuh"
 
 namespace fmov_train {
 namespace {
 
-__global__ void __launch_bounds__(THREADS, 1)
-    sdf_fwd_grad_kernel(const __grid_constant__ SdfArgs s, float* out,
-                        int n_out, float* sdf, float* grad) {
+__global__ void __launch_bounds__(FG_THREADS, 1)
+    sdf_fwd_grad_kernel(const __grid_constant__ FgArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem m = fwd_smem_carve<FwdSeq>(s, smem);
-  const float* DIN = m.DIN;
-  WRing<FwdSeq> R = ring_start<FwdSeq>(s, m.ring);
-
-  const int n_tiles = s.M_pad / TILE_M;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TILE_M;
-    sdf_fwd_grad_tile(s, row0, m, R, out, n_out, sdf);
-
-    // grad[d] = sum over the PE columns c of dim d of DIN[c] PE'(c)
-    for (int i = threadIdx.x; i < TILE_M * 3; i += THREADS) {
-      const int r = i / 3, d = i % 3;
-      const int gr = row0 + r;
-      if (gr >= s.M) continue;
-      const float xs = s.x[(size_t)gr * 3 + d] * s.scale;
-      float g = 0.f;
-      for (int c = 0; c < s.pe_dim; ++c) {
-        int dc, kind;
-        float f, v, j, j2;
-        pe_col(c, dc, kind, f);
-        if (dc != d) continue;
-        pe_eval(kind, f, xs, v, j, j2);
-        g += DIN[r * s.pe_pad + c] * j;
-      }
-      grad[(size_t)gr * 3 + d] = g;
-    }
-  }
-  cp_async_wait<0>();
+  sdf_fwd_grad_block<true>(a, smem);
 }
 
 }  // namespace
@@ -68,14 +39,16 @@ using namespace fmov_train;
 
 extern "C" {
 
-// ptrs: SIG_0..SIG_{L-2} (fused_sdf.py fwd_workspace_specs).  Returns a
-// cudaError_t (0 = launched).
+// ptrs: SIG_0..SIG_{L-2} (fused_sdf.py fwd_workspace_specs).  G blocks,
+// each looping over pairs of 64-point tiles.  Returns a cudaError_t (0 =
+// launched).
 int fmov_sdf_fwd_grad(const float* x, int M, int M_pad, float scale,
                       const void* w, const float* bias, const float* wlast,
                       const int* meta, int n_lin, int skip, int multires,
                       const unsigned long long* ptrs, int G, float* out,
                       int n_out, float* sdf, float* grad, void* stream) {
-  SdfArgs s;
+  FgArgs a;
+  SdfArgs& s = a.s;
   int max_k, max_n, n_bias;
   int e = sdf_setup(s, meta, n_lin, skip, multires, M, M_pad, scale, &max_k,
                     &max_n, &n_bias);
@@ -85,8 +58,38 @@ int fmov_sdf_fwd_grad(const float* x, int M, int M_pad, float scale,
   s.w = static_cast<const bf16*>(w);
   s.bias = bias;
   s.wlast = wlast;
-  return sdf_fwd_launch<FwdSeq>(sdf_fwd_grad_kernel, s, ptrs, G, (cudaStream_t)stream,
-                                out, n_out, sdf, grad);
+  a.out = out;
+  a.n_out = n_out;
+  a.sdf = sdf;
+  a.grad = grad;
+  return sdf_fwd_grad_launch(sdf_fwd_grad_kernel, a, ptrs, G, (cudaStream_t)stream);
+}
+
+// The launch plan of K4's and K2's per-point pass for a layer table
+// (fg_plan), without a launch: out[0] the dynamic shared memory in bytes,
+// out[1] the ring's stages, out[2] the passes a tile, out[3] the threads a
+// block, then (map, n0, nw, k) of each pass, out[4 + 4 p ..].  out holds 4
+// + 4 FG_MAX_SUB ints.  Host code alone.  Returns a cudaError_t,
+// cudaErrorInvalidValue for a table the pass does not take.
+int fmov_sdf_fwd_grad_plan(const int* meta, int n_lin, int skip, int multires, int* out) {
+  FgArgs a;
+  int max_k, max_n, n_bias;
+  int e = sdf_setup(a.s, meta, n_lin, skip, multires, TILE_M, TILE_M, 1.0f, &max_k, &max_n,
+                    &n_bias);
+  if (e) return e;
+  e = fg_plan(a);
+  if (e) return e;
+  out[0] = fg_smem_bytes(a);
+  out[1] = a.stages;
+  out[2] = a.n_sub;
+  out[3] = FG_THREADS;
+  for (int p = 0; p < a.n_sub; ++p) {
+    out[4 + 4 * p] = a.sub[p].map;
+    out[5 + 4 * p] = a.sub[p].n0;
+    out[6 + 4 * p] = a.sub[p].nw;
+    out[7 + 4 * p] = a.sub[p].k;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
 // The SDF pieces the per-point kernels share: the SdfArgs, the layer
-// table's checks and the notation.  K1 (sdf_fwd.cu) runs sdf_fwd_tile, K4
-// (sdf_fwd_grad.cu) and K2 (sdf_flat.cu) sdf_fwd_grad_tile, both in
+// table's checks and the notation.  K1 (sdf_fwd.cu) runs sdf_fwd_tile in
 // sdf_pipe.cuh (a cp.async weight ring, mma.sync register epilogues, A
-// operands in shared memory); K5 (sdf_bwd.cu) and K3 (sdf_flat.cu) run
-// sdf_bwd_tile in sdf_bwd_pass.cuh (a TMA weight ring, wgmma products,
-// the tile's columns split between two warpgroups).  Each pair of the
-// training kernels differs only in its input and output stages.  The rays
+// operands in shared memory); K4 (sdf_fwd_grad.cu) and K2 (sdf_flat.cu)
+// run sdf_fwd_grad_block in sdf_fwd_grad_pass.cuh (a TMA weight ring,
+// wgmma products with A in registers, two tiles a block); K5 (sdf_bwd.cu)
+// and K3 (sdf_flat.cu) run sdf_bwd_tile in sdf_bwd_pass.cuh (a TMA weight
+// ring, wgmma products, the tile's columns split between two warpgroups).
+// Each pair of the training kernels differs only in its input and output
+// stages.  The rays
 // kernels K4/K5 take x [M x 3] and run the positional encoding and its
 // derivatives per tile; the flat kernels K2/K3 take the encoding xe [M x
 // pe_dim] (and K3 the cotangent gbar of the d_inputs) as given and return

@@ -1,9 +1,10 @@
 // Shared pieces of the per-point kernels for Hopper (sm_90a): K1-K9.
-// Their per-point passes run on the pipeline of pipe.cuh (K1, K4, K2
-// through sdf_pipe.cuh, the color kernels K6-K9 through color_train.cuh)
-// or, for K5 and K3, on sdf_bwd_pass.cuh (TMA and wgmma); this file holds
-// the constants, the packed layer table, the fragment order, the
-// activations and the positional encoding they share.
+// Their per-point passes run on the pipeline of pipe.cuh (K1 through
+// sdf_pipe.cuh, the color kernels K6-K9 through color_train.cuh) or on TMA
+// and wgmma (K4 and K2: sdf_fwd_grad_pass.cuh; K5 and K3:
+// sdf_bwd_pass.cuh); this file holds the constants, the packed layer
+// table, the fragment order, the activations and the positional encoding
+// they share.
 //
 // Arithmetic contract (the TPU kernels'): every product rounds both
 // operands to bf16 and accumulates in f32; everything else is f32.
@@ -87,7 +88,7 @@ inline int read_layers(const int* meta, int n_lin, Layer* out, int* max_k,
 }
 
 // One lane's share of a 16x8 block of a 64-row tile's accumulators, in the
-// layout mma.sync (pipe.cuh) and wgmma (sdf_bwd_pass.cuh) share: v[0], v[1]
+// layout mma.sync (pipe.cuh) and wgmma (the passes on it) share: v[0], v[1]
 // at (r, n), (r, n + 1) and v[2], v[3] at (r + 8, n), (r + 8, n + 1), with
 // r = 16 i + lane / 4 and n = 16 j + 8 h + 2 (lane % 4).  Each pipeline
 // gives every element a fixed (warp, lane, register) by its (row, column)

@@ -17,8 +17,8 @@ What bounds it on an H100: about 0.92 MFLOP of products per point for the
 sdf alone against 12 bytes in and 4 out.  The training step's up-sampler
 queries 57,344 points (32,768 + 3 x 8,192) per step, ~53 GFLOP, so the
 products bound it, never the bytes.  It runs on the per-point pipeline of
-K2, K4 and K6-K9 (``csrc/sdf_pipe.cuh``): one block per SM loops over 64-point
-tiles, the weights (1 MB in bf16, too big for shared memory) stream
+K6-K9 (``csrc/sdf_pipe.cuh`` on ``csrc/pipe.cuh``): one block per SM loops
+over 64-point tiles, the weights (1 MB in bf16, too big for shared memory) stream
 through a cp.async ring across layers and tiles, the products run on
 mma.sync with their epilogues in registers, and a tile's activations stay
 in shared memory.  See the source's header.
@@ -306,13 +306,13 @@ def sdf_apply_fused(params, cfg, x):
 # f32, and so are the bias and column-0 sums.
 #
 # On an H100 K4 is ~2.2 MFLOP per point and K5 ~6.6 (33 products of
-# ~256x256 per point, plus the weight gradients).  K4 runs the per-point
-# pipeline of the forward kernels (``csrc/sdf_pipe.cuh``): the weights
-# stream through a cp.async ring, the products run on mma.sync with their
-# epilogues in registers, and each product's A operand stays in shared
-# memory.  K5's per-point pass has a pipeline of its own
-# (``csrc/sdf_bwd_pass.cuh``): a TMA weight ring,
-# wgmma products whose output columns two warpgroups split, A operands in
+# ~256x256 per point, plus the weight gradients).  Each runs a per-point
+# pass of its own on a TMA weight ring and wgmma.  K4's
+# (``csrc/sdf_fwd_grad_pass.cuh``) keeps two 64-point tiles in flight a
+# block, one a warpgroup, with the A operands in registers, and the two
+# warpgroups take turns at the tensor cores, so one tile's epilogue runs
+# under the other's products.  K5's (``csrc/sdf_bwd_pass.cuh``) splits
+# each product's output columns between two warpgroups, A operands in
 # shared memory.  The per-point intermediates that do not fit beside
 # them go to a workspace in device memory: K4 only its sigmoids
 # (``fwd_workspace_specs``), K5 also the gradient chain, the cotangents
@@ -350,9 +350,10 @@ PROFILE_K4, PROFILE_K5 = "fmov::K4_sdf_fwd_grad", "fmov::K5_sdf_bwd"
 MIN_SAMPLES_RAYS = 65536
 
 
-# The widest hidden layer K2-K5 take: K5/K3's per-point pass writes a
+# The widest hidden layer K2-K5 take: their per-point passes write a
 # hidden layer's output in one pass of 256 columns (``BWD_NW`` in
-# ``csrc/sdf_bwd_pass.cuh``).  K1 takes up to 384.
+# ``csrc/sdf_bwd_pass.cuh``, ``FG_NW`` in ``csrc/sdf_fwd_grad_pass.cuh``:
+# there the next product's A operand, in registers).  K1 takes up to 384.
 MAX_HIDDEN_TRAIN = 256
 
 
@@ -618,7 +619,7 @@ def _typed(lib, signatures):
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (x, M, M_pad, scale, w, b, wlast, meta, n_lin, skip, multires, ptrs, G,
 #  out, n_out, sdf, grad, stream); K2 takes xe for x and d_inputs for
-#  (sdf, grad)
+#  (sdf, grad); G blocks, each looping over pairs of 64-point tiles
 _FWD_GRAD_ARGS = [_VP, _CI, _CI, _CF, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP, _CI,
                   _VP, _CI, _VP, _VP, _VP]
 _FWD_GRAD_FLAT_ARGS = _FWD_GRAD_ARGS[:15] + [_VP, _VP]
@@ -628,8 +629,9 @@ _FWD_GRAD_FLAT_ARGS = _FWD_GRAD_ARGS[:15] + [_VP, _VP]
 _BWD_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CF, _VP, _VP, _VP, _VP, _CI, _CI,
              _CI, _VP, _CI, _VP, _VP]
 _BWD_FLAT_ARGS = _BWD_ARGS[1:]
-# (meta, n_lin, skip, multires, out[4])
+# (meta, n_lin, skip, multires, out[4]); K4/K2's takes out[4 + 4 x 64]
 _BWD_PLAN_ARGS = [_VP, _CI, _CI, _CI, _VP]
+_FWD_GRAD_PLAN_INTS = 4 + 4 * 64  # csrc/sdf_fwd_grad_pass.cuh FG_MAX_SUB
 
 
 # (x, M, M_pad, scale, w, b, meta, n_lin, skip, multires, G, out, n_out,
@@ -644,7 +646,9 @@ def _lib():
 
 def _rays_lib():
     from fmov_pose_torch.ops import build
-    return (_typed(build.library("sdf_fwd_grad"), {"fmov_sdf_fwd_grad": _FWD_GRAD_ARGS}),
+    return (_typed(build.library("sdf_fwd_grad"),
+                   {"fmov_sdf_fwd_grad": _FWD_GRAD_ARGS,
+                    "fmov_sdf_fwd_grad_plan": _BWD_PLAN_ARGS}),
             _typed(build.library("sdf_bwd"), {"fmov_sdf_bwd": _BWD_ARGS,
                                               "fmov_sdf_bwd_plan": _BWD_PLAN_ARGS}))
 
@@ -671,6 +675,13 @@ def _grid(device, n_tiles: int) -> int:
     return max(1, min(n_tiles, sms))
 
 
+def _fwd_grid(device, n_tiles: int) -> int:
+    """Blocks of K4/K2's pass: each block's two warpgroups take a pair of
+    tiles at a time (``sdf_fwd_grad_block``), so at most one block per SM
+    and per pair."""
+    return _grid(device, (n_tiles + 1) // 2)
+
+
 def _raise_on(lib, err, what, M):
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
@@ -679,11 +690,12 @@ def _raise_on(lib, err, what, M):
 
 
 def fwd_workspace_specs(table, M_pad: int):
-    """K4/K2's per-point arrays, in the order of ``sdf_fwd_launch``'s
-    pointer table (csrc/sdf_pipe.cuh): SIG_0..SIG_{L-2}, the sigmoids the
+    """K4/K2's per-point arrays, in the order of ``sdf_fwd_grad_launch``'s
+    pointer table (csrc/sdf_fwd_grad_pass.cuh): SIG_0..SIG_{L-2}, the sigmoids the
     reverse chain reads back, in the per-point pass's fragment order (each
     64-row tile of a [M_pad, np(l)] array one row of 64 np(l) values,
-    ``frag4``); the layer inputs and D_l stay in shared memory.  Returns
+    ``frag4``), each tile's written and read back by the warpgroup that owns
+    it; the layer inputs and D_l stay on chip.  Returns
     [(name, rows, width, dtype)]."""
     t = np.asarray(table).tolist()
     tiles = M_pad // packing.TILE_M
@@ -739,6 +751,25 @@ def bwd_launch_plan(pk: RaysPack) -> dict:
     return dict(zip(("smem", "stages", "passes", "threads"), out))
 
 
+def fwd_grad_launch_plan(pk: RaysPack) -> dict:
+    """The launch plan of K4/K2's per-point pass for ``pk``'s layer table,
+    from the library that launches it (``fmov_sdf_fwd_grad_plan``,
+    ``csrc/sdf_fwd_grad_pass.cuh`` ``fg_plan``): dynamic shared memory in
+    bytes, ring stages, passes a tile, threads a block, and each pass as
+    (map, n0, nw, k): tensor map 2 l (F_l) or 2 l + 1 (R_l), output columns
+    [n0, n0 + nw), reduction columns [0, k)."""
+    lib, _ = _rays_lib()
+    out = (ctypes.c_int * _FWD_GRAD_PLAN_INTS)()
+    err = lib.fmov_sdf_fwd_grad_plan(pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin,
+                                     pk.skip, pk.multires, out)
+    if err:
+        raise ValueError("K4/K2's per-point pass does not take this layer table: "
+                         f"{lib.fmov_train_error_string(err).decode()}")
+    passes = [tuple(out[4 + 4 * p:8 + 4 * p]) for p in range(out[2])]
+    return {"smem": out[0], "stages": out[1], "passes": out[2], "threads": out[3],
+            "table": passes}
+
+
 def _bwd_workspace(pk: RaysPack, M_pad: int, G: int, KS: int, dev):
     """K5/K3's workspace (``bwd_workspace_specs``), allocated; returns
     (workspace, n_bias)."""
@@ -772,7 +803,7 @@ def launch_fwd_grad(pk: RaysPack, x: torch.Tensor):
             pk.b_buf.data_ptr(), pk.wlast.data_ptr(),
             pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin, pk.skip,
             pk.multires, ws_.table.ctypes.data_as(ctypes.c_void_p),
-            _grid(x.device, M_pad // packing.TILE_M), out.data_ptr(), pk.n_out,
+            _fwd_grid(x.device, M_pad // packing.TILE_M), out.data_ptr(), pk.n_out,
             sdf.data_ptr(), grad.data_ptr(), stream)
     _raise_on(lib, err, "sdf_fwd_grad", M)
     LAUNCHES_K4 += 1
@@ -853,7 +884,7 @@ def launch_fwd_grad_flat(pk: RaysPack, xe: torch.Tensor):
             pk.b_buf.data_ptr(), pk.wlast.data_ptr(),
             pk.meta.ctypes.data_as(ctypes.c_void_p), pk.n_lin, pk.skip,
             pk.multires, ws_.table.ctypes.data_as(ctypes.c_void_p),
-            _grid(dev, M_pad // packing.TILE_M), out.data_ptr(), pk.n_out,
+            _fwd_grid(dev, M_pad // packing.TILE_M), out.data_ptr(), pk.n_out,
             d_inputs.data_ptr(), stream)
     _raise_on(lib, err, "sdf_fwd_grad_flat", M)
     LAUNCHES_K2 += 1

@@ -5,7 +5,7 @@ pipeline (K1, K4, K2, K5, K3, and the color MLP's K8, K6, K9 and K7) and
 the weight-gradient stage's ``wgrad_kernel``.
 
 The kernels read the workspace through a pointer table in the order of
-``sdf_bwd_launch`` (``ops/csrc/sdf_pipe.cuh``): AB_l ([FB_l; X_l]),
+``sdf_bwd_launch`` (``ops/csrc/sdf_bwd_pass.cuh``): AB_l ([FB_l; X_l]),
 BB_l ([D_l; ZB_l]), SIG_l, DS_l, ZC_l, then the partial sums.  The bf16
 operands of the weight-gradient product stay row-major; the f32 arrays
 that only the per-point pass reads back are stored in its fragment order,

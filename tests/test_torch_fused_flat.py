@@ -27,8 +27,9 @@ Tolerances:
   the global gradient norm), the gate the JAX kernels met.
 
 The CUDA kernels run only on the card: the ``cuda``-marked tests hold them
-against the plain versions at the full width, and K3 also bitwise over two
-launches and on a narrow table (a skip layer, 128 wide).
+against the plain versions at the full width, and K2 and K3 also bitwise
+over two launches and on narrower tables (K3: a skip layer, 128 wide; K2:
+the full, small and narrow widths at M = 32,768, 300 and 1,000).
 """
 
 import jax
@@ -275,3 +276,33 @@ def test_k3_bitwise_twice_and_plain_on_cuda(cfg, M):
         {"xebar": xebar, **{f"w{l}": w for l, w in enumerate(dws)},
          **{f"b{l}": b for l, b in enumerate(dbs)}})
     assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,M", [pytest.param(c, M, id=f"{name}-{M}")
+                                   for name, c in (("full", FULL), ("small", SMALL),
+                                                   ("narrow", NARROW))
+                                   for M in (32768, 300, 1000)])
+def test_k2_bitwise_twice_and_plain_on_cuda(cfg, M):
+    """K2 (its per-point pass, csrc/sdf_fwd_grad_pass.cuh: two tiles a block,
+    A in registers) gives the same bits on two launches at the phase-1
+    step's M = 32,768 and the ragged 300 (one pair, its second tile empty)
+    and 1,000, at the full, small and narrow widths; each against the plain
+    version by the row rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    ws, bs = fused_sdf.materialize(convert.to_torch(convert.to_numpy(
+        tn.init_sdf(np.random.default_rng(2), cfg)), dev), cfg)
+    x = torch.from_numpy(_inputs(M, cfg, 7)[0]).to(dev)
+    xe, _, _, _ = fused_sdf.pe_parts(x * cfg["scale"], cfg["multires"])
+    pk = fused_sdf.RaysPack(ws, bs, cfg)
+    first = fused_sdf.launch_fwd_grad_flat(pk, xe)
+    second = fused_sdf.launch_fwd_grad_flat(pk, xe)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    ro, rd = fused_sdf.sdf_fwd_grad_flat_plain(ws, bs, xe, cfg)
+    errs = fused_sdf.tolerance_check(ro.cpu(), first[0].cpu())
+    assert errs["ok"], errs
+    _rows_ok(rd.cpu().numpy(), first[1].cpu(), "d_inputs")

@@ -26,8 +26,9 @@ Tolerances:
   four seeds.
 
 The CUDA kernels run only on the card: the ``cuda``-marked tests hold them
-against the plain versions at the full width, and K5 also bitwise over two
-launches and on a narrow table (a skip layer, 128 wide).
+against the plain versions at the full width, and K4 and K5 also bitwise
+over two launches and on narrower tables (K5: a skip layer, 128 wide; K4:
+the full, small and narrow widths at M = 65,536, 300 and 1,000).
 """
 
 import jax
@@ -271,3 +272,35 @@ def test_k5_bitwise_twice_and_plain_on_cuda(cfg, B, N):
         {"x": xb, **{f"w{l}": w for l, w in enumerate(dws)},
          **{f"b{l}": b for l, b in enumerate(dbs)}})
     assert res["ok"], res
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,M", [pytest.param(c, M, id=f"{name}-{M}")
+                                   for name, c in (("full", FULL), ("small", SMALL),
+                                                   ("narrow", NARROW))
+                                   for M in (65536, 300, 1000)])
+def test_k4_bitwise_twice_and_plain_on_cuda(cfg, M):
+    """K4 (its per-point pass, csrc/sdf_fwd_grad_pass.cuh: two tiles a block,
+    A in registers) gives the same bits on two launches at the fast conf's
+    M = 65,536 and the ragged 300 (one pair, its second tile empty) and
+    1,000, at the full, small and narrow widths; each against the plain
+    version: out by tolerance_check, grad by the row rule, sdf = out[:, 0]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    ws, bs = fused_sdf.materialize(convert.to_torch(convert.to_numpy(
+        tn.init_sdf(np.random.default_rng(2), cfg)), dev), cfg)
+    x = torch.from_numpy(_inputs(M, cfg["d_out"], 7)[0]).to(dev)
+    pk = fused_sdf.RaysPack(ws, bs, cfg)
+    first = fused_sdf.launch_fwd_grad(pk, x)
+    second = fused_sdf.launch_fwd_grad(pk, x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    out, sdf, grad = first
+    assert torch.equal(sdf, out[:, 0])
+    ro, rg = fused_sdf.sdf_fwd_grad_plain(ws, bs, x, cfg)
+    errs = fused_sdf.tolerance_check(ro.cpu(), out.cpu())
+    assert errs["ok"], errs
+    _check_rows(rg.cpu().numpy(), grad.cpu())

@@ -2,9 +2,11 @@
 (``fmov_pose_torch/ops/fused_sdf.py``, ``fwd_workspace_specs``).
 
 The kernels keep each product's A operand (the layer inputs X_l and the
-chain's D_l) in shared memory; only the sigmoids SIG_0..SIG_{L-2}, which
-the reverse chain reads back, go to device memory, through a pointer table
-in the order of ``sdf_fwd_launch`` (``ops/csrc/sdf_pipe.cuh``).  They are
+chain's D_l) on chip, in registers; only the sigmoids SIG_0..SIG_{L-2},
+which the reverse chain reads back, go to device memory, through a pointer
+table in the order of ``sdf_fwd_grad_launch``
+(``ops/csrc/sdf_fwd_grad_pass.cuh``), each tile's written and read back by
+the warpgroup that owns it.  They are
 stored in the per-point pass's fragment order, each 64-row tile of a
 [M_pad, np(l)] array as one row of 64 np(l) values.  The kernels
 themselves run only on the card (the ``cuda``-marked tests of
